@@ -106,15 +106,18 @@ def deviation_statistics(prediction: np.ndarray, ground_truth: np.ndarray):
 def tiled_net_out(model: FeatureGridModel, meta: VolumeMeta,
                   gt_vol: Optional[np.ndarray] = None, evaluate: bool = True,
                   write_vols: bool = False, filename: str = 'vol',
-                  device: str | torch.device = 'cuda'):
+                  device: str | torch.device = 'cuda',
+                  gt_dev: Optional[torch.Tensor] = None):
     """Reconstruct, optionally compute stats and write .vti volumes.
 
-    Without volume files the stats come from :func:`eval_stats_on_device`;
+    Without volume files the stats come from :func:`eval_stats_on_device`
+    (on ``gt_dev``, the ground truth already on the device, when given);
     with them, the field comes to the host and the stats are taken there in
     float64."""
     dev = resolve_device(device)
     if evaluate and not write_vols and gt_vol is not None:
-        vol = torch.from_numpy(np.ascontiguousarray(gt_vol, dtype=np.float32))
+        vol = gt_dev if gt_dev is not None else torch.from_numpy(
+            np.ascontiguousarray(gt_vol, dtype=np.float32))
         return eval_stats_on_device(model, meta, vol, device=dev)
     full_vol = field_from_net(model, meta, device=dev)
     psnr, l1, mse, rmse = 0.0, 0.0, 0.0, 0.0

@@ -1,21 +1,27 @@
 """The latent-feature-grid model (port of the JAX package's
-``models/feature_grid.py``, forward path).
+``models/feature_grid.py``).
 
-Forward: decode the wavelet pyramid -> trilinear feature fetch at the input
-coords (grid_sample align_corners=False semantics) -> concat
+Forward: decode the (gated) wavelet pyramid -> trilinear feature fetch at the
+input coords (grid_sample align_corners=False semantics) -> concat
 [coords, fourier(coords), features] -> num_layers x (Linear + SnakeAlt) ->
 final Linear; ``train=False`` clamps the output to [-1, 1].
 
 The architecture lives in the frozen :class:`ModelSpec`; the parameters in a
 :class:`FeatureGridModel` (``coeffs``: lowpass (F, g, g, g) then details
 (F, 7, s, s, s), coarsest first; ``mlp_w`` in ``nn.Linear``'s (out, in)
-layout; ``mlp_b``).  Gates and training are not ported yet.
+layout; ``mlp_b``; with smallify gates also ``betas`` and the tracker
+buffers ``ema`` and ``ema_var``).  The forward functions read only those
+attributes, so they also take a :class:`Params` of plain tensors (the
+trainer's views into its flat parameter vector).
+
+Between the training phases, :func:`save_dropvalues_on_grid` bakes the gate
+values into the grid and :func:`remove_drop_layers` hard-prunes it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -26,9 +32,10 @@ from ..ops.embedding import fourier_embed, fourier_out_dim
 from ..ops.grid_sample import fetch
 from ..ops.interpolation import channel_minor
 from ..ops.mlp import init_mlp, mlp_apply, snake_alt
+from . import gates as G
 
 # every config value of interp_backend that means "the trilinear fetch": the
-# CUDA kernel on the card, its plain version on the CPU
+# CUDA kernels on the card, their plain versions on the CPU
 _TRILINEAR = ('auto', 'xla', 'pallas')
 
 
@@ -44,6 +51,10 @@ class ModelSpec:
     grid_features: int = 16
     grid_size: int = 32
     wavelet: str = 'db2'
+    drop_type: str = ''
+    drop_momentum: float = 0.025
+    # per-level pruning thresholds, lowpass first
+    thresholds: Tuple[float, ...] = ()
     # spatial shapes to restore per decode level, coarsest first
     level_shapes: Tuple[Tuple[int, int, int], ...] = ()
 
@@ -74,16 +85,17 @@ def level_shapes_for(grid_size: int, wavelet: str) -> Tuple[Tuple[int, int, int]
 
 def make_spec(d_in=3, hidden=32, d_out=1, num_layers=4, n_freqs=2,
               grid_features=16, grid_size=32, wavelet='db2', drop_type='',
-              interp_backend='auto', compute_dtype='float32',
-              mlp_backend='xla') -> ModelSpec:
-    """Build a ModelSpec, precomputing the wavelet pyramid level shapes.
+              drop_momentum=0.025, drop_threshold=0.75,
+              pruning_threshold_list=None, interp_backend='auto',
+              compute_dtype='float32', mlp_backend='xla') -> ModelSpec:
+    """Build a ModelSpec, precomputing the wavelet pyramid level shapes and
+    the per-level pruning thresholds (``pruning_threshold_list`` entries in
+    coefficient order, ``drop_threshold`` for the rest).
 
     ``interp_backend`` 'auto', 'xla' and 'pallas' all select the trilinear
-    fetch.  Options whose kernels are not ported yet raise instead of being
-    swapped for something else."""
-    if drop_type:
-        raise ValueError(f"drop_type={drop_type!r}: gates are not yet ported "
-                         f"(training slice, ROADMAP Queue 1 item 1)")
+    fetch.  Options whose kernels or modules are not ported yet raise instead
+    of being swapped for something else."""
+    G.check_drop_type(drop_type)
     if interp_backend == 'pallas_bf16':
         raise ValueError("interp_backend='pallas_bf16' is not yet ported "
                          "(bf16 compute path, ROADMAP Queue 1 item 3)")
@@ -106,11 +118,17 @@ def make_spec(d_in=3, hidden=32, d_out=1, num_layers=4, n_freqs=2,
     if wavelet in ('', 'none'):
         # no-wavelet mode: the single coefficient tensor is the spatial grid
         wavelet = 'none'
+    level_shapes = level_shapes_for(grid_size, wavelet)
+    n_tensors = len(level_shapes) + 1
+    tl = list(pruning_threshold_list or [])
+    thresholds = tuple(tl[i] if i < len(tl) else drop_threshold
+                       for i in range(n_tensors))
     return ModelSpec(d_in=d_in, hidden=hidden, d_out=d_out,
                      num_layers=num_layers, n_freqs=n_freqs,
                      grid_features=grid_features, grid_size=grid_size,
-                     wavelet=wavelet,
-                     level_shapes=level_shapes_for(grid_size, wavelet))
+                     wavelet=wavelet, drop_type=drop_type,
+                     drop_momentum=drop_momentum, thresholds=thresholds,
+                     level_shapes=level_shapes)
 
 
 def coeff_shapes(spec: ModelSpec) -> Tuple[Tuple[int, ...], ...]:
@@ -125,12 +143,27 @@ def coeff_shapes(spec: ModelSpec) -> Tuple[Tuple[int, ...], ...]:
     return ((Fs,) + sub[0],) + tuple((Fs, 7) + s for s in sub)
 
 
+@dataclasses.dataclass
+class Params:
+    """A model's tensors as the forward functions read them."""
+
+    spec: ModelSpec
+    coeffs: Sequence[torch.Tensor]
+    mlp_w: Sequence[torch.Tensor]
+    mlp_b: Sequence[torch.Tensor]
+    betas: Optional[Sequence[torch.Tensor]] = None
+
+
 class FeatureGridModel(nn.Module):
-    """Parameters of one model: wavelet coefficients and the MLP.  The
-    forward pass is :func:`apply_model`."""
+    """Parameters of one model: wavelet coefficients, the MLP and, with
+    smallify gates, their betas (parameters) and tracker state (buffers).
+    The forward pass is :func:`apply_model`."""
 
     def __init__(self, spec: ModelSpec, coeffs: Sequence[torch.Tensor],
-                 mlp_w: Sequence[torch.Tensor], mlp_b: Sequence[torch.Tensor]):
+                 mlp_w: Sequence[torch.Tensor], mlp_b: Sequence[torch.Tensor],
+                 betas: Optional[Sequence[torch.Tensor]] = None,
+                 ema: Optional[Sequence[torch.Tensor]] = None,
+                 ema_var: Optional[Sequence[torch.Tensor]] = None):
         super().__init__()
         want = coeff_shapes(spec)
         got = tuple(tuple(c.shape) for c in coeffs)
@@ -140,12 +173,43 @@ class FeatureGridModel(nn.Module):
         self.coeffs = nn.ParameterList([nn.Parameter(c) for c in coeffs])
         self.mlp_w = nn.ParameterList([nn.Parameter(w) for w in mlp_w])
         self.mlp_b = nn.ParameterList([nn.Parameter(b) for b in mlp_b])
+        self.betas = None
+        if betas is not None:
+            sizes = tuple(s[1:] for s in want)
+            if tuple(tuple(b.shape) for b in betas) != sizes:
+                raise ValueError(f"gate shapes {[tuple(b.shape) for b in betas]} "
+                                 f"do not match the coefficients' {sizes}")
+            self.betas = nn.ParameterList([nn.Parameter(b) for b in betas])
+            ema = [torch.sign(b.detach()) for b in betas] if ema is None else ema
+            ema_var = ([torch.zeros_like(b) for b in betas] if ema_var is None
+                       else ema_var)
+            for i, (e, v) in enumerate(zip(ema, ema_var)):
+                self.register_buffer(f'ema_{i}', torch.as_tensor(e))
+                self.register_buffer(f'ema_var_{i}', torch.as_tensor(v))
+
+    def _buffers_named(self, name: str) -> Optional[List[torch.Tensor]]:
+        if self.betas is None:
+            return None
+        return [getattr(self, f'{name}_{i}') for i in range(len(self.betas))]
+
+    @property
+    def ema(self) -> Optional[List[torch.Tensor]]:
+        return self._buffers_named('ema')
+
+    @property
+    def ema_var(self) -> Optional[List[torch.Tensor]]:
+        return self._buffers_named('ema_var')
+
+
+def _detached(ts):
+    return None if ts is None else [t.detach().clone() for t in ts]
 
 
 def init_model(spec: ModelSpec, generator: torch.Generator,
                device: str | torch.device = 'cpu') -> FeatureGridModel:
     """Grid: U(0, 1) volume -> multi-level DWT; MLP: nn.Linear's default
-    init.  Everything is drawn from ``generator`` on the CPU, then moved."""
+    init; gates: betas ~ N(0, 1).  Everything is drawn from ``generator`` on
+    the CPU, in that order, then moved."""
     grid = torch.rand((spec.grid_features,) + (spec.grid_size,) * 3,
                       generator=generator)
     if spec.num_levels == 0:
@@ -155,25 +219,34 @@ def init_model(spec: ModelSpec, generator: torch.Generator,
         assert tuple(tuple(int(v) for v in s) for s in shapes) == spec.level_shapes
     mlp_w, mlp_b = init_mlp(generator, spec.mlp_in, spec.hidden, spec.d_out,
                             spec.num_layers)
-    return FeatureGridModel(spec, coeffs, mlp_w, mlp_b).to(device)
+    betas, ema, ema_var = G.init_gates(generator, spec.drop_type,
+                                       [tuple(c.shape) for c in coeffs])
+    return FeatureGridModel(spec, coeffs, mlp_w, mlp_b, betas, ema,
+                            ema_var).to(device)
 
 
-def decode_volume(model: FeatureGridModel,
+def decode_volume(model, *, train_gates: bool = False,
                   masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-    """Inverse DWT -> (F, G, G, G) spatial feature grid.  ``masks``: frozen
-    binary keep-masks (one per coefficient tensor, without the feature axis)
-    multiplied in before decoding."""
+    """(Gated) inverse DWT -> (F, G, G, G) spatial feature grid.
+
+    Gating: ``train_gates`` applies the spec's gates (phase 1); otherwise
+    ``masks``, frozen binary keep-masks (one per coefficient tensor, without
+    the feature axis), are multiplied in (phase 2); with neither the
+    coefficients are decoded as they are."""
     spec = model.spec
     coeffs = list(model.coeffs)
-    if masks is not None:
+    if train_gates and spec.drop_type:
+        coeffs = [G.apply_gate(spec.drop_type, model.betas, i, c)
+                  for i, c in enumerate(coeffs)]
+    elif masks is not None:
         coeffs = [c * m[None] for c, m in zip(coeffs, masks)]
     if spec.num_levels == 0:
         return coeffs[0]
     return decode_pyramid(spec.filter(), coeffs, spec.level_shapes)
 
 
-def predict(model: FeatureGridModel, grid_cl: torch.Tensor,
-            coords: torch.Tensor, train: bool = False) -> torch.Tensor:
+def predict(model, grid_cl: torch.Tensor, coords: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
     """Fetch features from a decoded channel-minor (D, H, W, C) grid and run
     the MLP at (N, d_in) coords -> (N, d_out); ``train=False`` clamps."""
     feats = fetch(grid_cl, coords)
@@ -182,17 +255,54 @@ def predict(model: FeatureGridModel, grid_cl: torch.Tensor,
     return out if train else out.clamp(-1.0, 1.0)
 
 
-def apply_model(model: FeatureGridModel, coords: torch.Tensor, *,
-                train: bool = True,
+def apply_model(model, coords: torch.Tensor, *, train: bool = True,
+                train_gates: bool = False,
                 masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-    """Full forward pass at (N, d_in) normalized coordinates -> (N, d_out).
-
-    On the card the fetch is the CUDA kernel, which has no backward yet: call
-    this under ``torch.no_grad()`` there."""
-    grid = decode_volume(model, masks=masks)
+    """Full forward pass at (N, d_in) normalized coordinates -> (N, d_out),
+    differentiable in the model's tensors (on the card through the fetch
+    kernels' ``torch.autograd.Function``)."""
+    grid = decode_volume(model, train_gates=train_gates, masks=masks)
     return predict(model, channel_minor(grid), coords, train=train)
 
 
-def num_net_params(model: FeatureGridModel) -> int:
-    """Parameter count (coefficients and MLP)."""
-    return int(sum(p.numel() for p in model.parameters()))
+@torch.no_grad()
+def save_dropvalues_on_grid(model: FeatureGridModel):
+    """Bake the gate values into the grid; returns (model', masks, zeros).
+
+    Each coefficient tensor is multiplied by gate * mask; ``zeros`` counts
+    the zeros of the result less the storage cost of the binary masks (one
+    bit per gate value, i.e. gate_size / 32 floats), so it is a float and can
+    be negative.  ``masks`` are the frozen keep-masks of the finetune phase.
+    ``model'`` keeps the gates.  Without gates: (model, None, 0.0)."""
+    spec = model.spec
+    if not spec.drop_type or model.betas is None:
+        return model, None, 0.0
+    betas = list(model.betas)
+    masks = G.pruning_masks(spec.drop_type, model.ema_var, spec.thresholds)
+    baked = G.bake_values(spec.drop_type, betas, model.ema_var,
+                          list(model.coeffs), spec.thresholds)
+    counts = torch.stack([torch.count_nonzero(c) for c in baked]).tolist()
+    zeros = sum(c.numel() - nz for c, nz in zip(baked, counts))
+    mask_bits = G.gate_size(spec.drop_type, betas)
+    out = FeatureGridModel(spec, baked, _detached(model.mlp_w),
+                           _detached(model.mlp_b), _detached(betas),
+                           _detached(model.ema), _detached(model.ema_var))
+    return out, masks, float(zeros) - mask_bits / 32.0
+
+
+@torch.no_grad()
+def remove_drop_layers(model: FeatureGridModel,
+                       masks: Optional[Sequence[torch.Tensor]]) -> FeatureGridModel:
+    """Hard-prune: coeffs *= mask, gates dropped."""
+    if masks is None:
+        return model
+    coeffs = [c.detach() * m[None] for c, m in zip(model.coeffs, masks)]
+    return FeatureGridModel(model.spec, coeffs, _detached(model.mlp_w),
+                            _detached(model.mlp_b))
+
+
+def num_net_params(model) -> int:
+    """Parameter count of the coefficients and the MLP (the gates are left
+    out: they are stored as mask bits, see :func:`save_dropvalues_on_grid`)."""
+    return int(sum(t.numel() for group in (model.coeffs, model.mlp_w, model.mlp_b)
+                   for t in group))

@@ -80,6 +80,18 @@ def _synthesis_matrix_cached(wavelet: str, s_in: int, s_out: int) -> np.ndarray:
     return np.stack(out).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _synthesis_matrix(wavelet: str, s_in: int, s_out: int, device: torch.device,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_synthesis_matrix_cached` as a tensor, kept on ``device``.
+
+    The trainer decodes on every step: a copy from (non-pinned) host memory
+    would synchronise the stream each time, so each operator is copied to the
+    device once and reused.  The cached tensors must not be written to."""
+    return torch.as_tensor(_synthesis_matrix_cached(wavelet, s_in, s_out),
+                           device=device, dtype=dtype)
+
+
 class WaveletFilter3d:
     """3-D DWT with the encode/decode contract of the JAX package.
 
@@ -113,8 +125,8 @@ class WaveletFilter3d:
         spatial = tuple(coeffs.shape[3:])
         shape = tuple(int(v) for v in np.asarray(shape, dtype=int))
         x = coeffs.reshape((B * C, 2, 2, 2) + spatial)
-        Ts = [torch.as_tensor(_synthesis_matrix_cached(self.wavelet, s_in, s_out),
-                              device=coeffs.device, dtype=coeffs.dtype)
+        Ts = [_synthesis_matrix(self.wavelet, s_in, s_out, coeffs.device,
+                                coeffs.dtype)
               for s_in, s_out in zip(spatial, shape)]
         y = torch.einsum('nabwxyz,wzZ->nabxyZ', x, Ts[2])
         y = torch.einsum('nabxyZ,byY->naxYZ', y, Ts[1])

@@ -16,7 +16,7 @@ from latent_feature_grid_compression_tpu.models import feature_grid as jfg
 from latent_feature_grid_compression_tpu_torch.io import checkpoint as tck
 from latent_feature_grid_compression_tpu_torch.io import container as tct
 from latent_feature_grid_compression_tpu_torch.models import feature_grid as tfg
-from tests.torch_port_util import prune
+from tests.torch_port_util import prune, to_port
 
 FIXTURES = os.path.join(os.path.dirname(__file__), 'fixtures')
 
@@ -137,3 +137,95 @@ def test_restore_reads_fully_pruned_section(tmp_path):
     assert not model.coeffs[1].detach().any()
     np.testing.assert_array_equal(model.mlp_w[0].detach().numpy().T,
                                   np.asarray(jparams.mlp_w[0]))
+
+
+@pytest.mark.parametrize('bits', [8, 5])
+@pytest.mark.parametrize('wavelet', ['db2', 'none'])
+def test_port_container_restores_in_both_packages(tmp_path, bits, wavelet):
+    """The port's writer: both readers restore the same arrays, with the
+    zero pattern exact and the quantized values near the originals."""
+    jspec = jfg.make_spec(grid_size=15, grid_features=8, hidden=16,
+                          num_layers=3, wavelet=wavelet)
+    jparams, _ = jfg.init_model(jax.random.key(5), jspec)
+    jparams = prune(jparams, 0.6, seed=bits + 1)
+    spec = tfg.make_spec(grid_size=15, grid_features=8, hidden=16, num_layers=3,
+                         wavelet=wavelet)
+    model = to_port(jparams, spec)
+    path = str(tmp_path / 'binary_model_file')
+    tct.store_model_parameters(model, path, bit_precision=bits)
+    _, jrestored = jct.restore_model(path, wavelet=wavelet)
+    _, restored = tct.restore_model(path, wavelet=wavelet, device='cpu')
+    _assert_same(restored, jrestored)
+    # k-means with 2^bits clusters of the nonzeros; raw first and last layers
+    tol = {8: 0.02, 5: 0.2}[bits]
+    for got, want in zip(restored.coeffs, model.coeffs):
+        got, want = got.detach().numpy(), want.detach().numpy()
+        np.testing.assert_array_equal(got == 0, want == 0)
+        np.testing.assert_allclose(got, want, atol=tol)
+    for i in (0, -1):
+        np.testing.assert_array_equal(restored.mlp_w[i].detach().numpy(),
+                                      model.mlp_w[i].detach().numpy())
+
+
+def test_checkpoints_with_gates_round_trip_both_ways(tmp_path):
+    kw = dict(grid_size=15, grid_features=4, hidden=8, num_layers=2,
+              drop_type='smallify')
+    jspec = jfg.make_spec(**kw)
+    jparams, jaux = jfg.init_model(jax.random.key(6), jspec)
+    rng = np.random.default_rng(6)
+    jaux = jaux.replace(ema_var=tuple(rng.uniform(0, 1, v.shape).astype(np.float32)
+                                      for v in jaux.ema_var))
+    path = str(tmp_path / 'jax.npz')
+    jck.save_checkpoint(path, jparams, jaux, 'smallify')
+    spec = tfg.make_spec(**kw)
+    model = tck.load_checkpoint(path, spec, device='cpu')
+    _assert_same(model, jparams)
+    for got, want in ((model.betas, jparams.gates.betas), (model.ema, jaux.ema),
+                      (model.ema_var, jaux.ema_var)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.detach().numpy(), np.asarray(w))
+
+    back = str(tmp_path / 'port.npz')
+    tck.save_checkpoint(back, model)
+    other, other_aux = jfg.init_model(jax.random.key(7), jspec)
+    loaded, loaded_aux = jck.load_checkpoint(back, other, other_aux)
+    _assert_same(model, loaded)
+    for got, want in ((model.betas, loaded.gates.betas), (model.ema, loaded_aux.ema),
+                      (model.ema_var, loaded_aux.ema_var)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.detach().numpy(), np.asarray(w))
+    # a warm start from a file without gates keeps the fresh model's
+    plain = str(tmp_path / 'plain.npz')
+    jck.save_checkpoint(plain, jparams.replace(gates=None), None, '')
+    fresh = tfg.init_model(spec, torch.Generator().manual_seed(1))
+    warm = tck.load_checkpoint(plain, spec, device='cpu', model=fresh)
+    _assert_same(warm, jparams)
+    assert all(torch.equal(a, b) for a, b in zip(warm.betas, fresh.betas))
+    with pytest.raises(ValueError, match='no gates'):
+        tck.load_checkpoint(plain, spec, device='cpu')
+
+
+def test_kmeans_quantization_is_as_good_as_jax():
+    x = np.random.default_rng(8).standard_normal(20000).astype(np.float32)
+    labels, centers = tct.kmeans_quantization(x, 256)
+    assert labels.min() >= 0 and labels.max() < 256 and centers.dtype == np.float32
+    assert np.all(np.diff(centers) > 0)
+    jlabels, jcenters = jct.kmeans_quantization(x, 256, 0)
+    err = np.mean((centers[labels] - x) ** 2)
+    assert err <= 1.1 * np.mean((jcenters[jlabels] - x) ** 2)
+    # fewer distinct values than clusters: each is a center, the rest zero
+    labels, centers = tct.kmeans_quantization(np.array([2.0, -1.0, 2.0, 5.0]), 32)
+    np.testing.assert_array_equal(centers[labels], [2.0, -1.0, 2.0, 5.0])
+    assert len(centers) == 32 and not centers[3:].any()
+    labels, centers = tct.kmeans_quantization(np.zeros(0), 16)
+    assert labels.shape == (0,) and centers.shape == (16,) and not centers.any()
+
+
+@pytest.mark.parametrize('bits', [1, 3, 5, 8, 9, 12])
+def test_bit_packing_equals_jax(bits, tmp_path):
+    ints = np.random.default_rng(bits).integers(0, 2 ** bits, 301)
+    assert tct.ints_to_bits_to_bytes(ints, bits) == jct.ints_to_bits_to_bytes(ints, bits)
+    mask = (np.random.default_rng(bits + 1).random(1003) < 0.4).astype(np.uint8)
+    tct.write_mask_bnr(mask, str(tmp_path / 'a.bnr'))
+    jct.write_mask_bnr(mask, str(tmp_path / 'b.bnr'))
+    assert (tmp_path / 'a.bnr').read_bytes() == (tmp_path / 'b.bnr').read_bytes()

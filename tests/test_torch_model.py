@@ -123,7 +123,8 @@ def test_init_model_is_seeded_and_bounded():
 
 def test_convert_round_trip_is_exact():
     _, jparams, _, model = _models(8)
-    coeffs, mlp_w, mlp_b = params_to_jax(model)
+    coeffs, mlp_w, mlp_b, gates = params_to_jax(model)
+    assert gates is None
     for got, want in zip(coeffs + mlp_w + mlp_b,
                          list(jparams.coeffs) + list(jparams.mlp_w) + list(jparams.mlp_b)):
         np.testing.assert_array_equal(got, np.asarray(want))
@@ -138,7 +139,7 @@ def test_interp_backends_all_select_the_trilinear_fetch(backend):
 @pytest.mark.parametrize('kwargs', [
     dict(interp_backend='pallas_bf16'), dict(interp_backend='fused'),
     dict(mlp_backend='pallas'), dict(compute_dtype='bfloat16'),
-    dict(drop_type='smallify')])
+    dict(drop_type='straight_through')])
 def test_unported_options_raise(kwargs):
     with pytest.raises(ValueError, match='not yet ported'):
         tfg.make_spec(**dict(FLAGSHIP, **kwargs))

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package, and its CUDA kernel's C entry matches what the wrapper declares."""
+package, and its CUDA kernels' C entries match what the wrappers declare."""
 
 import ast
 import os
@@ -22,7 +22,7 @@ import torch
 import latent_feature_grid_compression_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):
     importlib.import_module(m.name)
-import chip_smoke, infer_torch
+import chip_smoke, infer_torch, train_torch
 from latent_feature_grid_compression_tpu_torch.data.volume import VolumeMeta
 from latent_feature_grid_compression_tpu_torch.eval.reconstruct import tiled_net_out
 from latent_feature_grid_compression_tpu_torch.models.feature_grid import (
@@ -35,6 +35,15 @@ assert out.shape == (64, 1) and bool(torch.isfinite(out).all())
 vol = torch.rand(6, 7, 8).numpy() * 2 - 1
 psnr = tiled_net_out(model, VolumeMeta((6, 7, 8)), gt_vol=vol, device='cpu')[0]
 assert psnr == psnr
+from latent_feature_grid_compression_tpu_torch.config import TrainConfig
+from latent_feature_grid_compression_tpu_torch.train import training
+import os, tempfile
+os.chdir(tempfile.mkdtemp())
+info = training(TrainConfig(basedir='/', expname='e', max_pass=3, batch_size=64,
+                            sample_size=4, grid_size=8, grid_features=4,
+                            n_hidden_size=8, n_layers=2),
+                verbose=False, volume_np=vol, write_vols=False, device='cpu')
+assert info['psnr'] == info['psnr'] and os.path.exists('e/binary_model_file')
 assert not any(k == 'jax' or k.startswith(('jax.', 'latent_feature_grid_compression_tpu.'))
                for k, v in sys.modules.items() if v is not None)
 print('OK')
@@ -56,6 +65,7 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, 'chip_smoke.py')
     yield os.path.join(REPO, 'infer_torch.py')
+    yield os.path.join(REPO, 'train_torch.py')
     # the card's tests run where JAX is not installed
     yield os.path.join(REPO, 'tests', 'test_torch_cuda.py')
 
@@ -77,12 +87,22 @@ def test_no_jax_import_in_port_sources():
     assert not bad, bad
 
 
-def test_kernel_entry_matches_wrapper_signature():
+def _check_entry(kernel, entry):
     """No nvcc here: check statically that the C entry the wrapper binds
     exists with as many parameters as the wrapper declares."""
-    with open(os.path.join(PORT, 'csrc', f'{gs.KERNEL}.cu')) as f:
+    with open(os.path.join(PORT, 'csrc', f'{kernel}.cu')) as f:
         src = f.read()
-    m = re.search(r'extern "C" int lfgc_grid_sample_fwd_f32\(([^)]*)\)', src)
-    assert m, 'C entry lfgc_grid_sample_fwd_f32 missing'
-    assert len(m.group(1).split(',')) == 10
+    m = re.search(r'extern "C" int ' + entry + r'\(([^)]*)\)', src)
+    assert m, f'C entry {entry} missing'
+    assert len(m.group(1).split(',')) == len(gs._ARGTYPES) == 10
+    assert 'extern "C" const char* lfgc_cuda_error_string' in src
     assert 'arch=compute_90a,code=sm_90a' in _build.ARCH_FLAGS
+    assert kernel in _build.kernel_sources()
+
+
+def test_kernel_entry_matches_wrapper_signature():
+    _check_entry(gs.KERNEL, 'lfgc_grid_sample_fwd_f32')
+
+
+def test_bwd_kernel_entry_matches_wrapper_signature():
+    _check_entry(gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_f32')

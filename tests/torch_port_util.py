@@ -7,12 +7,17 @@ import numpy as np
 from latent_feature_grid_compression_tpu_torch.convert import params_from_jax
 
 
-def to_port(jax_params, spec, device='cpu'):
-    """A JAX ``ModelParams`` carried across to the port's model."""
-    return params_from_jax([np.asarray(c) for c in jax_params.coeffs],
-                           [np.asarray(w) for w in jax_params.mlp_w],
-                           [np.asarray(b) for b in jax_params.mlp_b],
-                           spec, device=device)
+def to_port(jax_params, spec, device='cpu', gate_aux=None):
+    """A JAX ``ModelParams`` (and its smallify ``gate_aux``) carried across
+    to the port's model."""
+    def a(ts):
+        return None if ts is None else [np.asarray(t) for t in ts]
+    gates = jax_params.gates
+    return params_from_jax(a(jax_params.coeffs), a(jax_params.mlp_w),
+                           a(jax_params.mlp_b), spec, device=device,
+                           betas=None if gates is None else a(gates.betas),
+                           ema=None if gate_aux is None else a(gate_aux.ema),
+                           ema_var=None if gate_aux is None else a(gate_aux.ema_var))
 
 
 def prune(jax_params, fraction, seed):
