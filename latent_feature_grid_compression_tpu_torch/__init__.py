@@ -7,7 +7,11 @@ imports ``torch`` and never ``jax`` nor anything of the JAX package.
 
 Ported so far: the decompression path (npz checkpoint or packed binary
 container -> wavelet decode -> trilinear feature fetch, a hand-written CUDA
-kernel on the card -> Fourier embedding + SnakeAlt MLP -> full-volume PSNR).
+kernel on the card -> Fourier embedding + SnakeAlt MLP -> full-volume PSNR),
+single-device smallify training (the fetch's grid gradient a CUDA kernel
+too), and the two kernel backends of the model forward: the fused SnakeAlt
+MLP (``mlp_backend='pallas'``) and the one-kernel fetch + embedding + MLP
+(``interp_backend='fused'``), each a CUDA kernel forward and backward.
 Entry points run on ``device='cuda'`` unless the caller passes ``'cpu'``.
 """
 

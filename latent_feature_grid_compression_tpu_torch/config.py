@@ -67,8 +67,12 @@ class TrainConfig:
     mesh_local_decode: int = 0      # 1: each device decodes only its grid
                                     # x-tile (+halo)
     compute_dtype: str = 'float32'
-    interp_backend: str = 'auto'    # 'auto' | 'xla' | 'pallas' | 'pallas_bf16'
-    mlp_backend: str = 'xla'        # 'xla' | 'pallas'
+    interp_backend: str = 'auto'    # 'auto' | 'xla' | 'pallas': the fetch
+                                    # kernels; 'fused': one kernel for fetch,
+                                    # embedding and MLP; 'pallas_bf16': not
+                                    # yet ported
+    mlp_backend: str = 'xla'        # 'xla': the MLP as PyTorch ops;
+                                    # 'pallas': the fused MLP kernels
     rng_impl: str = 'rbg'           # the JAX package's key type; the port
                                     # draws from a torch.Generator
     profile_dir: str = ''           # profiler trace output dir

@@ -1,0 +1,241 @@
+// The one-kernel model forward (trilinear fetch + Fourier embedding + the
+// SnakeAlt MLP), forward and backward, for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of
+// latent_feature_grid_compression_tpu/ops/fused_forward.py:
+//   _fwd_kernel  (from _fused_fwd)
+//   _bwd_kernel  (from _fused_bwd: recompute the MLP, emit dW, db and the
+//                 grid's gradient; no coordinate gradient)
+// Those fetch through one-hot matmuls over a G_stack layout so that the TPU
+// avoids gathers and scatters, and keep x0 and the activations in VMEM.  Here
+// each sample's features come straight from the channel-minor (D, H, W, C)
+// grid with the fetch kernel's own pixel map and corner order
+// (trilinear.cuh), so they equal csrc/grid_sample_fwd.cu's bit for bit; x0 =
+// [coords | sin/cos(2^j 2 pi coords) | features] goes into shared memory, and
+// the MLP runs there as in csrc/mlp_fused.cu (snake_mlp.cuh).  Only the
+// (N, d_out) output leaves the block: the backward recomputes x0 (cheaper
+// than storing it) and the chain.
+//
+// The backward's dW and db are reduced per block and then in a fixed order;
+// the feature columns of dX (float32) are routed into the channel-minor
+// gradient of the grid through the 8 corner weights with atomicAdd, like
+// csrc/grid_sample_bwd.cu.  The atomics add in an order that changes from run
+// to run: the grid's gradient is not bitwise reproducible.
+//
+// Bound on the card: operations.  Per sample it reads 12 bytes of
+// coordinates and writes 4 * d_out (the grid, 216 KB at the flagship, stays
+// in L2), while the MLP costs 8,192 FLOPs forward at the flagship widths (the
+// fetch 2 * 8 * C more).  This first kernel runs the MLP on the CUDA cores in
+// float32 FMAs; tensor cores are later work.
+//
+// Precision: `bf16` set is the TPU kernel's 'mixed' (the fetch and the
+// routing into dG in float32, the MLP's products on bfloat16 operands);
+// unset, everything is float32.  sinf/cosf, not the fast intrinsics: the
+// Fourier arguments reach 2^(n_freqs-1) * 2 pi * |coord|.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "snake_mlp.cuh"
+#include "trilinear.cuh"
+
+namespace {
+
+using namespace lfgc;
+
+struct Grid {
+  const float* data;  // (D, H, W, C)
+  int C, D, H, W;
+};
+
+// float32(2^j * 2 pi), as the plain version's np.float32(2**j * 2 * pi).
+__device__ __forceinline__ float freq(int j) { return ldexpf(6.28318548f, j); }
+
+// op(x0) of the tile's rows into a (zeros past n).
+template <bool BF16>
+__device__ void build_x0(float* a, int P, const float* __restrict__ coords,
+                         const Grid& g, int n_freqs, int S, int64_t row0, int64_t n) {
+  const int emb = 3 + 6 * n_freqs, K0 = emb + g.C;
+  for (int e = threadIdx.x; e < S * K0; e += blockDim.x) {
+    const int s = e / K0, col = e - s * K0;
+    const int64_t r = row0 + s;
+    float v = 0.0f;
+    if (r < n) {
+      const float* c = coords + 3 * r;
+      if (col < 3) {
+        v = c[col];
+      } else if (col < emb) {
+        // per frequency j: sin of the 3 coords, then cos of the 3
+        const int j = (col - 3) / 6, q = col - 3 - 6 * j;
+        const float arg = __fmul_rn(c[q % 3], freq(j));
+        v = q < 3 ? sinf(arg) : cosf(arg);
+      } else {
+        const int ch = col - emb;
+        float acc = 0.0f;
+        for_each_corner(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
+                        [&](int64_t row, float w) {
+                          acc = fmaf(w, __ldg(g.data + row * g.C + ch), acc);
+                        });
+        v = acc;
+      }
+    }
+    a[s * P + col] = op<BF16>(v);
+  }
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kMlpThreads)
+fused_fwd_kernel(Mlp m, Grid g, const float* __restrict__ coords,
+                 float* __restrict__ out, int64_t n, int n_freqs) {
+  extern __shared__ float smem[];
+  const int S = kFwdTile, P = m.pitch;
+  float* a = smem;
+  float* b = a + S * P;
+  float* wst = b + S * P;
+  const int64_t row0 = int64_t(blockIdx.x) * S;
+  build_x0<BF16>(a, P, coords, g, n_freqs, S, row0, n);
+  tile_forward<BF16>(m, a, b, wst, S, out, row0, n);
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kMlpThreads)
+fused_bwd_kernel(Mlp m, Grid g, const float* __restrict__ coords,
+                 const float* __restrict__ gout, float* __restrict__ dgrid,
+                 float* __restrict__ partial, int64_t n, int n_freqs, int S) {
+  extern __shared__ float smem[];
+  const int P = m.pitch, D = m.dim[m.nw], emb = 3 + 6 * n_freqs;
+  float* dz = smem + (2 * m.nw - 1) * S * P;
+  float* slot = partial + int64_t(blockIdx.x) * m.total;
+  const int64_t tiles = (n + S - 1) / S;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t row0 = t * S;
+    __syncthreads();  // the previous tile's readers are done
+    build_x0<BF16>(smem, P, coords, g, n_freqs, S, row0, n);
+    for (int e = threadIdx.x; e < S * D; e += blockDim.x) {
+      const int s = e / D, o = e - s * D;
+      dz[s * P + o] = row0 + s < n ? gout[(row0 + s) * D + o] : 0.0f;
+    }
+    const float* dx = tile_backward<BF16>(m, smem, S, slot, t == blockIdx.x);
+    // route the feature columns of dX into dG through the corner weights
+    for (int e = threadIdx.x; e < S * g.C; e += blockDim.x) {
+      const int s = e / g.C, ch = e - s * g.C;
+      const int64_t r = row0 + s;
+      if (r >= n) continue;
+      const float v = dx[s * P + emb + ch];
+      const float* c = coords + 3 * r;
+      for_each_corner(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
+                      [&](int64_t row, float w) {
+                        atomicAdd(dgrid + row * g.C + ch, __fmul_rn(w, v));
+                      });
+    }
+  }
+}
+
+template <bool BF16>
+cudaError_t launch_fwd(const Mlp& m, const Grid& g, const float* coords, float* out,
+                       int64_t n, int n_freqs, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes(m);
+  cudaError_t err = allow_smem(fused_fwd_kernel<BF16>, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (n + kFwdTile - 1) / kFwdTile;
+  fused_fwd_kernel<BF16><<<dim3(unsigned(blocks)), kMlpThreads, smem, stream>>>(
+      m, g, coords, out, n, n_freqs);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_bwd(const Mlp& m, const Grid& g, const float* coords,
+                       const float* gout, float* dgrid, float* dparams,
+                       float* partial, int64_t n, int n_freqs, cudaStream_t stream) {
+  const int S = bwd_tile(m);
+  if (S == 0) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(m, S);
+  cudaError_t err = allow_smem(fused_bwd_kernel<BF16>, smem);
+  if (err != cudaSuccess) return err;
+  const int slots = bwd_slots(n, S);
+  fused_bwd_kernel<BF16><<<dim3(unsigned(slots)), kMlpThreads, smem, stream>>>(
+      m, g, coords, gout, dgrid, partial, n, n_freqs, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce_slots(partial, dparams, m.total, slots, stream);
+}
+
+bool make_args(Mlp* m, Grid* g, const void* grid, const void* const* w,
+               const void* const* b, const int* dims, int nw, int C, int D, int H,
+               int W, int n_freqs) {
+  if (!make_mlp(m, w, b, dims, nw) || n_freqs < 0 || C < 1 || D < 1 || H < 1 ||
+      W < 1 || dims[0] != 3 + 6 * n_freqs + C) {
+    return false;
+  }
+  g->data = static_cast<const float*>(grid);
+  g->C = C;
+  g->D = D;
+  g->H = H;
+  g->W = W;
+  return true;
+}
+
+}  // namespace
+
+// Plain C entries for ctypes.  Pointers are device pointers except `w`, `b`
+// (host arrays of nw device pointers, one per layer) and `dims` (host array
+// of nw + 1 widths, dims[0] = 3 + 6 n_freqs + C); the launcher copies them
+// into the kernel's by-value parameters.  Each returns the CUDA error of its
+// launches (0 on success).
+
+// out (n, dims[nw]) from the channel-minor grid (D, H, W, C) at coords (n, 3).
+extern "C" int lfgc_fused_forward_fwd(const void* grid, const void* coords,
+                                      const void* const* w, const void* const* b,
+                                      const int* dims, int nw, void* out, int64_t n,
+                                      int C, int D, int H, int W, int n_freqs,
+                                      int bf16, void* stream) {
+  Mlp m;
+  Grid g;
+  if (!make_args(&m, &g, grid, w, b, dims, nw, C, D, H, W, n_freqs)) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return int(cudaSuccess);
+  const float* cp = static_cast<const float*>(coords);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int(bf16 ? launch_fwd<true>(m, g, cp, o, n, n_freqs, s)
+                  : launch_fwd<false>(m, g, cp, o, n, n_freqs, s));
+}
+
+// The number of partial slots lfgc_fused_forward_bwd needs; 0 if the widths
+// do not fit.
+extern "C" int lfgc_fused_forward_bwd_slots(int64_t n, const int* dims, int nw) {
+  Mlp m;
+  if (!make_mlp(&m, nullptr, nullptr, dims, nw) || n <= 0) return 0;
+  const int S = bwd_tile(m);
+  return S ? bwd_slots(n, S) : 0;
+}
+
+// For the output gradient gout (n, dims[nw]): dgrid (D, H, W, C), zeroed by
+// the caller and summed here by atomics, and the flat dparams = [dW_0 ..
+// dW_{nw-1} ((out, in) each), db_0 .. db_{nw-1}].
+extern "C" int lfgc_fused_forward_bwd(const void* grid, const void* coords,
+                                      const void* const* w, const void* const* b,
+                                      const int* dims, int nw, const void* gout,
+                                      void* dgrid, void* dparams, void* partial,
+                                      int64_t n, int C, int D, int H, int W,
+                                      int n_freqs, int bf16, void* stream) {
+  Mlp m;
+  Grid g;
+  if (!make_args(&m, &g, grid, w, b, dims, nw, C, D, H, W, n_freqs)) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return int(cudaSuccess);
+  const float* cp = static_cast<const float*>(coords);
+  const float* gp = static_cast<const float*>(gout);
+  float* dg = static_cast<float*>(dgrid);
+  float* dpp = static_cast<float*>(dparams);
+  float* pp = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int(bf16 ? launch_bwd<true>(m, g, cp, gp, dg, dpp, pp, n, n_freqs, s)
+                  : launch_bwd<false>(m, g, cp, gp, dg, dpp, pp, n, n_freqs, s));
+}
+
+extern "C" const char* lfgc_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

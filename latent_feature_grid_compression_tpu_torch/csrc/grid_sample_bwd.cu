@@ -38,11 +38,14 @@
 // backward, a sequential sum of matmuls, is reproducible).  Tolerances on the
 // card are stated with that reason.
 //
-// The pixel map uses __fmul_rn/__fadd_rn so that it is not contracted into an
-// FMA and rounds exactly as the plain PyTorch version does.
+// The pixel map and corner weights come from trilinear.cuh (shared with the
+// forward and the one-kernel forward); they round exactly as the plain
+// PyTorch version does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "trilinear.cuh"
 
 namespace {
 
@@ -61,15 +64,8 @@ grid_sample_bwd_kernel(const float* __restrict__ g,       // (N, C)
   const int64_t i = t / groups;
   const int c = int(t - i * groups) * kPer;
 
-  const float cx = coords[3 * i + 0];
-  const float cy = coords[3 * i + 1];
-  const float cz = coords[3 * i + 2];
-  const float px = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(cx, 1.0f), float(W)), -1.0f), 0.5f);
-  const float py = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(cy, 1.0f), float(H)), -1.0f), 0.5f);
-  const float pz = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(cz, 1.0f), float(D)), -1.0f), 0.5f);
-  const float lx = floorf(px), ly = floorf(py), lz = floorf(pz);
-  const float fx = __fadd_rn(px, -lx), fy = __fadd_rn(py, -ly), fz = __fadd_rn(pz, -lz);
-  const int x0 = int(lx), y0 = int(ly), z0 = int(lz);
+  const lfgc::Cell cell =
+      lfgc::cell_of(coords[3 * i + 0], coords[3 * i + 1], coords[3 * i + 2], D, H, W);
 
   float gv[4];
   if (VEC4) {
@@ -79,33 +75,16 @@ grid_sample_bwd_kernel(const float* __restrict__ g,       // (N, C)
     gv[0] = __ldg(g + i * int64_t(C) + c);
   }
 
-#pragma unroll
-  for (int dz = 0; dz < 2; ++dz) {
-    const int z = z0 + dz;
-    if (z < 0 || z >= D) continue;
-    const float wz = dz ? fz : __fadd_rn(1.0f, -fz);
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const int y = y0 + dy;
-      if (y < 0 || y >= H) continue;
-      const float wy = dy ? fy : __fadd_rn(1.0f, -fy);
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const int x = x0 + dx;
-        if (x < 0 || x >= W) continue;
-        const float wx = dx ? fx : __fadd_rn(1.0f, -fx);
-        const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-        float* dst = dgrid + ((int64_t(z) * H + y) * W + x) * int64_t(C) + c;
-        if (VEC4) {
-          atomicAdd(reinterpret_cast<float4*>(dst),
-                    make_float4(__fmul_rn(w, gv[0]), __fmul_rn(w, gv[1]),
-                                __fmul_rn(w, gv[2]), __fmul_rn(w, gv[3])));
-        } else {
-          atomicAdd(dst, __fmul_rn(w, gv[0]));
-        }
-      }
+  lfgc::for_each_corner(cell, D, H, W, [&](int64_t r, float w) {
+    float* dst = dgrid + r * int64_t(C) + c;
+    if (VEC4) {
+      atomicAdd(reinterpret_cast<float4*>(dst),
+                make_float4(__fmul_rn(w, gv[0]), __fmul_rn(w, gv[1]),
+                            __fmul_rn(w, gv[2]), __fmul_rn(w, gv[3])));
+    } else {
+      atomicAdd(dst, __fmul_rn(w, gv[0]));
     }
-  }
+  });
 }
 
 template <bool VEC4>

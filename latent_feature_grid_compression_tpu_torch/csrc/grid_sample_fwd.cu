@@ -25,12 +25,15 @@
 // in registers; C > 32 loops over blocks.  Making it faster (staging the grid
 // in shared memory, more samples per thread) is later work.
 //
-// The pixel map uses __fmul_rn/__fadd_rn so it is not contracted into an
-// FMA: it then rounds exactly as the plain PyTorch version does, and the two
-// differ only in the rounding of the 8-term sum.
+// The pixel map and corner weights come from trilinear.cuh (shared with the
+// gradient and the one-kernel forward); they round exactly as the plain
+// PyTorch version does, and the two differ only in the rounding of the 8-term
+// sum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "trilinear.cuh"
 
 namespace {
 
@@ -45,15 +48,8 @@ grid_sample_fwd_kernel(const float* __restrict__ grid,    // (D*H*W, C)
   const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  const float cx = coords[3 * i + 0];
-  const float cy = coords[3 * i + 1];
-  const float cz = coords[3 * i + 2];
-  const float px = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(cx, 1.0f), float(W)), -1.0f), 0.5f);
-  const float py = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(cy, 1.0f), float(H)), -1.0f), 0.5f);
-  const float pz = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(cz, 1.0f), float(D)), -1.0f), 0.5f);
-  const float lx = floorf(px), ly = floorf(py), lz = floorf(pz);
-  const float fx = __fadd_rn(px, -lx), fy = __fadd_rn(py, -ly), fz = __fadd_rn(pz, -lz);
-  const int x0 = int(lx), y0 = int(ly), z0 = int(lz);
+  const lfgc::Cell cell =
+      lfgc::cell_of(coords[3 * i + 0], coords[3 * i + 1], coords[3 * i + 2], D, H, W);
 
   float* __restrict__ dst = out + i * int64_t(C);
 
@@ -62,44 +58,26 @@ grid_sample_fwd_kernel(const float* __restrict__ grid,    // (D*H*W, C)
 #pragma unroll
     for (int k = 0; k < CB; ++k) acc[k] = 0.0f;
 
+    lfgc::for_each_corner(cell, D, H, W, [&](int64_t r, float w) {
+      const float* __restrict__ row = grid + r * int64_t(C) + c0;
+      if (VEC4) {
 #pragma unroll
-    for (int dz = 0; dz < 2; ++dz) {
-      const int z = z0 + dz;
-      if (z < 0 || z >= D) continue;
-      const float wz = dz ? fz : __fadd_rn(1.0f, -fz);
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int y = y0 + dy;
-        if (y < 0 || y >= H) continue;
-        const float wy = dy ? fy : __fadd_rn(1.0f, -fy);
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const int x = x0 + dx;
-          if (x < 0 || x >= W) continue;
-          const float wx = dx ? fx : __fadd_rn(1.0f, -fx);
-          const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-          const float* __restrict__ row =
-              grid + ((int64_t(z) * H + y) * W + x) * int64_t(C) + c0;
-          if (VEC4) {
-#pragma unroll
-            for (int k = 0; k < CB; k += 4) {
-              if (c0 + k < C) {
-                const float4 g = __ldg(reinterpret_cast<const float4*>(row + k));
-                acc[k + 0] = fmaf(w, g.x, acc[k + 0]);
-                acc[k + 1] = fmaf(w, g.y, acc[k + 1]);
-                acc[k + 2] = fmaf(w, g.z, acc[k + 2]);
-                acc[k + 3] = fmaf(w, g.w, acc[k + 3]);
-              }
-            }
-          } else {
-#pragma unroll
-            for (int k = 0; k < CB; ++k) {
-              if (c0 + k < C) acc[k] = fmaf(w, __ldg(row + k), acc[k]);
-            }
+        for (int k = 0; k < CB; k += 4) {
+          if (c0 + k < C) {
+            const float4 g = __ldg(reinterpret_cast<const float4*>(row + k));
+            acc[k + 0] = fmaf(w, g.x, acc[k + 0]);
+            acc[k + 1] = fmaf(w, g.y, acc[k + 1]);
+            acc[k + 2] = fmaf(w, g.z, acc[k + 2]);
+            acc[k + 3] = fmaf(w, g.w, acc[k + 3]);
           }
         }
+      } else {
+#pragma unroll
+        for (int k = 0; k < CB; ++k) {
+          if (c0 + k < C) acc[k] = fmaf(w, __ldg(row + k), acc[k]);
+        }
       }
-    }
+    });
 
     if (VEC4) {
 #pragma unroll

@@ -7,6 +7,8 @@ coordinates are made on the device (``ix = lin // (Y*Z)``, then normalized to
 [-1, 1] and scaled by the anisotropy scales), fetched through the trilinear
 kernel, embedded and run through the MLP, and clamped to [-1, 1].  On the card
 the fetch is the CUDA kernel; nothing is copied to the host but the result.
+As in the JAX evaluation, this path keeps the fetch and the plain MLP
+whatever the spec's ``interp_backend`` and ``mlp_backend``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from ..data.volume import VolumeMeta
 from ..device import resolve_device
-from ..models.feature_grid import FeatureGridModel, decode_volume, predict
+from ..models.feature_grid import FeatureGridModel, decode_volume, predict_trilinear
 from ..ops.interpolation import channel_minor
 
 CHUNK = 1 << 18
@@ -58,7 +60,7 @@ def field_from_net(model: FeatureGridModel, meta: VolumeMeta,
     out = torch.empty(math.ceil(n / chunk) * chunk, device=dev)
     for start in range(0, n, chunk):
         c, _ = lattice_chunk(meta, start, chunk, dev)
-        out[start:start + chunk] = predict(model, grid_cl, c)[:, 0]
+        out[start:start + chunk] = predict_trilinear(model, grid_cl, c)[:, 0]
     return out[:n].cpu().numpy().reshape(meta.resolution)
 
 
@@ -80,7 +82,7 @@ def eval_stats_on_device(model: FeatureGridModel, meta: VolumeMeta,
     for k in range(n_chunks):
         start = k * chunk
         c, valid = lattice_chunk(meta, start, chunk, dev)
-        pred = predict(model, grid_cl, c)[:, 0]
+        pred = predict_trilinear(model, grid_cl, c)[:, 0]
         diff = torch.where(valid, flat[start:start + chunk] - pred, 0.0)
         sums[k, 0] = torch.sum(diff * diff)
         sums[k, 1] = torch.sum(diff.abs())

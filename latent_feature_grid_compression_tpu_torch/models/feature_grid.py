@@ -4,7 +4,13 @@
 Forward: decode the (gated) wavelet pyramid -> trilinear feature fetch at the
 input coords (grid_sample align_corners=False semantics) -> concat
 [coords, fourier(coords), features] -> num_layers x (Linear + SnakeAlt) ->
-final Linear; ``train=False`` clamps the output to [-1, 1].
+final Linear; ``train=False`` clamps the output to [-1, 1].  The spec's
+backends choose how, as the JAX ``apply_model`` does: ``interp_backend=
+'fused'`` runs all of it after the decode in one kernel each way
+(``ops/fused_forward.py``); otherwise the fetch kernels, then the MLP as
+PyTorch ops (``mlp_backend='xla'``) or as the fused MLP kernels
+(``'pallas'``, ``ops/mlp_fused.py``).  The evaluation keeps the fetch and
+the plain MLP whatever the backends (:func:`predict_trilinear`).
 
 The architecture lives in the frozen :class:`ModelSpec`; the parameters in a
 :class:`FeatureGridModel` (``coeffs``: lowpass (F, g, g, g) then details
@@ -29,14 +35,19 @@ from torch import nn
 from ..ops.dwt import WaveletFilter3d, decode_pyramid, encode_pyramid, encoded_size
 from ..wavelets import dwt_max_level
 from ..ops.embedding import fourier_embed, fourier_out_dim
+from ..ops.fused_forward import fused_forward
 from ..ops.grid_sample import fetch
 from ..ops.interpolation import channel_minor
 from ..ops.mlp import init_mlp, mlp_apply, snake_alt
+from ..ops.mlp_fused import MAX_WIDTH, mlp_fused
 from . import gates as G
 
 # every config value of interp_backend that means "the trilinear fetch": the
 # CUDA kernels on the card, their plain versions on the CPU
 _TRILINEAR = ('auto', 'xla', 'pallas')
+# the one-kernel forward keeps the JAX package's eligibility rule: the whole
+# padded grid stack VMEM-resident there (grid_size^2 <= 512)
+FUSED_MAX_HW = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +68,12 @@ class ModelSpec:
     thresholds: Tuple[float, ...] = ()
     # spatial shapes to restore per decode level, coarsest first
     level_shapes: Tuple[Tuple[int, int, int], ...] = ()
+    # 'trilinear' (the fetch kernels, then the MLP) or 'fused' (one kernel
+    # for fetch, embedding and MLP, ops/fused_forward.py)
+    interp_backend: str = 'trilinear'
+    # after the trilinear fetch: 'xla' (the MLP as PyTorch ops) or 'pallas'
+    # (the fused MLP kernels, ops/mlp_fused.py, bf16 operands)
+    mlp_backend: str = 'xla'
 
     @property
     def num_levels(self) -> int:
@@ -92,24 +109,23 @@ def make_spec(d_in=3, hidden=32, d_out=1, num_layers=4, n_freqs=2,
     the per-level pruning thresholds (``pruning_threshold_list`` entries in
     coefficient order, ``drop_threshold`` for the rest).
 
-    ``interp_backend`` 'auto', 'xla' and 'pallas' all select the trilinear
-    fetch.  Options whose kernels or modules are not ported yet raise instead
-    of being swapped for something else."""
+    ``interp_backend`` 'auto', 'xla' and 'pallas' all resolve to
+    'trilinear', the fetch kernels; 'fused' to the one-kernel forward, which
+    needs grid_size^2 <= 512 and every MLP width <= 128 (the JAX package's
+    rule) and raises otherwise, never swapped for another backend.
+    ``mlp_backend`` 'xla' runs the MLP as PyTorch ops, 'pallas' as the fused
+    MLP kernels (every width <= 128, else it raises).  Options whose kernels
+    or modules are not ported yet ('pallas_bf16', bfloat16 compute) raise
+    too."""
     G.check_drop_type(drop_type)
     if interp_backend == 'pallas_bf16':
         raise ValueError("interp_backend='pallas_bf16' is not yet ported "
                          "(bf16 compute path, ROADMAP Queue 1 item 3)")
-    if interp_backend == 'fused':
-        raise ValueError("interp_backend='fused' is not yet ported "
-                         "(fused forward kernel, ROADMAP Queue 2 rows 7-8)")
-    if interp_backend not in _TRILINEAR:
+    if interp_backend not in _TRILINEAR + ('fused',):
         raise ValueError(f"interp_backend must be one of 'auto', 'xla', "
-                         f"'pallas'; got {interp_backend!r}")
-    if mlp_backend == 'pallas':
-        raise ValueError("mlp_backend='pallas' is not yet ported "
-                         "(fused MLP kernel, ROADMAP Queue 2 rows 5-6)")
-    if mlp_backend != 'xla':
-        raise ValueError(f"mlp_backend must be 'xla'; got {mlp_backend!r}")
+                         f"'pallas', 'fused'; got {interp_backend!r}")
+    if mlp_backend not in ('xla', 'pallas'):
+        raise ValueError(f"mlp_backend must be 'xla' or 'pallas'; got {mlp_backend!r}")
     if compute_dtype in ('bf16', 'bfloat16'):
         raise ValueError("compute_dtype='bfloat16' is not yet ported "
                          "(bf16 compute path, ROADMAP Queue 1 item 3)")
@@ -123,12 +139,25 @@ def make_spec(d_in=3, hidden=32, d_out=1, num_layers=4, n_freqs=2,
     tl = list(pruning_threshold_list or [])
     thresholds = tuple(tl[i] if i < len(tl) else drop_threshold
                        for i in range(n_tensors))
-    return ModelSpec(d_in=d_in, hidden=hidden, d_out=d_out,
+    spec = ModelSpec(d_in=d_in, hidden=hidden, d_out=d_out,
                      num_layers=num_layers, n_freqs=n_freqs,
                      grid_features=grid_features, grid_size=grid_size,
                      wavelet=wavelet, drop_type=drop_type,
                      drop_momentum=drop_momentum, thresholds=thresholds,
-                     level_shapes=level_shapes)
+                     level_shapes=level_shapes,
+                     interp_backend='fused' if interp_backend == 'fused' else 'trilinear',
+                     mlp_backend=mlp_backend)
+    widths_fit = max(spec.mlp_in, hidden, d_out) <= MAX_WIDTH
+    if interp_backend == 'fused' and not (grid_size ** 2 <= FUSED_MAX_HW and widths_fit):
+        raise ValueError(
+            f"interp_backend='fused' requires grid_size^2 <= {FUSED_MAX_HW} and all "
+            f"MLP widths <= {MAX_WIDTH} (got grid_size={grid_size}, "
+            f"mlp_in={spec.mlp_in}, hidden={hidden}, d_out={d_out})")
+    if mlp_backend == 'pallas' and not widths_fit:
+        raise ValueError(
+            f"mlp_backend='pallas' requires all MLP widths <= {MAX_WIDTH} (got "
+            f"mlp_in={spec.mlp_in}, hidden={hidden}, d_out={d_out})")
+    return spec
 
 
 def coeff_shapes(spec: ModelSpec) -> Tuple[Tuple[int, ...], ...]:
@@ -245,22 +274,46 @@ def decode_volume(model, *, train_gates: bool = False,
     return decode_pyramid(spec.filter(), coeffs, spec.level_shapes)
 
 
+def _mlp_input(model, grid_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """[coords | fourier(coords) | fetched features]."""
+    feats = fetch(grid_cl, coords)
+    return torch.cat([coords, fourier_embed(coords, model.spec.n_freqs), feats], dim=-1)
+
+
 def predict(model, grid_cl: torch.Tensor, coords: torch.Tensor,
             train: bool = False) -> torch.Tensor:
-    """Fetch features from a decoded channel-minor (D, H, W, C) grid and run
-    the MLP at (N, d_in) coords -> (N, d_out); ``train=False`` clamps."""
-    feats = fetch(grid_cl, coords)
-    x = torch.cat([coords, fourier_embed(coords, model.spec.n_freqs), feats], dim=-1)
-    out = mlp_apply(list(model.mlp_w), list(model.mlp_b), x, snake_alt)
+    """Run the head on a decoded channel-minor (D, H, W, C) grid at (N, d_in)
+    coords -> (N, d_out), by the spec's backends; ``train=False`` clamps.
+    'fused' (precision 'mixed') takes precedence; otherwise the fetch, then
+    the fused MLP kernels (precision 'bf16') under ``mlp_backend='pallas'``
+    or the MLP as PyTorch ops."""
+    spec = model.spec
+    ws, bs = list(model.mlp_w), list(model.mlp_b)
+    if spec.interp_backend == 'fused':
+        out = fused_forward(grid_cl, coords, ws, bs, spec.n_freqs, precision='mixed')
+    elif spec.mlp_backend == 'pallas':
+        out = mlp_fused(ws, bs, _mlp_input(model, grid_cl, coords), precision='bf16')
+    else:
+        out = mlp_apply(ws, bs, _mlp_input(model, grid_cl, coords), snake_alt)
     return out if train else out.clamp(-1.0, 1.0)
+
+
+def predict_trilinear(model, grid_cl: torch.Tensor, coords: torch.Tensor
+                      ) -> torch.Tensor:
+    """The evaluation's head whatever the backends, as the JAX evaluation's:
+    the fetch, then the MLP as PyTorch ops, clamped to [-1, 1]."""
+    out = mlp_apply(list(model.mlp_w), list(model.mlp_b),
+                    _mlp_input(model, grid_cl, coords), snake_alt)
+    return out.clamp(-1.0, 1.0)
 
 
 def apply_model(model, coords: torch.Tensor, *, train: bool = True,
                 train_gates: bool = False,
                 masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """Full forward pass at (N, d_in) normalized coordinates -> (N, d_out),
-    differentiable in the model's tensors (on the card through the fetch
-    kernels' ``torch.autograd.Function``)."""
+    differentiable in the model's tensors (on the card through the kernels'
+    ``torch.autograd.Function``s); the spec's backends choose the kernels
+    (:func:`predict`)."""
     grid = decode_volume(model, train_gates=train_gates, masks=masks)
     return predict(model, channel_minor(grid), coords, train=train)
 

@@ -8,8 +8,9 @@ into its own shared library, loaded with ``ctypes``:
 
 The build happens at first use, from the sources in the checkout only, into
 the package's ``build/`` directory (listed in ``.gitignore``).  The library
-name carries a hash of the source, so an edited source is rebuilt.  Nothing
-here is imported or compiled when the package is imported.
+name carries a hash of the source and of every header in ``csrc/`` (the
+sources share ``*.cuh`` headers), so an edited source or header is rebuilt.
+Nothing here is imported or compiled when the package is imported.
 """
 
 from __future__ import annotations
@@ -47,10 +48,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f'{name}.cu'
-    digest = hashlib.sha1(src.read_bytes() + ' '.join(ARCH_FLAGS).encode()
-                          ).hexdigest()[:12]
-    return BUILD_DIR / f'lib{name}-{digest}.so'
+    h = hashlib.sha1((CSRC_DIR / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(' '.join(ARCH_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{h.hexdigest()[:12]}.so'
 
 
 def _nvcc_command(name: str, out: Path):
@@ -98,6 +100,27 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """The library of ``csrc/<name>.cu`` and its C entry ``symbol``, with
+    ``argtypes`` declared on first use (every entry returns a CUDA error
+    code, 0 for success)."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.lfgc_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.lfgc_cuda_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def raise_on_error(lib: ctypes.CDLL, name: str, err: int):
+    """Raise if a C entry of ``lib`` returned a CUDA error code."""
+    if err != 0:
+        msg = lib.lfgc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
 def kernel_sources():

@@ -43,29 +43,15 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p]
 
 
-def _lib(name: str, entry: str):
-    """The library of ``csrc/<name>.cu`` and its C entry, declared."""
-    lib = _build.load(name)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.lfgc_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.lfgc_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
 def _launch(name: str, entry: str, a: torch.Tensor, coords: torch.Tensor,
             out: torch.Tensor, n: int, C: int, D: int, H: int, W: int,
             vec4: bool):
-    lib, fn = _lib(name, entry)
+    lib, fn = _build.entry(name, entry, _ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), coords.data_ptr(), out.data_ptr(), n, C, D, H, W,
                  int(vec4), stream)
-    if err != 0:
-        msg = lib.lfgc_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+    _build.raise_on_error(lib, name, err)
 
 
 def _check(tensors, coords: torch.Tensor):

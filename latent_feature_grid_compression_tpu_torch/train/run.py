@@ -46,7 +46,7 @@ def check_ported(cfg: TrainConfig):
             or cfg.mesh_local_decode:
         raise ValueError("multi-device training is not yet ported "
                          "(ROADMAP Queue 1 item 5)")
-    # drop types, bf16, the fused and Pallas-MLP backends raise in make_spec
+    # the other drop types, bf16 and 'pallas_bf16' raise in make_spec
 
 
 def experiment_dir(cfg: TrainConfig) -> str:

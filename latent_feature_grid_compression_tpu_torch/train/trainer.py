@@ -3,8 +3,9 @@
 
 One step: IID integer voxel positions -> normalized, anisotropy-scaled
 coordinates and the exact ground-truth voxels -> gated decode, feature fetch
-(the CUDA kernels on the card, through their ``torch.autograd.Function``),
-MLP -> MSE plus the smallify loss -> autograd -> Adam with torch semantics
+and MLP by the spec's backends (the CUDA kernels on the card, through their
+``torch.autograd.Function``s) -> MSE plus the smallify loss -> autograd ->
+Adam with torch semantics
 (bias-corrected moments, eps outside the sqrt, t as float32) -> the smallify
 sign-variance tracker, fed with the pre-update betas -> volume-pass
 accounting, the lr strategy and the stop rules.

@@ -136,13 +136,47 @@ def test_interp_backends_all_select_the_trilinear_fetch(backend):
             == tfg.make_spec(**FLAGSHIP))
 
 
+@pytest.mark.parametrize('kwargs,backends', [
+    pytest.param(dict(interp_backend='pallas_bf16'), None, id='kwargs0'),
+    pytest.param(dict(interp_backend='fused'), ('fused', 'xla'), id='kwargs1'),
+    pytest.param(dict(mlp_backend='pallas'), ('trilinear', 'pallas'), id='kwargs2'),
+    pytest.param(dict(compute_dtype='bfloat16'), None, id='kwargs3'),
+    pytest.param(dict(drop_type='straight_through'), None, id='kwargs4')])
+def test_unported_options_raise(kwargs, backends):
+    """Options not ported yet raise "not yet ported"; the fused forward and
+    the fused MLP, ported since, build a spec that records them."""
+    if backends is None:
+        with pytest.raises(ValueError, match='not yet ported'):
+            tfg.make_spec(**dict(FLAGSHIP, **kwargs))
+    else:
+        spec = tfg.make_spec(**dict(FLAGSHIP, **kwargs))
+        assert (spec.interp_backend, spec.mlp_backend) == backends
+        assert spec != tfg.make_spec(**FLAGSHIP)
+
+
 @pytest.mark.parametrize('kwargs', [
-    dict(interp_backend='pallas_bf16'), dict(interp_backend='fused'),
-    dict(mlp_backend='pallas'), dict(compute_dtype='bfloat16'),
-    dict(drop_type='straight_through')])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(ValueError, match='not yet ported'):
+    dict(interp_backend='fused', grid_size=23),       # 23^2 = 529 > 512
+    dict(interp_backend='fused', hidden=129),
+    dict(interp_backend='fused', grid_features=114),  # mlp_in 3 + 12 + 114 = 129
+    dict(mlp_backend='pallas', hidden=129),
+    dict(mlp_backend='pallas', d_out=129)])
+def test_ineligible_kernel_backends_raise(kwargs):
+    """An explicitly requested kernel backend that cannot take the widths or
+    the grid raises; it is never swapped for another (as in the JAX
+    package, whose make_spec raises for the same 'fused' requests)."""
+    with pytest.raises(ValueError, match='requires'):
         tfg.make_spec(**dict(FLAGSHIP, **kwargs))
+    if kwargs.get('interp_backend') == 'fused':
+        with pytest.raises(ValueError, match='requires'):
+            jfg.make_spec(**dict(FLAGSHIP, **kwargs))
+
+
+def test_fused_eligibility_edge_matches_jax():
+    """Grid 22 (484 <= 512) is the largest the one-kernel forward takes."""
+    spec = tfg.make_spec(**dict(FLAGSHIP, interp_backend='fused', grid_size=22))
+    assert spec.interp_backend == 'fused'
+    assert jfg.make_spec(**dict(FLAGSHIP, interp_backend='fused',
+                                grid_size=22)).interp_backend == 'fused'
 
 
 def test_unknown_backend_raises():

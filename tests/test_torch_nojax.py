@@ -7,8 +7,12 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 from latent_feature_grid_compression_tpu_torch.ops import _build
+from latent_feature_grid_compression_tpu_torch.ops import fused_forward as ff
 from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
+from latent_feature_grid_compression_tpu_torch.ops import mlp_fused as mf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'latent_feature_grid_compression_tpu_torch')
@@ -32,6 +36,10 @@ model = init_model(spec, torch.Generator().manual_seed(0))
 with torch.no_grad():
     out = apply_model(model, torch.rand(64, 3) * 2 - 1, train=False)
 assert out.shape == (64, 1) and bool(torch.isfinite(out).all())
+for kw in (dict(mlp_backend='pallas'), dict(interp_backend='fused')):
+    m = init_model(make_spec(grid_size=8, grid_features=4, hidden=8, num_layers=2, **kw),
+                   torch.Generator().manual_seed(0))
+    apply_model(m, torch.rand(64, 3) * 2 - 1).sum().backward()
 vol = torch.rand(6, 7, 8).numpy() * 2 - 1
 psnr = tiled_net_out(model, VolumeMeta((6, 7, 8)), gt_vol=vol, device='cpu')[0]
 assert psnr == psnr
@@ -87,22 +95,55 @@ def test_no_jax_import_in_port_sources():
     assert not bad, bad
 
 
-def _check_entry(kernel, entry):
+def _check_entry(kernel, entry, argtypes):
     """No nvcc here: check statically that the C entry the wrapper binds
     exists with as many parameters as the wrapper declares."""
     with open(os.path.join(PORT, 'csrc', f'{kernel}.cu')) as f:
         src = f.read()
     m = re.search(r'extern "C" int ' + entry + r'\(([^)]*)\)', src)
     assert m, f'C entry {entry} missing'
-    assert len(m.group(1).split(',')) == len(gs._ARGTYPES) == 10
+    assert len(m.group(1).split(',')) == len(argtypes)
     assert 'extern "C" const char* lfgc_cuda_error_string' in src
     assert 'arch=compute_90a,code=sm_90a' in _build.ARCH_FLAGS
     assert kernel in _build.kernel_sources()
 
 
 def test_kernel_entry_matches_wrapper_signature():
-    _check_entry(gs.KERNEL, 'lfgc_grid_sample_fwd_f32')
+    assert len(gs._ARGTYPES) == 10
+    _check_entry(gs.KERNEL, 'lfgc_grid_sample_fwd_f32', gs._ARGTYPES)
 
 
 def test_bwd_kernel_entry_matches_wrapper_signature():
-    _check_entry(gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_f32')
+    _check_entry(gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_f32', gs._ARGTYPES)
+
+
+@pytest.mark.parametrize('mod,entry,argtypes', [
+    (mf, 'lfgc_mlp_fused_fwd', mf.FWD_ARGTYPES),
+    (mf, 'lfgc_mlp_fused_bwd', mf.BWD_ARGTYPES),
+    (mf, 'lfgc_mlp_fused_bwd_slots', mf.SLOTS_ARGTYPES),
+    (ff, 'lfgc_fused_forward_fwd', ff.FWD_ARGTYPES),
+    (ff, 'lfgc_fused_forward_bwd', ff.BWD_ARGTYPES),
+    (ff, 'lfgc_fused_forward_bwd_slots', ff.SLOTS_ARGTYPES)])
+def test_mlp_kernel_entries_match_wrapper_signatures(mod, entry, argtypes):
+    _check_entry(mod.KERNEL, entry, argtypes)
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header changes every library's name, so the
+    sources that include it are rebuilt."""
+    csrc = tmp_path / 'csrc'
+    csrc.mkdir()
+    (csrc / 'k.cu').write_text('#include "h.cuh"\n')
+    (csrc / 'h.cuh').write_text('// one\n')
+    monkeypatch.setattr(_build, 'CSRC_DIR', csrc)
+    before = _build.library_path('k')
+    (csrc / 'h.cuh').write_text('// two\n')
+    assert _build.library_path('k') != before
+    assert _build.kernel_sources() == ['k']
+
+
+def test_mlp_limits_match_the_kernels():
+    with open(os.path.join(PORT, 'csrc', 'snake_mlp.cuh')) as f:
+        src = f.read()
+    assert f'kMaxLayers = {mf.MAX_LAYERS};' in src
+    assert f'kMaxWidth = {mf.MAX_WIDTH};' in src

@@ -18,6 +18,8 @@ from latent_feature_grid_compression_tpu import config as jconfig
 from latent_feature_grid_compression_tpu.data.volume import VolumeMeta as JMeta
 from latent_feature_grid_compression_tpu.models import feature_grid as jfg
 from latent_feature_grid_compression_tpu.models import gates as jG
+from latent_feature_grid_compression_tpu.ops import fused_forward as jff
+from latent_feature_grid_compression_tpu.ops import mlp_pallas as jmp
 from latent_feature_grid_compression_tpu.train import losses as jL
 from latent_feature_grid_compression_tpu.train import trainer as jtr
 from latent_feature_grid_compression_tpu_torch import config as tconfig
@@ -32,6 +34,16 @@ from tests.torch_port_util import to_port
 
 SPEC = dict(d_in=3, hidden=16, d_out=1, num_layers=2, n_freqs=2,
             grid_features=8, grid_size=8, wavelet='db2', drop_type='smallify')
+# the backends of the port's paths, as (JAX make_spec, port make_spec) options
+BACKENDS = {'xla': (dict(interp_backend='xla'), {}),
+            'mlp_pallas': (dict(interp_backend='xla', mlp_backend='pallas'),
+                           dict(mlp_backend='pallas')),
+            'fused': (dict(interp_backend='fused'), dict(interp_backend='fused'))}
+# one step's bound on the gradients, relative to each tensor's max |g|:
+# float32 sums in another order; under 'fused' also the bf16 rounding of an
+# x0 operand, which can fall either way where JAX's 3-pass fetch and the
+# exact one differ in the last bits (tests/test_torch_fused_forward.py)
+GRAD_TOL = {'xla': 1e-5, 'mlp_pallas': 1e-5, 'fused': 1e-3}
 
 
 def _volume(shape, seed=0):
@@ -39,13 +51,21 @@ def _volume(shape, seed=0):
     return vol.astype(np.float32)
 
 
-def _setup(seed, shape, phase, **cfg_kw):
+def _interpret_pallas(monkeypatch):
+    """Run the JAX package's Pallas kernels in interpret mode (on the CPU),
+    as its own tests do."""
+    for mod, name in ((jmp, 'mlp_apply_pallas'), (jff, 'fused_forward')):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=orig, **k: _f(*a, **dict(k, interpret=True)))
+
+
+def _setup(seed, shape, phase, backend='xla', **cfg_kw):
     """JAX and port phase specs, states and masks from one init."""
     kw = dict(drop_type='smallify', batch_size=64, sample_size=8, lr=0.01,
               lambda_drop_loss=1e-3, lambda_weight_loss=1e-4, max_pass=30)
     kw.update(cfg_kw)
-    jspec = jfg.make_spec(interp_backend='xla', **SPEC)
-    tspec = tfg.make_spec(**SPEC)
+    jspec = jfg.make_spec(**SPEC, **BACKENDS[backend][0])
+    tspec = tfg.make_spec(**SPEC, **BACKENDS[backend][1])
     jparams, jaux = jfg.init_model(jax.random.key(seed), jspec)
     rng = np.random.default_rng(seed)
     # a tracker part-way through training, so that masks are mixed
@@ -82,14 +102,24 @@ def _port_tensors(layout, flat):
             + list(p.betas or [])]
 
 
-@pytest.mark.parametrize('phase', [1, 2])
-def test_one_step_matches_jax(phase):
+@pytest.mark.parametrize('phase,backend', [
+    pytest.param(1, 'xla', id='1'), pytest.param(2, 'xla', id='2'),
+    pytest.param(1, 'mlp_pallas', id='1-mlp_pallas'),
+    pytest.param(2, 'mlp_pallas', id='2-mlp_pallas'),
+    pytest.param(1, 'fused', id='1-fused'), pytest.param(2, 'fused', id='2-fused')])
+def test_one_step_matches_jax(phase, backend, monkeypatch):
     """Loss, every gradient (as Adam's first moment, (1 - b1) * g), the
-    Adam-updated parameters and the tracker after one step.  Tolerances:
-    float32 with sums taken in another order."""
+    Adam-updated parameters and the tracker after one step, under each
+    backend (JAX's Pallas kernels in interpret mode, the port's plain
+    versions of its kernels).  Tolerances: float32 with sums taken in
+    another order."""
+    _interpret_pallas(monkeypatch)
     shape = (12, 10, 9)
     vol = _volume(shape)
-    jph, tph, jstate, tstate, jmasks, tmasks, key = _setup(0, shape, phase)
+    jph, tph, jstate, tstate, jmasks, tmasks, key = _setup(0, shape, phase, backend)
+    assert (tph.spec.interp_backend, tph.spec.mlp_backend) == {
+        'xla': ('trilinear', 'xla'), 'mlp_pallas': ('trilinear', 'pallas'),
+        'fused': ('fused', 'xla')}[backend]
     _, k_pos, _ = jax.random.split(key, 3)
     pos = np.array(jax.random.randint(k_pos, (1, jph.batch_n, 3), 0,
                                         jnp.asarray(shape, jnp.int32)[None, None]))
@@ -105,13 +135,19 @@ def test_one_step_matches_jax(phase):
     _, unravel = ravel_pytree((jstate.params, None))
     n = len(tstate.layout.counts)
     m_jax = _jax_tensors(unravel(new.m)[0])[:n]
+    g_tol = GRAD_TOL[backend]
     for got, want in zip(_port_tensors(tstate.layout, tstate.m), m_jax):
         np.testing.assert_allclose(got, want, rtol=1e-4,
-                                   atol=1e-5 * max(np.abs(want).max(), 1e-12))
+                                   atol=g_tol * max(np.abs(want).max(), 1e-12))
     # Adam's first step is lr * g / (|g| + eps): where |g| is near eps it
     # passes on the gradient's rounding; 1e-5 is 0.1% of lr
-    for got, want in zip(_port_tensors(tstate.layout, tstate.flat),
-                         _jax_tensors(new.params)[:n]):
+    for got, want, m_want in zip(_port_tensors(tstate.layout, tstate.flat),
+                                 _jax_tensors(new.params)[:n], m_jax):
+        if backend == 'fused':
+            # a gradient within its bound of 0 may step either way, by <= lr
+            assert np.abs(got - want).max() <= 2 * 0.01 * 1.0001
+            sure = np.abs(m_want) > g_tol * np.abs(m_want).max()
+            got, want = got[sure], want[sure]
         np.testing.assert_allclose(got, want, atol=1e-5)
     if phase == 1:
         sizes = [int(np.prod(e.shape)) for e in new.gate_aux.ema]
@@ -205,11 +241,15 @@ def _cli_args(tmp_path, vol_path, *extra):
             '--n_layers', '2', '--steps_per_chunk', '16', *extra]
 
 
-def test_train_torch_cli_on_cpu(tmp_path, monkeypatch, capsys):
+def _cli_on_cpu(tmp_path, monkeypatch, *extra):
     vol_path = str(tmp_path / 'vol.npy')
     np.save(vol_path, _volume((16, 16, 16), 2) * 3.0 + 1.0)
     monkeypatch.chdir(tmp_path)
-    info = train_torch.main(_cli_args(tmp_path, vol_path, '--device', 'cpu'))
+    return train_torch.main(_cli_args(tmp_path, vol_path, '--device', 'cpu', *extra))
+
+
+def test_train_torch_cli_on_cpu(tmp_path, monkeypatch, capsys):
+    info = _cli_on_cpu(tmp_path, monkeypatch)
     exp = tmp_path / 'run'
     for name in ('info.txt', 'config.txt', 'model.npz', 'binary_model_file',
                  'binary_model_file_mask.bnr', 'vol.vti', 'gt.vti'):
@@ -223,6 +263,25 @@ def test_train_torch_cli_on_cpu(tmp_path, monkeypatch, capsys):
     # the experiment's config restores through the port's inference CLI
     cfg = tconfig.load_config(str(exp / 'config.txt'))
     assert cfg.binary_checkpoint_path == str(exp / 'binary_model_file')
+
+
+@pytest.mark.parametrize('flags', [['--mlp_backend', 'pallas'],
+                                   ['--interp_backend', 'fused']])
+def test_train_torch_cli_backends_on_cpu(tmp_path, monkeypatch, flags):
+    """The kernel backends' paths through the CLI (their plain versions on
+    the CPU): both phases, evaluation and export, the loss falling."""
+    calls = []
+    orig = tfg.predict
+    monkeypatch.setattr(tfg, 'predict', lambda m, *a, **k: calls.append(
+        (m.spec.interp_backend, m.spec.mlp_backend)) or orig(m, *a, **k))
+    info = _cli_on_cpu(tmp_path, monkeypatch, *flags)
+    assert set(calls) == {('fused', 'xla') if 'fused' in flags else ('trilinear', 'pallas')}
+    assert len(calls) == info['train_phase1_steps'] + info['train_phase2_steps'] == 24
+    assert info['train_phase1_last_loss'] < info['train_phase1_first_loss']
+    assert np.isfinite(info['psnr']) and (tmp_path / 'run' / 'binary_model_file').exists()
+    cfg = tconfig.load_config(str(tmp_path / 'run' / 'config.txt'))
+    assert (cfg.interp_backend, cfg.mlp_backend) == (
+        ('fused', 'xla') if 'fused' in flags else ('auto', 'pallas'))
 
 
 def test_train_torch_raises_without_cuda(tmp_path, monkeypatch):
