@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only build,kernel_mlp,kernel_fused
 
 Builds the CUDA kernels from the sources in this checkout and drives the
 port's paths at the full width of the flagship model
@@ -29,9 +30,10 @@ JSON line, in order:
                  plain versions in 'bf16' and 'f32': at the flagship widths
                  (31 -> 4 x 32 -> 1) on one train step's batch through a real
                  fetch, and at widths 128 -> 3 x 128 -> 4 and 19 -> 2 x 24 -> 3;
-                 kernel, plain, library (the default route's mlp_apply on
-                 cuBLAS, forward and forward + autograd backward) and bound
-                 times
+                 dW and db bitwise equal in a second call; kernel, plain,
+                 library (the default route's mlp_apply on cuBLAS, forward
+                 and forward + autograd backward) and bound times; the
+                 backward's tile, shared memory and blocks
   6. kernel_fused  the one-kernel forward and backward likewise, in 'mixed'
                  and 'f32', on the flagship grid (trainer and uniform
                  coordinates) and a C = 8, 9^3, 3 x 16 model; 'f32' also
@@ -64,10 +66,17 @@ Every count of launches is set to 0 just before a path is driven and read
 just after it.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
+
+``--only`` takes a comma-separated list of phases 2-11 (build, kernel,
+kernel_bwd, kernel_mlp, kernel_fused, checkpoint, binary, queries, train,
+step_rates) and runs the device phase and those, in the order above, with
+the same checks; the kernels line and the ok line need every phase, so a
+partial run prints neither (a quick loop on one kernel, never the smoke).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -545,6 +554,7 @@ def phase_kernel_mlp(model, grid_cl):
                 dx, dws, dbs = mf.mlp_fused_backward_cuda(ws, bs, x, g, precision)
                 ref = mf.mlp_fused_plain(ws, bs, x, precision)
                 rdx, rdws, rdbs = mf.mlp_fused_plain_backward(ws, bs, x, g, precision)
+                _, dws2, dbs2 = mf.mlp_fused_backward_cuda(ws, bs, x, g, precision)
                 torch.cuda.synchronize()
                 err = (out - ref).abs().max().item()
                 grad_err, grad_rel = compare_grads([dx] + dws + dbs, [rdx] + rdws + rdbs)
@@ -555,6 +565,8 @@ def phase_kernel_mlp(model, grid_cl):
             check(err <= fwd_tol * ref.abs().max().item(),
                   f'fused MLP forward vs plain {err} ({where})')
             check(grad_rel <= grad_tol, f'fused MLP backward vs plain {grad_rel} ({where})')
+            check(all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)),
+                  f'fused MLP dW, db differ in a second call ({where})')
             bound, bound_by = mlp_bound_ms(n, dims, precision)
             bwd_bound, bwd_bound_by = mlp_bound_ms(n, dims, precision, backward=True)
             with torch.no_grad():
@@ -573,7 +585,8 @@ def phase_kernel_mlp(model, grid_cl):
                    'max_abs_output': ref.abs().max().item(),
                    'bwd_max_abs_err': grad_err, 'bwd_max_rel_err': grad_rel,
                    **times, 'bound_ms': bound, 'bound_by': bound_by,
-                   'bwd_bound_ms': bwd_bound, 'bwd_bound_by': bwd_bound_by}
+                   'bwd_bound_ms': bwd_bound, 'bwd_bound_by': bwd_bound_by,
+                   'bwd_launch': mf.bwd_plan(mf.KERNEL, dims, precision)}
             emit(row)
             rows.append(row)
     return rows
@@ -610,6 +623,8 @@ def phase_kernel_fused(model, grid_cl):
                 ref = ff.fused_forward_plain(grid, coords, ws, bs, nf, precision)
                 rdg, rdws, rdbs = ff.fused_forward_plain_backward(
                     grid, coords, ws, bs, nf, g, precision)
+                _, dws2, dbs2 = ff.fused_forward_backward_cuda(
+                    grid, coords, ws, bs, nf, g, precision)
                 route = mf.mlp_fused_cuda(ws, bs, torch.cat(
                     [coords, fourier_embed(coords, nf),
                      gs.grid_sample_channel_minor_cuda(grid, coords)], dim=-1),
@@ -625,6 +640,8 @@ def phase_kernel_fused(model, grid_cl):
             check(err <= fwd_tol * ref.abs().max().item(),
                   f'fused forward vs plain {err} ({where})')
             check(grad_rel <= grad_tol, f'fused backward vs plain {grad_rel} ({where})')
+            check(all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)),
+                  f'fused dW, db differ in a second call ({where})')
             if precision == 'f32':
                 check(route_err <= ROUTE_TOL,
                       f'fused forward vs fetch + MLP kernels {route_err} ({where})')
@@ -654,7 +671,8 @@ def phase_kernel_fused(model, grid_cl):
                    'bwd_max_abs_err': grad_err, 'bwd_max_rel_err': grad_rel,
                    'vs_fetch_and_mlp_kernels_rel': route_err,
                    **times, 'bound_ms': bound, 'bound_by': bound_by,
-                   'bwd_bound_ms': bwd_bound, 'bwd_bound_by': bwd_bound_by}
+                   'bwd_bound_ms': bwd_bound, 'bwd_bound_by': bwd_bound_by,
+                   'bwd_launch': mf.bwd_plan(ff.KERNEL, dims, precision)}
             emit(row)
             rows.append(row)
     return rows
@@ -1027,35 +1045,69 @@ def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
     return out
 
 
-def main():
+PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'checkpoint',
+          'binary', 'queries', 'train', 'step_rates')
+
+
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--only', default=None,
+                    help='comma-separated phases to run after the device phase '
+                         f'({", ".join(PHASES)}); prints no kernels or ok line')
+    args = ap.parse_args(argv)
+    if args.only is not None:
+        args.only = set(args.only.split(','))
+        unknown = args.only - set(PHASES)
+        if unknown:
+            ap.error(f'unknown phases {sorted(unknown)}; choose from {", ".join(PHASES)}')
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
+
+    def want(phase):
+        return args.only is None or phase in args.only
     disable_tf32()
     name, _ = phase_device()
-    phase_build()
-    rows = phase_kernel()
-    bwd_rows = phase_kernel_bwd()
+    if want('build'):
+        phase_build()
+    rows = phase_kernel() if want('kernel') else None
+    bwd_rows = phase_kernel_bwd() if want('kernel_bwd') else None
     _, flagship_model = make_flagship_model()
     with torch.no_grad():
         flagship_grid = channel_minor(decode_volume(flagship_model))
-    mlp_rows = phase_kernel_mlp(flagship_model, flagship_grid)
-    fused_rows = phase_kernel_fused(flagship_model, flagship_grid)
+    mlp_rows = phase_kernel_mlp(flagship_model, flagship_grid) if want('kernel_mlp') else None
+    fused_rows = (phase_kernel_fused(flagship_model, flagship_grid)
+                  if want('kernel_fused') else None)
     path_counts = {}
+    model = flagship_model   # the checkpoint phase's model: the same seed
     tmp = tempfile.mkdtemp(prefix='lfgc_chip_smoke_')
     try:
         vol_path = os.path.join(tmp, 'mhd_like.npy')
-        np.save(vol_path, synth_volume(VOLUME_N, seed=1, octaves=6))
-        _, model, path_counts['decompress'] = phase_checkpoint(tmp, vol_path)
-        path_counts['binary'] = phase_binary()
-        for suffix in BACKENDS:
-            path_counts['queries' + suffix] = phase_queries(model, suffix)
-        default, path_counts['train'] = phase_train(tmp, vol_path)
-        for suffix in ('_mlp_pallas', '_fused'):
-            _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix, default)
+        if want('checkpoint') or want('train'):
+            np.save(vol_path, synth_volume(VOLUME_N, seed=1, octaves=6))
+        if want('checkpoint'):
+            _, model, path_counts['decompress'] = phase_checkpoint(tmp, vol_path)
+        if want('binary'):
+            path_counts['binary'] = phase_binary()
+        if want('queries'):
+            for suffix in BACKENDS:
+                path_counts['queries' + suffix] = phase_queries(model, suffix)
+        if want('train'):
+            default, path_counts['train'] = phase_train(tmp, vol_path)
+            for suffix in ('_mlp_pallas', '_fused'):
+                _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
+                                                               default)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_step_rates()
+    if want('step_rates'):
+        phase_step_rates()
+    if args.only is not None:
+        return 0   # a partial run: no kernels line, no result
 
     # each kernel's numbers at the main path's own inputs (the flagship,
     # and the precision the model uses: bf16 MLP, 'mixed' fused forward)
@@ -1094,7 +1146,8 @@ def main():
                      max_abs_err_relative=max(r['bwd_max_rel_err'] for r in mlp_rows),
                      **numbers(mlp, 'bwd_'),
                      library='ops/mlp.py::mlp_apply forward + autograd backward',
-                     shape={'n': mlp['n'], 'dims': mlp['dims'], 'precision': 'bf16'}),
+                     shape={'n': mlp['n'], 'dims': mlp['dims'], 'precision': 'bf16'},
+                     launch=mlp['bwd_launch']),
         kernel_entry('fused_forward_fwd', 'fused_forward.cu', 'fused_forward.py:113', None,
                      path_counts, 'train_fused',
                      max_abs_err=max(r['max_abs_err'] for r in fused_rows),
@@ -1110,7 +1163,7 @@ def main():
                      library='the default route forward + autograd backward '
                              '(fetch and gradient kernels, cuBLAS)',
                      shape={'n': fused['n'], 'dims': fused['dims'], 'grid': fused['grid'],
-                            'precision': 'mixed'})]})
+                            'precision': 'mixed'}, launch=fused['bwd_launch'])]})
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}),
         flush=True)

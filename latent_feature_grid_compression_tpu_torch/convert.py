@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .models.feature_grid import FeatureGridModel, ModelSpec
 
 
@@ -25,7 +26,7 @@ def _t(a) -> torch.Tensor:
 
 def params_from_jax(coeffs: Sequence[np.ndarray], mlp_w: Sequence[np.ndarray],
                     mlp_b: Sequence[np.ndarray], spec: ModelSpec,
-                    device: str | torch.device = 'cpu',
+                    device: str | torch.device = 'cuda',
                     betas: Optional[Sequence[np.ndarray]] = None,
                     ema: Optional[Sequence[np.ndarray]] = None,
                     ema_var: Optional[Sequence[np.ndarray]] = None
@@ -33,12 +34,16 @@ def params_from_jax(coeffs: Sequence[np.ndarray], mlp_w: Sequence[np.ndarray],
     """coeffs: lowpass (F, g, g, g) and details (F, 7, s, s, s), coarsest
     first; mlp_w: (in, out) per layer; mlp_b: (out,) per layer; betas, ema,
     ema_var: the smallify gates and tracker, one per coefficient tensor
-    (ema and ema_var default to sign(betas) and zeros)."""
+    (ema and ema_var default to sign(betas) and zeros).  The model goes to
+    ``device``: the card by default, which raises without one unless
+    ``device='cpu'``."""
+    dev = resolve_device(device)
+
     def ts(arrs):
         return None if arrs is None else [_t(a) for a in arrs]
     return FeatureGridModel(
         spec, ts(coeffs), [_t(np.asarray(w).T) for w in mlp_w], ts(mlp_b),
-        ts(betas), ts(ema), ts(ema_var)).to(device)
+        ts(betas), ts(ema), ts(ema_var)).to(dev)
 
 
 def params_to_jax(model: FeatureGridModel):

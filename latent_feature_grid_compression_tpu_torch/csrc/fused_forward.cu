@@ -25,8 +25,15 @@
 // Bound on the card: operations.  Per sample it reads 12 bytes of
 // coordinates and writes 4 * d_out (the grid, 216 KB at the flagship, stays
 // in L2), while the MLP costs 8,192 FLOPs forward at the flagship widths (the
-// fetch 2 * 8 * C more).  This first kernel runs the MLP on the CUDA cores in
-// float32 FMAs; tensor cores are later work.
+// fetch 2 * 8 * C more): 0.00067 ms forward and 0.00162 ms backward for
+// 32,768 samples in 'mixed'.  The forward and the 'f32' backward run the MLP
+// on the CUDA cores in float32 FMAs out of shared memory (snake_mlp.cuh;
+// tensor cores for the forward are later work).  The 'mixed' backward runs
+// the MLP's products on the tensor cores (mma.sync on bf16 fragments,
+// snake_mlp_tc.cuh, shared with the MLP backward of mlp_fused.cu): ldmatrix
+// feeds 16 x 16 operands a warp instruction where each float32 FMA took two
+// shared loads; x0 goes into its bf16 layer-0 buffer, and dX comes back in
+// float32.
 //
 // Precision: `bf16` set is the TPU kernel's 'mixed' (the fetch and the
 // routing into dG in float32, the MLP's products on bfloat16 operands);
@@ -37,6 +44,7 @@
 #include <stdint.h>
 
 #include "snake_mlp.cuh"
+#include "snake_mlp_tc.cuh"
 #include "trilinear.cuh"
 
 namespace {
@@ -51,10 +59,10 @@ struct Grid {
 // float32(2^j * 2 pi), as the plain version's np.float32(2**j * 2 * pi).
 __device__ __forceinline__ float freq(int j) { return ldexpf(6.28318548f, j); }
 
-// op(x0) of the tile's rows into a (zeros past n).
-template <bool BF16>
-__device__ void build_x0(float* a, int P, const float* __restrict__ coords,
-                         const Grid& g, int n_freqs, int S, int64_t row0, int64_t n) {
+// put(s, col, v) for x0 of the tile's rows (zeros past n).
+template <class Put>
+__device__ void build_x0(Put&& put, const float* __restrict__ coords, const Grid& g,
+                         int n_freqs, int S, int64_t row0, int64_t n) {
   const int emb = 3 + 6 * n_freqs, K0 = emb + g.C;
   for (int e = threadIdx.x; e < S * K0; e += blockDim.x) {
     const int s = e / K0, col = e - s * K0;
@@ -79,8 +87,16 @@ __device__ void build_x0(float* a, int P, const float* __restrict__ coords,
         v = acc;
       }
     }
-    a[s * P + col] = op<BF16>(v);
+    put(s, col, v);
   }
+}
+
+// op(x0) into rows of pitch P of a.
+template <bool BF16>
+__device__ void build_x0(float* a, int P, const float* __restrict__ coords,
+                         const Grid& g, int n_freqs, int S, int64_t row0, int64_t n) {
+  build_x0([&](int s, int col, float v) { a[s * P + col] = op<BF16>(v); }, coords, g,
+           n_freqs, S, row0, n);
 }
 
 template <bool BF16>
@@ -97,11 +113,32 @@ fused_fwd_kernel(Mlp m, Grid g, const float* __restrict__ coords,
   tile_forward<BF16>(m, a, b, wst, S, out, row0, n);
 }
 
+// Routes the feature columns of dX (pitch P) into dG through the corner
+// weights, by atomics.
+__device__ void route_dx(const float* dx, int P, int emb, const Grid& g,
+                         const float* __restrict__ coords, float* __restrict__ dgrid,
+                         int S, int64_t row0, int64_t n) {
+  for (int e = threadIdx.x; e < S * g.C; e += blockDim.x) {
+    const int s = e / g.C, ch = e - s * g.C;
+    const int64_t r = row0 + s;
+    if (r >= n) continue;
+    const float v = dx[s * P + emb + ch];
+    const float* c = coords + 3 * r;
+    for_each_corner(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
+                    [&](int64_t row, float w) {
+                      atomicAdd(dgrid + row * g.C + ch, __fmul_rn(w, v));
+                    });
+  }
+}
+
+// 'f32': tile_backward of snake_mlp.cuh on tiles of S samples (the plan p
+// unused).
 template <bool BF16>
 __global__ void __launch_bounds__(kMlpThreads)
-fused_bwd_kernel(Mlp m, Grid g, const float* __restrict__ coords,
-                 const float* __restrict__ gout, float* __restrict__ dgrid,
-                 float* __restrict__ partial, int64_t n, int n_freqs, int S) {
+fused_bwd_kernel(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p, Grid g,
+                 const float* __restrict__ coords, const float* __restrict__ gout,
+                 float* __restrict__ dgrid, float* __restrict__ partial, int64_t n,
+                 int n_freqs, int S) {
   extern __shared__ float smem[];
   const int P = m.pitch, D = m.dim[m.nw], emb = 3 + 6 * n_freqs;
   float* dz = smem + (2 * m.nw - 1) * S * P;
@@ -116,19 +153,38 @@ fused_bwd_kernel(Mlp m, Grid g, const float* __restrict__ coords,
       dz[s * P + o] = row0 + s < n ? gout[(row0 + s) * D + o] : 0.0f;
     }
     const float* dx = tile_backward<BF16>(m, smem, S, slot, t == blockIdx.x);
-    // route the feature columns of dX into dG through the corner weights
-    for (int e = threadIdx.x; e < S * g.C; e += blockDim.x) {
-      const int s = e / g.C, ch = e - s * g.C;
-      const int64_t r = row0 + s;
-      if (r >= n) continue;
-      const float v = dx[s * P + emb + ch];
-      const float* c = coords + 3 * r;
-      for_each_corner(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
-                      [&](int64_t row, float w) {
-                        atomicAdd(dgrid + row * g.C + ch, __fmul_rn(w, v));
-                      });
-    }
+    route_dx(dx, P, emb, g, coords, dgrid, S, row0, n);
   }
+}
+
+// 'mixed': the tensor-core tile_backward_tc (snake_mlp_tc.cuh) on tiles of
+// p.S samples, two blocks of kTcThreads an SM; x0 goes into its bf16 layer-0
+// buffer; dW and db summed across the block's tiles in `acc` and written to
+// its slot once.
+template <>
+__global__ void __launch_bounds__(kTcThreads, 2)
+fused_bwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p,
+                       Grid g, const float* __restrict__ coords,
+                       const float* __restrict__ gout, float* __restrict__ dgrid,
+                       float* __restrict__ partial, int64_t n, int n_freqs, int) {
+  extern __shared__ float smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  const int S = p.S, P0 = tc_x0_pitch(p), emb = 3 + 6 * n_freqs;
+  bf16* x0 = tc_x0(p, base);
+  float* slot = partial + int64_t(blockIdx.x) * m.total;
+  float* acc = tc_acc(p, base, slot);
+  tc_begin(m, p, base, acc);
+  const int64_t tiles = (n + S - 1) / S;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t row0 = t * S;
+    __syncthreads();  // the previous tile's readers are done
+    build_x0([&](int s, int col, float v) { x0[s * P0 + col] = __float2bfloat16_rn(v); },
+             coords, g, n_freqs, S, row0, n);
+    tc_load_grad(m, p, base, gout, row0, n);
+    const float* dx = tile_backward_tc(m, p, base, acc);
+    route_dx(dx, P0, emb, g, coords, dgrid, S, row0, n);
+  }
+  tc_end(m, p, base, acc, slot);
 }
 
 template <bool BF16>
@@ -143,21 +199,23 @@ cudaError_t launch_fwd(const Mlp& m, const Grid& g, const float* coords, float* 
   return cudaGetLastError();
 }
 
+// The backward kernel at a precision.
+inline decltype(&fused_bwd_kernel<true>) bwd_kernel(bool bf16) {
+  return bf16 ? fused_bwd_kernel<true> : fused_bwd_kernel<false>;
+}
+
 template <bool BF16>
 cudaError_t launch_bwd(const Mlp& m, const Grid& g, const float* coords,
                        const float* gout, float* dgrid, float* dparams,
                        float* partial, int64_t n, int n_freqs, cudaStream_t stream) {
-  const int S = bwd_tile(m);
-  if (S == 0) return cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(m, S);
-  cudaError_t err = allow_smem(fused_bwd_kernel<BF16>, smem);
+  BwdLaunch b;
+  cudaError_t err = bwd_launch(bwd_kernel(BF16), BF16, m, n, &b);
   if (err != cudaSuccess) return err;
-  const int slots = bwd_slots(n, S);
-  fused_bwd_kernel<BF16><<<dim3(unsigned(slots)), kMlpThreads, smem, stream>>>(
-      m, g, coords, gout, dgrid, partial, n, n_freqs, S);
+  fused_bwd_kernel<BF16><<<dim3(unsigned(b.slots)), b.threads, b.smem, stream>>>(
+      m, b.p, g, coords, gout, dgrid, partial, n, n_freqs, b.S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce_slots(partial, dparams, m.total, slots, stream);
+  return launch_reduce_slots(partial, dparams, m.total, b.slots, stream);
 }
 
 bool make_args(Mlp* m, Grid* g, const void* grid, const void* const* w,
@@ -202,13 +260,22 @@ extern "C" int lfgc_fused_forward_fwd(const void* grid, const void* coords,
                   : launch_fwd<false>(m, g, cp, o, n, n_freqs, s));
 }
 
-// The number of partial slots lfgc_fused_forward_bwd needs; 0 if the widths
-// do not fit.
-extern "C" int lfgc_fused_forward_bwd_slots(int64_t n, const int* dims, int nw) {
+// The number of partial slots lfgc_fused_forward_bwd needs at this precision
+// on the current card; 0 if the widths do not fit.
+extern "C" int lfgc_fused_forward_bwd_slots(int64_t n, const int* dims, int nw, int bf16) {
   Mlp m;
   if (!make_mlp(&m, nullptr, nullptr, dims, nw) || n <= 0) return 0;
-  const int S = bwd_tile(m);
-  return S ? bwd_slots(n, S) : 0;
+  BwdLaunch b;
+  return bwd_launch(bwd_kernel(bf16), bf16, m, n, &b) == cudaSuccess ? b.slots : 0;
+}
+
+// For reports, the backward's launch at these widths and precision on the
+// current card: out = [samples a tile, dynamic shared bytes a block, blocks
+// an SM, weights and sums resident] (snake_mlp_tc.cuh bwd_report).
+extern "C" int lfgc_fused_forward_bwd_plan(const int* dims, int nw, int bf16, int* out) {
+  Mlp m;
+  if (!make_mlp(&m, nullptr, nullptr, dims, nw)) return int(cudaErrorInvalidValue);
+  return int(bwd_report(bwd_kernel(bf16), bf16, m, out));
 }
 
 // For the output gradient gout (n, dims[nw]): dgrid (D, H, W, C), zeroed by

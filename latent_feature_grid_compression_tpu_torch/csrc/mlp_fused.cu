@@ -11,11 +11,17 @@
 //
 // Bound on the card: at the flagship widths (31 -> 4 x 32 -> 1) a sample
 // costs 8,192 FLOPs forward and about three times that backward, against
-// 128 bytes of input and 4 of output (plus dX backward): far above the
-// float32 ridge, so operations, not bytes.  This first kernel multiplies on
-// the CUDA cores with float32 FMAs (bf16 operands are rounded, then
-// multiplied exactly in float32); the bf16 tensor cores (wgmma) are later
-// work.
+// 128 bytes of input and 4 of output (plus dX backward).  With bf16 operands
+// (989 TFLOP/s on the tensor cores) that is below the ridge: the forward is
+// bound by bytes at 0.00126 ms for 32,768 samples, the backward at 0.00248
+// ms; in float32 (67 TFLOP/s) by operations.  The forward kernel and the
+// 'f32' backward multiply on the CUDA cores with float32 FMAs (bf16 operands
+// rounded, then multiplied exactly in float32), out of shared memory
+// (snake_mlp.cuh); tensor cores for the forward are later work.  The 'bf16'
+// backward runs its products on the tensor cores (mma.sync on bf16
+// fragments, snake_mlp_tc.cuh), the same arithmetic up to the order of the
+// float32 sums: ldmatrix feeds 16 x 16 operands a warp instruction where
+// each float32 FMA took two shared loads.
 //
 // dW and db are reduced per block into slots and then summed in a fixed order
 // (snake_mlp.cuh): the backward is reproducible bit for bit on one card.
@@ -24,6 +30,7 @@
 #include <stdint.h>
 
 #include "snake_mlp.cuh"
+#include "snake_mlp_tc.cuh"
 
 namespace {
 
@@ -46,11 +53,13 @@ mlp_fwd_kernel(Mlp m, const float* __restrict__ x, float* __restrict__ out,
   tile_forward<BF16>(m, a, b, wst, S, out, row0, n);
 }
 
+// 'f32': tile_backward of snake_mlp.cuh on tiles of S samples (the plan p
+// unused).
 template <bool BF16>
 __global__ void __launch_bounds__(kMlpThreads)
-mlp_bwd_kernel(Mlp m, const float* __restrict__ x, const float* __restrict__ g,
-               float* __restrict__ dx, float* __restrict__ partial, int64_t n,
-               int S) {
+mlp_bwd_kernel(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p,
+               const float* __restrict__ x, const float* __restrict__ g,
+               float* __restrict__ dx, float* __restrict__ partial, int64_t n, int S) {
   extern __shared__ float smem[];
   const int P = m.pitch, K0 = m.dim[0], D = m.dim[m.nw];
   float* dz = smem + (2 * m.nw - 1) * S * P;
@@ -75,6 +84,35 @@ mlp_bwd_kernel(Mlp m, const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// 'bf16': the tensor-core tile_backward_tc (snake_mlp_tc.cuh) on tiles of
+// p.S samples, two blocks of kTcThreads an SM; dW and db summed across the
+// block's tiles in `acc` and written to its slot once.
+template <>
+__global__ void __launch_bounds__(kTcThreads, 2)
+mlp_bwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p,
+                     const float* __restrict__ x, const float* __restrict__ g,
+                     float* __restrict__ dx, float* __restrict__ partial, int64_t n, int) {
+  extern __shared__ float smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  const int S = p.S, K0 = m.dim[0], P0 = tc_x0_pitch(p);
+  float* slot = partial + int64_t(blockIdx.x) * m.total;
+  float* acc = tc_acc(p, base, slot);
+  tc_begin(m, p, base, acc);
+  const int64_t tiles = (n + S - 1) / S;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t row0 = t * S;
+    __syncthreads();  // the previous tile's readers are done
+    tc_load_x(m, p, base, x, row0, n);
+    tc_load_grad(m, p, base, g, row0, n);
+    const float* dxs = tile_backward_tc(m, p, base, acc);
+    for (int e = threadIdx.x; e < S * K0; e += blockDim.x) {
+      const int s = e / K0, k = e - s * K0;
+      if (row0 + s < n) dx[(row0 + s) * K0 + k] = dxs[s * P0 + k];
+    }
+  }
+  tc_end(m, p, base, acc, slot);
+}
+
 template <bool BF16>
 cudaError_t launch_fwd(const Mlp& m, const float* x, float* out, int64_t n,
                        cudaStream_t stream) {
@@ -87,21 +125,23 @@ cudaError_t launch_fwd(const Mlp& m, const float* x, float* out, int64_t n,
   return cudaGetLastError();
 }
 
+// The backward kernel at a precision.
+inline decltype(&mlp_bwd_kernel<true>) bwd_kernel(bool bf16) {
+  return bf16 ? mlp_bwd_kernel<true> : mlp_bwd_kernel<false>;
+}
+
 template <bool BF16>
 cudaError_t launch_bwd(const Mlp& m, const float* x, const float* g, float* dx,
                        float* dparams, float* partial, int64_t n,
                        cudaStream_t stream) {
-  const int S = bwd_tile(m);
-  if (S == 0) return cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(m, S);
-  cudaError_t err = allow_smem(mlp_bwd_kernel<BF16>, smem);
+  BwdLaunch b;
+  cudaError_t err = bwd_launch(bwd_kernel(BF16), BF16, m, n, &b);
   if (err != cudaSuccess) return err;
-  const int slots = bwd_slots(n, S);
-  mlp_bwd_kernel<BF16><<<dim3(unsigned(slots)), kMlpThreads, smem, stream>>>(
-      m, x, g, dx, partial, n, S);
+  mlp_bwd_kernel<BF16><<<dim3(unsigned(b.slots)), b.threads, b.smem, stream>>>(
+      m, b.p, x, g, dx, partial, n, b.S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce_slots(partial, dparams, m.total, slots, stream);
+  return launch_reduce_slots(partial, dparams, m.total, b.slots, stream);
 }
 
 }  // namespace
@@ -125,13 +165,22 @@ extern "C" int lfgc_mlp_fused_fwd(const void* x, const void* const* w,
 }
 
 // The number of partial slots (rows of `partial`, each of the flat
-// [dW .., db ..] length) that lfgc_mlp_fused_bwd needs; 0 if the widths do
-// not fit.
-extern "C" int lfgc_mlp_fused_bwd_slots(int64_t n, const int* dims, int nw) {
+// [dW .., db ..] length) that lfgc_mlp_fused_bwd needs at this precision on
+// the current card; 0 if the widths do not fit.
+extern "C" int lfgc_mlp_fused_bwd_slots(int64_t n, const int* dims, int nw, int bf16) {
   Mlp m;
   if (!make_mlp(&m, nullptr, nullptr, dims, nw) || n <= 0) return 0;
-  const int S = bwd_tile(m);
-  return S ? bwd_slots(n, S) : 0;
+  BwdLaunch b;
+  return bwd_launch(bwd_kernel(bf16), bf16, m, n, &b) == cudaSuccess ? b.slots : 0;
+}
+
+// For reports, the backward's launch at these widths and precision on the
+// current card: out = [samples a tile, dynamic shared bytes a block, blocks
+// an SM, weights and sums resident] (snake_mlp_tc.cuh bwd_report).
+extern "C" int lfgc_mlp_fused_bwd_plan(const int* dims, int nw, int bf16, int* out) {
+  Mlp m;
+  if (!make_mlp(&m, nullptr, nullptr, dims, nw)) return int(cudaErrorInvalidValue);
+  return int(bwd_report(bwd_kernel(bf16), bf16, m, out));
 }
 
 // For the output gradient g (n, dims[nw]): dx (n, dims[0]) and the flat

@@ -32,6 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..ops.dwt import WaveletFilter3d, decode_pyramid, encode_pyramid, encoded_size
 from ..wavelets import dwt_max_level
 from ..ops.embedding import fourier_embed, fourier_out_dim
@@ -235,10 +236,12 @@ def _detached(ts):
 
 
 def init_model(spec: ModelSpec, generator: torch.Generator,
-               device: str | torch.device = 'cpu') -> FeatureGridModel:
+               device: str | torch.device = 'cuda') -> FeatureGridModel:
     """Grid: U(0, 1) volume -> multi-level DWT; MLP: nn.Linear's default
     init; gates: betas ~ N(0, 1).  Everything is drawn from ``generator`` on
-    the CPU, in that order, then moved."""
+    the CPU, in that order, then moved to ``device`` (the card by default;
+    raises without one unless ``device='cpu'``)."""
+    dev = resolve_device(device)
     grid = torch.rand((spec.grid_features,) + (spec.grid_size,) * 3,
                       generator=generator)
     if spec.num_levels == 0:
@@ -251,7 +254,7 @@ def init_model(spec: ModelSpec, generator: torch.Generator,
     betas, ema, ema_var = G.init_gates(generator, spec.drop_type,
                                        [tuple(c.shape) for c in coeffs])
     return FeatureGridModel(spec, coeffs, mlp_w, mlp_b, betas, ema,
-                            ema_var).to(device)
+                            ema_var).to(dev)
 
 
 def decode_volume(model, *, train_gates: bool = False,

@@ -60,8 +60,8 @@ FWD_ARGTYPES = [_P, _P, _PP, _PP, _PI, _I, _P, ctypes.c_int64, _I, _I, _I, _I, _
 # n_freqs, bf16, stream
 BWD_ARGTYPES = [_P, _P, _PP, _PP, _PI, _I, _P, _P, _P, _P, ctypes.c_int64, _I, _I,
                 _I, _I, _I, _I, _P]
-# n, dims[], nw
-SLOTS_ARGTYPES = [ctypes.c_int64, _PI, _I]
+# n, dims[], nw, bf16
+SLOTS_ARGTYPES = [ctypes.c_int64, _PI, _I, _I]
 
 
 def _mlp_precision(precision: str) -> str:
@@ -163,7 +163,7 @@ def fused_forward_backward_cuda(grid: torch.Tensor, coords: torch.Tensor,
     dgrid = torch.zeros_like(grid)
     wp, bp, dp = layer_pointers(weights, biases, dims)
     dparams, partial = grad_buffers(KERNEL, 'lfgc_fused_forward_bwd_slots', weights,
-                                    biases, dp, n, grid.device)
+                                    biases, dp, n, grid.device, bf16)
     if n > 0:
         lib, fn = _build.entry(KERNEL, 'lfgc_fused_forward_bwd', BWD_ARGTYPES)
         with torch.cuda.device(grid.device):

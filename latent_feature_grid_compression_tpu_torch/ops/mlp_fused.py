@@ -21,7 +21,8 @@ Weights keep the port's (out, in) layout.  :func:`mlp_fused` is a
 versions for CPU tensors and launch the kernels (or raise) for CUDA tensors;
 nothing falls back.  ``launches`` and ``bwd_launches`` count kernel launches
 and nothing else.  The kernels' dW and db are reduced in a fixed order
-(bitwise reproducible on one card).
+(bitwise reproducible on one card).  The ``'bf16'`` backward multiplies on
+the tensor cores (``csrc/snake_mlp_tc.cuh``), the rest on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -51,8 +52,10 @@ FWD_ARGTYPES = [_P, _PP, _PP, _PI, ctypes.c_int, _P, ctypes.c_int64, ctypes.c_in
 # x, w[], b[], dims[], nw, g, dx, dparams, partial, n, bf16, stream
 BWD_ARGTYPES = [_P, _PP, _PP, _PI, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int64,
                 ctypes.c_int, _P]
-# n, dims[], nw
-SLOTS_ARGTYPES = [ctypes.c_int64, _PI, ctypes.c_int]
+# n, dims[], nw, bf16
+SLOTS_ARGTYPES = [ctypes.c_int64, _PI, ctypes.c_int, ctypes.c_int]
+# dims[], nw, bf16, out[4]
+PLAN_ARGTYPES = [_PI, ctypes.c_int, ctypes.c_int, _PI]
 
 
 def _op(t: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -147,18 +150,34 @@ def layer_pointers(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tenso
 
 def grad_buffers(kernel: str, slots_symbol: str, weights: Sequence[torch.Tensor],
                  biases: Sequence[torch.Tensor], dims_arr, n: int,
-                 device: torch.device):
+                 device: torch.device, bf16: bool):
     """A backward kernel's flat [dW_0 .. dW_L, db_0 .. db_L] output and its
-    per-block partial slots (None without samples: the output is zeros)."""
+    per-block partial slots (None without samples: the output is zeros).
+    The kernel says how many blocks it launches for n samples at these
+    widths and precision on this card."""
     total = sum(w.numel() + b.numel() for w, b in zip(weights, biases))
     if n == 0:
         return torch.zeros(total, device=device, dtype=torch.float32), None
     _, slots_fn = _build.entry(kernel, slots_symbol, SLOTS_ARGTYPES)
-    slots = slots_fn(n, dims_arr, len(weights))
+    with torch.cuda.device(device):
+        slots = slots_fn(n, dims_arr, len(weights), int(bf16))
     if slots <= 0:
         raise RuntimeError(f"{kernel}: no tile size fits widths {list(dims_arr)}")
     return (torch.empty(total, device=device, dtype=torch.float32),
             torch.empty((slots, total), device=device, dtype=torch.float32))
+
+
+def bwd_plan(kernel: str, dims: Sequence[int], precision: str) -> dict:
+    """How the backward kernel of ``csrc/<kernel>.cu`` launches at these
+    widths and precision ('bf16', or 'mixed' for the one-kernel forward) on
+    this card: samples a tile, dynamic shared memory a block, blocks an SM,
+    and whether all the weights and the dW/db sums stay in shared memory."""
+    lib, fn = _build.entry(kernel, f'lfgc_{kernel}_bwd_plan', PLAN_ARGTYPES)
+    out = (ctypes.c_int * 4)()
+    err = fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1,
+             int(precision in ('bf16', 'mixed')), out)
+    _build.raise_on_error(lib, kernel, err)
+    return dict(zip(('tile', 'smem_bytes', 'blocks_per_sm', 'resident'), out))
 
 
 def param_grads(flat: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -217,7 +236,7 @@ def mlp_fused_backward_cuda(weights: Sequence[torch.Tensor],
     dx = torch.empty_like(x)
     wp, bp, dp = layer_pointers(weights, biases, dims)
     dparams, partial = grad_buffers(KERNEL, 'lfgc_mlp_fused_bwd_slots', weights,
-                                    biases, dp, n, x.device)
+                                    biases, dp, n, x.device, bf16)
     if n > 0:
         lib, fn = _build.entry(KERNEL, 'lfgc_mlp_fused_bwd', BWD_ARGTYPES)
         with torch.cuda.device(x.device):

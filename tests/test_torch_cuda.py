@@ -218,7 +218,7 @@ def test_train_steps_on_card_launch_both_kernels(cuda_device):
 
 def test_apply_model_on_card_matches_cpu(cuda_device):
     spec = fg.make_spec(**FLAGSHIP)
-    model = fg.init_model(spec, torch.Generator().manual_seed(1))
+    model = fg.init_model(spec, torch.Generator().manual_seed(1), device='cpu')
     _, c = _inputs((1, 1, 1, 1), 5000, 10)
     with torch.no_grad():
         ref = fg.apply_model(model, c, train=False)
@@ -233,7 +233,7 @@ def test_field_and_stats_on_card_match_cpu(cuda_device):
     shape = (20, 24, 28)
     meta = VolumeMeta(shape)
     spec = fg.make_spec(**FLAGSHIP)
-    model = fg.init_model(spec, torch.Generator().manual_seed(2))
+    model = fg.init_model(spec, torch.Generator().manual_seed(2), device='cpu')
     vol = np.random.default_rng(3).uniform(-1, 1, shape).astype(np.float32)
     ref = rec.field_from_net(model, meta, chunk=4096, device='cpu')
     ref_stats = rec.eval_stats_on_device(model, meta, torch.from_numpy(vol),
@@ -266,12 +266,17 @@ def _rel(got, want, floor=1e-30):
 GRAD_FLOOR = 1.0
 
 
-# the flagship's widths, a wide and a narrow one (every width <= 128)
+# the flagship's widths, a wide and a narrow one, a 1-wide input and a
+# single layer (every width <= 128; the bf16 backward pads each to a
+# multiple of 16); a train step's batch with a ragged last tile, one
+# sample, 17, and one sample over the bf16 backward's tile
+@pytest.mark.parametrize('size', ['batch', '1', '17', 'tile+1'])
 @pytest.mark.parametrize('dims', [[31, 32, 32, 32, 32, 1], [128, 128, 128, 128, 4],
-                                  [19, 24, 24, 3]])
+                                  [19, 24, 24, 3], [1, 8, 1], [40, 3]])
 @pytest.mark.parametrize('precision', ['bf16', 'f32'])
-def test_mlp_kernels_match_plain(cuda_device, dims, precision):
-    n = 32768 + 5           # a ragged last tile
+def test_mlp_kernels_match_plain(cuda_device, dims, precision, size):
+    n = {'batch': 32768 + 5, '1': 1, '17': 17,
+         'tile+1': mf.bwd_plan(mf.KERNEL, dims, 'bf16')['tile'] + 1}[size]
     ws, bs = _mlp_params(dims, cuda_device, 1)
     x = torch.randn((n, dims[0]), device=cuda_device)
     g = torch.randn((n, dims[-1]), device=cuda_device)
@@ -310,6 +315,10 @@ def test_fused_forward_kernels_match_plain(cuda_device, C, G, precision):
     rdg, rdws, rdbs = ff.fused_forward_plain_backward(grid, coords, ws, bs, 2, g, precision)
     for got, want in zip([dgrid] + dws + dbs, [rdg] + rdws + rdbs):
         assert got.shape == want.shape and _rel(got, want, GRAD_FLOOR) <= grad_tol
+    # dW and db are summed in a fixed order (dG by atomics, not): a second
+    # call gives the same bits
+    _, dws2, dbs2 = ff.fused_forward_backward_cuda(grid, coords, ws, bs, 2, g, precision)
+    assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
 
 
 def test_fused_forward_features_are_the_fetch_kernels(cuda_device):
@@ -417,7 +426,7 @@ def test_train_steps_on_card_launch_the_backends_kernels(cuda_device, backend):
 @pytest.mark.parametrize('backend', sorted(BACKENDS))
 def test_apply_model_on_card_matches_cpu_backends(cuda_device, backend):
     spec = fg.make_spec(**FLAGSHIP, **BACKENDS[backend])
-    model = fg.init_model(spec, torch.Generator().manual_seed(1))
+    model = fg.init_model(spec, torch.Generator().manual_seed(1), device='cpu')
     _, c = _inputs((1, 1, 1, 1), 5000, 10)
     with torch.no_grad():
         ref = fg.apply_model(model, c, train=False)

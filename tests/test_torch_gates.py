@@ -156,7 +156,7 @@ def test_gated_forward_matches_jax():
 
 def test_model_without_gates_bakes_nothing():
     spec = tfg.make_spec(**SPEC)
-    model = tfg.init_model(spec, torch.Generator().manual_seed(0))
+    model = tfg.init_model(spec, torch.Generator().manual_seed(0), device='cpu')
     assert model.betas is None and model.ema is None
     assert tfg.save_dropvalues_on_grid(model) == (model, None, 0.0)
     assert tfg.remove_drop_layers(model, None) is model

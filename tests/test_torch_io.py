@@ -46,7 +46,7 @@ def test_save_checkpoint_loads_in_jax(tmp_path):
     jspec = jfg.make_spec(grid_size=9, grid_features=4, hidden=8, num_layers=2)
     jparams, _ = jfg.init_model(jax.random.key(2), jspec)
     spec = tfg.make_spec(grid_size=9, grid_features=4, hidden=8, num_layers=2)
-    model = tfg.init_model(spec, torch.Generator().manual_seed(2))
+    model = tfg.init_model(spec, torch.Generator().manual_seed(2), device='cpu')
     path = str(tmp_path / 'model.npz')
     tck.save_checkpoint(path, model)
     loaded, _ = jck.load_checkpoint(path, jparams)
@@ -113,7 +113,7 @@ def test_entry_points_default_to_cuda(tmp_path):
         pytest.skip('a card is present: the CUDA default does not raise')
     spec = tfg.make_spec(grid_size=8, grid_features=4, hidden=8, num_layers=2)
     path = str(tmp_path / 'model.npz')
-    tck.save_checkpoint(path, tfg.init_model(spec, torch.Generator().manual_seed(0)))
+    tck.save_checkpoint(path, tfg.init_model(spec, torch.Generator().manual_seed(0), device='cpu'))
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         tck.load_checkpoint(path, spec)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
@@ -197,7 +197,7 @@ def test_checkpoints_with_gates_round_trip_both_ways(tmp_path):
     # a warm start from a file without gates keeps the fresh model's
     plain = str(tmp_path / 'plain.npz')
     jck.save_checkpoint(plain, jparams.replace(gates=None), None, '')
-    fresh = tfg.init_model(spec, torch.Generator().manual_seed(1))
+    fresh = tfg.init_model(spec, torch.Generator().manual_seed(1), device='cpu')
     warm = tck.load_checkpoint(plain, spec, device='cpu', model=fresh)
     _assert_same(warm, jparams)
     assert all(torch.equal(a, b) for a, b in zip(warm.betas, fresh.betas))

@@ -97,7 +97,7 @@ def test_fourier_embed_and_mlp_match_jax():
 @pytest.mark.parametrize('grid,wavelet', [(15, 'db2'), (8, 'haar'), (12, 'none')])
 def test_init_model_shapes_and_counts_match_jax(grid, wavelet):
     jspec, jparams, tspec, _ = _models(0, grid_size=grid, wavelet=wavelet)
-    model = tfg.init_model(tspec, torch.Generator().manual_seed(0))
+    model = tfg.init_model(tspec, torch.Generator().manual_seed(0), device='cpu')
     assert [tuple(c.shape) for c in model.coeffs] == [c.shape for c in jparams.coeffs]
     assert ([tuple(w.shape[::-1]) for w in model.mlp_w]
             == [w.shape for w in jparams.mlp_w])
@@ -107,8 +107,8 @@ def test_init_model_shapes_and_counts_match_jax(grid, wavelet):
 
 def test_init_model_is_seeded_and_bounded():
     spec = tfg.make_spec(**FLAGSHIP)
-    a = tfg.init_model(spec, torch.Generator().manual_seed(11))
-    b = tfg.init_model(spec, torch.Generator().manual_seed(11))
+    a = tfg.init_model(spec, torch.Generator().manual_seed(11), device='cpu')
+    b = tfg.init_model(spec, torch.Generator().manual_seed(11), device='cpu')
     for p, q in zip(a.parameters(), b.parameters()):
         assert torch.equal(p, q)
     for w, bias in zip(a.mlp_w, a.mlp_b):

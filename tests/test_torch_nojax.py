@@ -32,13 +32,13 @@ from latent_feature_grid_compression_tpu_torch.eval.reconstruct import tiled_net
 from latent_feature_grid_compression_tpu_torch.models.feature_grid import (
     apply_model, init_model, make_spec)
 spec = make_spec(grid_size=8, grid_features=4, hidden=8, num_layers=2)
-model = init_model(spec, torch.Generator().manual_seed(0))
+model = init_model(spec, torch.Generator().manual_seed(0), device='cpu')
 with torch.no_grad():
     out = apply_model(model, torch.rand(64, 3) * 2 - 1, train=False)
 assert out.shape == (64, 1) and bool(torch.isfinite(out).all())
 for kw in (dict(mlp_backend='pallas'), dict(interp_backend='fused')):
     m = init_model(make_spec(grid_size=8, grid_features=4, hidden=8, num_layers=2, **kw),
-                   torch.Generator().manual_seed(0))
+                   torch.Generator().manual_seed(0), device='cpu')
     apply_model(m, torch.rand(64, 3) * 2 - 1).sum().backward()
 vol = torch.rand(6, 7, 8).numpy() * 2 - 1
 psnr = tiled_net_out(model, VolumeMeta((6, 7, 8)), gt_vol=vol, device='cpu')[0]
@@ -72,6 +72,7 @@ def _sources():
             if f.endswith('.py'):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, 'chip_smoke.py')
+    yield os.path.join(REPO, 'ablate_backward.py')
     yield os.path.join(REPO, 'infer_torch.py')
     yield os.path.join(REPO, 'train_torch.py')
     # the card's tests run where JAX is not installed
@@ -121,9 +122,11 @@ def test_bwd_kernel_entry_matches_wrapper_signature():
     (mf, 'lfgc_mlp_fused_fwd', mf.FWD_ARGTYPES),
     (mf, 'lfgc_mlp_fused_bwd', mf.BWD_ARGTYPES),
     (mf, 'lfgc_mlp_fused_bwd_slots', mf.SLOTS_ARGTYPES),
+    (mf, 'lfgc_mlp_fused_bwd_plan', mf.PLAN_ARGTYPES),
     (ff, 'lfgc_fused_forward_fwd', ff.FWD_ARGTYPES),
     (ff, 'lfgc_fused_forward_bwd', ff.BWD_ARGTYPES),
-    (ff, 'lfgc_fused_forward_bwd_slots', ff.SLOTS_ARGTYPES)])
+    (ff, 'lfgc_fused_forward_bwd_slots', ff.SLOTS_ARGTYPES),
+    (ff, 'lfgc_fused_forward_bwd_plan', mf.PLAN_ARGTYPES)])
 def test_mlp_kernel_entries_match_wrapper_signatures(mod, entry, argtypes):
     _check_entry(mod.KERNEL, entry, argtypes)
 
@@ -147,3 +150,26 @@ def test_mlp_limits_match_the_kernels():
         src = f.read()
     assert f'kMaxLayers = {mf.MAX_LAYERS};' in src
     assert f'kMaxWidth = {mf.MAX_WIDTH};' in src
+
+
+@pytest.mark.parametrize('kernel', ['mlp_fused', 'fused_forward'])
+def test_bf16_backward_runs_on_the_tensor_cores(kernel):
+    """No nvcc here: check statically that the bf16 backward kernel goes
+    through the shared tensor-core tile routine (mma.sync on bf16 fragments
+    loaded by ldmatrix), which has no scalar FMA product loop."""
+    with open(os.path.join(PORT, 'csrc', 'snake_mlp_tc.cuh')) as f:
+        tc = f.read()
+    assert 'mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32' in tc
+    assert 'ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16' in tc
+    assert 'fmaf(' not in tc
+    with open(os.path.join(PORT, 'csrc', f'{kernel}.cu')) as f:
+        src = f.read()
+    assert '#include "snake_mlp_tc.cuh"' in src
+    # the bf16 instantiation is a specialization whose body takes the new
+    # routine, and only it does
+    m = re.search(r'template <>\n__global__ void __launch_bounds__\(kTcThreads, 2\)\n'
+                  r'\w+_bwd_kernel<true>\(', src)
+    assert m, 'no bf16 backward specialization'
+    body = src[m.end():src.index('\ntemplate <', m.end())]
+    assert 'tile_backward_tc(' in body and 'tile_backward<' not in body
+    assert src.count('tile_backward_tc(') == 1

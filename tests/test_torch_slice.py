@@ -3,6 +3,7 @@ reconstruction and statistics on an anisotropic volume, and infer_torch.py
 end to end on the CPU."""
 
 import dataclasses
+import hashlib
 import os
 
 import numpy as np
@@ -19,9 +20,13 @@ from latent_feature_grid_compression_tpu.io import checkpoint as jck
 from latent_feature_grid_compression_tpu.io import container as jct
 from latent_feature_grid_compression_tpu.models import feature_grid as jfg
 from latent_feature_grid_compression_tpu_torch import config as tconfig
+from latent_feature_grid_compression_tpu_torch.convert import params_from_jax
 from latent_feature_grid_compression_tpu_torch.data.volume import VolumeMeta
 from latent_feature_grid_compression_tpu_torch.eval import reconstruct as trec
 from latent_feature_grid_compression_tpu_torch.models import feature_grid as tfg
+from latent_feature_grid_compression_tpu_torch.models.gates import init_gates
+from latent_feature_grid_compression_tpu_torch.ops.dwt import encode_pyramid
+from latent_feature_grid_compression_tpu_torch.ops.mlp import init_mlp
 from tests.torch_port_util import prune, to_port
 
 # anisotropic: the lattice order (ix = lin // (Y*Z)) and the anisotropy
@@ -140,6 +145,39 @@ def test_entry_points_raise_without_cuda(models, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         trec.tiled_net_out(model, VolumeMeta(SHAPE), gt_vol=_volume())
     assert not (tmp_path / 'vol.vti').exists()
+    spec = tfg.make_spec(**SPEC)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        tfg.init_model(spec, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        params_from_jax([np.asarray(c) for c in jparams.coeffs],
+                        [np.asarray(w) for w in jparams.mlp_w],
+                        [np.asarray(b) for b in jparams.mlp_b], spec)
+
+
+def test_init_model_on_cpu_keeps_its_draws():
+    """init_model(..., device='cpu') draws the grid, the MLP and the gates
+    from the caller's generator in that order, as before the CUDA default:
+    the same tensors bit for bit as those draws made by hand, and the MLP
+    and gate tensors of seed 7 have the digest they had then."""
+    spec = tfg.make_spec(grid_size=8, grid_features=4, hidden=8, num_layers=2,
+                         drop_type='smallify')
+    model = tfg.init_model(spec, torch.Generator().manual_seed(7), device='cpu')
+    gen = torch.Generator().manual_seed(7)
+    grid = torch.rand((spec.grid_features,) + (spec.grid_size,) * 3, generator=gen)
+    coeffs, _ = encode_pyramid(spec.filter(), grid, spec.num_levels)
+    mlp_w, mlp_b = init_mlp(gen, spec.mlp_in, spec.hidden, spec.d_out, spec.num_layers)
+    betas, ema, ema_var = init_gates(gen, spec.drop_type, [tuple(c.shape) for c in coeffs])
+    for got, want in [(model.coeffs, coeffs), (model.mlp_w, mlp_w), (model.mlp_b, mlp_b),
+                      (model.betas, betas), (model.ema, ema), (model.ema_var, ema_var)]:
+        assert len(got) == len(want)
+        assert all(g.device.type == 'cpu' and torch.equal(g.detach(), w)
+                   for g, w in zip(got, want))
+    digest = hashlib.sha256()
+    for ts in (model.mlp_w, model.mlp_b, model.betas, model.ema, model.ema_var):
+        for t in ts:
+            digest.update(t.detach().numpy().tobytes())
+    assert digest.hexdigest() == ('d9cd8205fba1cdce6025679f8b9ab8df'
+                                  '5edf33545fa3027f475bb1f397f8d98a')
 
 
 @pytest.mark.parametrize('name', sorted(os.listdir(CONFIGS)))

@@ -218,7 +218,7 @@ def test_decode_copies_its_operators_once():
     """The synthesis matrices are cached on the device: a second decode
     reuses the same tensors (no host-to-device copy on the step)."""
     spec = tfg.make_spec(**SPEC)
-    model = tfg.init_model(spec, torch.Generator().manual_seed(0))
+    model = tfg.init_model(spec, torch.Generator().manual_seed(0), device='cpu')
     tdwt._synthesis_matrix.cache_clear()
     tfg.decode_volume(model)
     misses = tdwt._synthesis_matrix.cache_info().misses
