@@ -1,24 +1,32 @@
 #!/usr/bin/env python
-"""Where the time of the bf16 MLP backward kernels goes, on one NVIDIA card.
+"""Where the time of the bf16 MLP kernels goes, on one NVIDIA card.
 
-    python3 ablate_backward.py
+    python3 ablate_mlp.py
 
 Builds csrc/mlp_fused.cu and csrc/fused_forward.cu as they are, and once for
-each cut below: a copy of csrc/ with one piece of the tensor-core tile
-routine (csrc/snake_mlp_tc.cuh) taken out, every nvcc started together, into
-a temporary directory.  Then times the backward wrappers, every variant in
-turns over three rounds, with chip_smoke.time_ms: the fused MLP at the
+each variant below: a copy of csrc/ with one piece of the tensor-core tile
+routines (csrc/snake_mlp_tc.cuh) or of the one-kernel forward taken out, or
+one constant of the forward's launch changed, every nvcc started together,
+into a temporary directory.  Then times the wrappers, every variant in turns
+over three rounds, with chip_smoke.time_ms, at one train step's 32,768
+samples, 'bf16' / 'mixed': the fused MLP backward and forward at the
 flagship widths (31 -> 4 x 32 -> 1) and at 128 -> 3 x 128 -> 4, and the
-one-kernel backward on the flagship's 15^3 x 16 grid, at one train step's
-32,768 samples, 'bf16' / 'mixed'.  A cut variant computes wrong results: its
-time less the whole kernel's is what the piece costs, up to the overlap of
-the pieces.  Prints the card, one JSON line a variant and round, and a last
-line of medians.  Exits non-zero without a card.
+one-kernel backward and forward on the flagship's 15^3 x 16 grid.  A cut
+variant computes wrong results: its time less the whole kernel's is what the
+piece costs, up to the overlap of the pieces.  Prints the card, one JSON
+line a variant and round, and a last line of medians.  Exits non-zero
+without a card.
 
-Cuts: no_sin (the activation and its derivative without sinf), no_recompute
-(the hidden chain not recomputed), no_dw, no_db, no_dh (those jobs of the
-backward skipped), no_loads (x and the output gradient not read), no_route
-(the one-kernel backward's dX not routed into dG).
+Cuts: no_sin (the activation and its derivative without sinf), no_chain
+(the hidden chain: the forward's layers before the head, the backward's
+recompute), no_dw, no_db, no_dh (those jobs of the backward skipped),
+no_loads (x and the output gradient not read), no_route (the one-kernel
+backward's dX not routed into dG), no_fetch (the one-kernel kernels' x0
+feature columns not fetched).  x0_per_entry: the bf16 kernels' x0 built one
+entry a thread (build_x0, as the 'f32' kernels do) instead of one sample
+and 4 channels a thread.  Launch variants of the forward: fwd_tile_128
+(tiles of up to 128 samples), fwd_threads_128 and fwd_threads_512 (blocks of
+that many threads, as many an SM at 64 registers a thread).
 """
 
 from __future__ import annotations
@@ -39,20 +47,35 @@ from latent_feature_grid_compression_tpu_torch.ops import fused_forward as ff
 from latent_feature_grid_compression_tpu_torch.ops import mlp_fused as mf
 
 TC = 'snake_mlp_tc.cuh'
-CUTS = {
+FF = 'fused_forward.cu'
+# the bf16 kernels' x0 built by build_x0, one thread an entry
+X0_START = ('  bf16* x0 = tc_x0(p, smem);\n'
+            '  const int S = p.S, P0 = tc_x0_pitch(p)')
+X0_PER_ENTRY = ('  bf16* x0 = tc_x0(p, smem);\n'
+                '  build_x0([&](int s, int col, float v) {\n'
+                '    x0[s * tc_x0_pitch(p) + col] = __float2bfloat16_rn(v); },\n'
+                '    coords, g, n_freqs, p.S, row0, n);\n'
+                '  return;\n'
+                '  const int S = p.S, P0 = tc_x0_pitch(p)')
+VARIANTS = {
     'whole': [],
     'no_sin': [(TC, 'h0 = snake(z0);', 'h0 = z0;'), (TC, 's0 = snake_grad(z0);', 's0 = z0;'),
                (TC, 'h1 = snake(z1);', 'h1 = z1;'), (TC, 's1 = snake_grad(z1);', 's1 = z1;')],
-    'no_recompute': [(TC, 'for (int i = 0; i < L; ++i) {', 'for (int i = 0; i < 0; ++i) {')],
+    'no_chain': [(TC, 'for (int i = 0; i + 1 < m.nw; ++i) {', 'for (int i = 0; i < 0; ++i) {')],
     'no_dw': [(TC, 'n_dw = (MP / 16) * cw', 'n_dw = 0 * cw')],
     'no_db': [(TC, 'n_db = MP / 8', 'n_db = 0 * MP')],
     'no_dh': [(TC, 'n_dh = (S / 16) * ch', 'n_dh = 0 * ch')],
     'no_loads': [(TC, 'return row0 + e / K0 < n ? x[row0 * K0 + e] : 0.0f;', 'return 0.0f;'),
                  (TC, 'return o < D && row0 + s < n ? g[(row0 + s) * D + o] : 0.0f;',
                   'return 0.0f;')],
-    'no_route': [('fused_forward.cu',
-                  'for (int e = threadIdx.x; e < S * g.C; e += blockDim.x) {',
+    'no_route': [(FF, 'for (int e = threadIdx.x; e < S * g.C; e += blockDim.x) {',
                   'for (int e = threadIdx.x; e < 0; e += blockDim.x) {')],
+    'no_fetch': [(FF, 'for (int e = threadIdx.x; e < S * Q; e += blockDim.x) {',
+                  'for (int e = threadIdx.x; e < 0; e += blockDim.x) {')],
+    'x0_per_entry': [(FF, X0_START, X0_PER_ENTRY)],
+    'fwd_tile_128': [(TC, 'kTcFwdMaxTile = 64;', 'kTcFwdMaxTile = 128;')],
+    'fwd_threads_128': [(TC, 'kTcFwdThreads = 256;', 'kTcFwdThreads = 128;')],
+    'fwd_threads_512': [(TC, 'kTcFwdThreads = 256;', 'kTcFwdThreads = 512;')],
 }
 SOURCES = ('mlp_fused', 'fused_forward')
 
@@ -66,7 +89,7 @@ def use(csrc: Path):
 def build_all(src: Path, root: Path):
     """Each variant's sources (from `src`), every nvcc started together."""
     procs = []
-    for name, subs in CUTS.items():
+    for name, subs in VARIANTS.items():
         csrc = root / name / 'csrc'
         shutil.copytree(src, csrc)
         for f, old, new in subs:
@@ -88,7 +111,7 @@ def build_all(src: Path, root: Path):
 
 def main():
     if not torch.cuda.is_available():
-        print('ablate_backward: CUDA is not available', file=sys.stderr)
+        print('ablate_mlp: CUDA is not available', file=sys.stderr)
         return 1
     cs.disable_tf32()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -101,22 +124,26 @@ def main():
         ws, bs = cs.random_mlp(dims, gen)
         x = torch.randn((n, dims[0]), device='cuda', generator=gen)
         g = torch.randn((n, dims[-1]), device='cuda', generator=gen)
-        cases[f'mlp {dims}'] = (lambda ws=ws, bs=bs, x=x, g=g:
-                                mf.mlp_fused_backward_cuda(ws, bs, x, g, 'bf16'))
+        cases[f'mlp bwd {dims}'] = (lambda ws=ws, bs=bs, x=x, g=g:
+                                    mf.mlp_fused_backward_cuda(ws, bs, x, g, 'bf16'))
+        cases[f'mlp fwd {dims}'] = (lambda ws=ws, bs=bs, x=x:
+                                    mf.mlp_fused_cuda(ws, bs, x, 'bf16'))
     grid = torch.randn((15, 15, 15, 16), device='cuda', generator=gen)
     coords = cs.trainer_positions(n, gen)
     fws, fbs = cs.random_mlp([31, 32, 32, 32, 32, 1], gen)
     fg = torch.randn((n, 1), device='cuda', generator=gen)
-    cases['fused [31, 32, 32, 32, 32, 1]'] = (
+    cases['fused bwd [31, 32, 32, 32, 32, 1]'] = (
         lambda: ff.fused_forward_backward_cuda(grid, coords, fws, fbs, 2, fg, 'mixed'))
+    cases['fused fwd [31, 32, 32, 32, 32, 1]'] = (
+        lambda: ff.fused_forward_cuda(grid, coords, fws, fbs, 2, 'mixed'))
 
     root = Path(tempfile.mkdtemp(prefix='lfgc_ablate_'))
     csrc, build_dir = _build.CSRC_DIR, _build.BUILD_DIR
-    ms = {name: {case: [] for case in cases} for name in CUTS}
+    ms = {name: {case: [] for case in cases} for name in VARIANTS}
     try:
         build_all(csrc, root)
         for rnd in range(3):
-            for name in CUTS:
+            for name in VARIANTS:
                 use(root / name / 'csrc')
                 row = {'variant': name, 'round': rnd}
                 for case, fn in cases.items():

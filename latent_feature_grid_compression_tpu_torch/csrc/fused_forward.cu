@@ -26,14 +26,13 @@
 // coordinates and writes 4 * d_out (the grid, 216 KB at the flagship, stays
 // in L2), while the MLP costs 8,192 FLOPs forward at the flagship widths (the
 // fetch 2 * 8 * C more): 0.00067 ms forward and 0.00162 ms backward for
-// 32,768 samples in 'mixed'.  The forward and the 'f32' backward run the MLP
-// on the CUDA cores in float32 FMAs out of shared memory (snake_mlp.cuh;
-// tensor cores for the forward are later work).  The 'mixed' backward runs
-// the MLP's products on the tensor cores (mma.sync on bf16 fragments,
-// snake_mlp_tc.cuh, shared with the MLP backward of mlp_fused.cu): ldmatrix
-// feeds 16 x 16 operands a warp instruction where each float32 FMA took two
-// shared loads; x0 goes into its bf16 layer-0 buffer, and dX comes back in
-// float32.
+// 32,768 samples in 'mixed'.  The 'mixed' kernels run the MLP's products on
+// the tensor cores (mma.sync on bf16 fragments, snake_mlp_tc.cuh, shared with
+// the MLP kernels of mlp_fused.cu) in blocks that stage the weights once and
+// walk tiles of samples: x0 goes into its bf16 layer-0 buffer, the forward
+// runs the same chain as the backward's recompute, and the backward hands dX
+// back in float32.  The 'f32' kernels run the MLP on the CUDA cores in
+// float32 FMAs out of shared memory (snake_mlp.cuh), a forward block a tile.
 //
 // Precision: `bf16` set is the TPU kernel's 'mixed' (the fetch and the
 // routing into dG in float32, the MLP's products on bfloat16 operands);
@@ -59,6 +58,15 @@ struct Grid {
 // float32(2^j * 2 pi), as the plain version's np.float32(2**j * 2 * pi).
 __device__ __forceinline__ float freq(int j) { return ldexpf(6.28318548f, j); }
 
+// Column col < 3 + 6 n_freqs of x0 at the coordinates c: the coordinate,
+// or per frequency j the sin of the 3 coordinates, then the cos of the 3.
+__device__ __forceinline__ float embedding(const float* c, int col) {
+  if (col < 3) return c[col];
+  const int j = (col - 3) / 6, q = col - 3 - 6 * j;
+  const float arg = __fmul_rn(c[q % 3], freq(j));
+  return q < 3 ? sinf(arg) : cosf(arg);
+}
+
 // put(s, col, v) for x0 of the tile's rows (zeros past n).
 template <class Put>
 __device__ void build_x0(Put&& put, const float* __restrict__ coords, const Grid& g,
@@ -70,13 +78,8 @@ __device__ void build_x0(Put&& put, const float* __restrict__ coords, const Grid
     float v = 0.0f;
     if (r < n) {
       const float* c = coords + 3 * r;
-      if (col < 3) {
-        v = c[col];
-      } else if (col < emb) {
-        // per frequency j: sin of the 3 coords, then cos of the 3
-        const int j = (col - 3) / 6, q = col - 3 - 6 * j;
-        const float arg = __fmul_rn(c[q % 3], freq(j));
-        v = q < 3 ? sinf(arg) : cosf(arg);
+      if (col < emb) {
+        v = embedding(c, col);
       } else {
         const int ch = col - emb;
         float acc = 0.0f;
@@ -99,10 +102,61 @@ __device__ void build_x0(float* a, int P, const float* __restrict__ coords,
            n_freqs, S, row0, n);
 }
 
+// op(x0) of the tile's rows into the bf16 layer-0 buffer of the tensor-core
+// plan p (zeros past n).  The embedding one entry a thread, as build_x0; the
+// features one thread a sample and 4 channels, which finds the cell and its
+// corner weights once for the 4 and loads them together (one float4 where
+// the grid allows).  Each channel is the fetch kernel's fmaf chain over the
+// corners in the same order, so the features equal its output bit for bit.
+__device__ void build_x0_tc(const TcPlan& p, unsigned char* smem,
+                            const float* __restrict__ coords, const Grid& g, int n_freqs,
+                            int64_t row0, int64_t n) {
+  bf16* x0 = tc_x0(p, smem);
+  const int S = p.S, P0 = tc_x0_pitch(p), emb = 3 + 6 * n_freqs, C = g.C, Q = (C + 3) / 4;
+  for (int e = threadIdx.x; e < S * emb; e += blockDim.x) {
+    const int s = e / emb, col = e - s * emb;
+    const int64_t r = row0 + s;
+    x0[s * P0 + col] = __float2bfloat16_rn(r < n ? embedding(coords + 3 * r, col) : 0.0f);
+  }
+  const bool vec4 = C % 4 == 0 && (reinterpret_cast<uintptr_t>(g.data) & 15) == 0;
+  for (int e = threadIdx.x; e < S * Q; e += blockDim.x) {
+    const int s = e / Q, c0 = 4 * (e - s * Q);
+    const int64_t r = row0 + s;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (r < n) {
+      const float* c = coords + 3 * r;
+      for_each_corner(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
+                      [&](int64_t row, float w) {
+                        const float* src = g.data + row * C + c0;
+                        if (vec4) {
+                          const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+                          acc[0] = fmaf(w, v.x, acc[0]);
+                          acc[1] = fmaf(w, v.y, acc[1]);
+                          acc[2] = fmaf(w, v.z, acc[2]);
+                          acc[3] = fmaf(w, v.w, acc[3]);
+                        } else {
+#pragma unroll
+                          for (int k = 0; k < 4; ++k) {
+                            if (c0 + k < C) acc[k] = fmaf(w, __ldg(src + k), acc[k]);
+                          }
+                        }
+                      });
+    }
+    bf16* d = x0 + s * P0 + emb + c0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c0 + k < C) d[k] = __float2bfloat16_rn(acc[k]);
+    }
+  }
+}
+
+// 'f32': tile_forward of snake_mlp.cuh, a block a tile of kFwdTile samples
+// (the plan p unused).
 template <bool BF16>
 __global__ void __launch_bounds__(kMlpThreads)
-fused_fwd_kernel(Mlp m, Grid g, const float* __restrict__ coords,
-                 float* __restrict__ out, int64_t n, int n_freqs) {
+fused_fwd_kernel(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p, Grid g,
+                 const float* __restrict__ coords, float* __restrict__ out, int64_t n,
+                 int n_freqs) {
   extern __shared__ float smem[];
   const int S = kFwdTile, P = m.pitch;
   float* a = smem;
@@ -111,6 +165,28 @@ fused_fwd_kernel(Mlp m, Grid g, const float* __restrict__ coords,
   const int64_t row0 = int64_t(blockIdx.x) * S;
   build_x0<BF16>(a, P, coords, g, n_freqs, S, row0, n);
   tile_forward<BF16>(m, a, b, wst, S, out, row0, n);
+}
+
+// 'mixed': x0 into the bf16 layer-0 buffer, then the tensor-core
+// tile_forward_tc (snake_mlp_tc.cuh), on tiles of p.S samples in blocks of
+// kTcFwdThreads that stage the weights once (where they stay) and walk tiles
+// blockIdx.x, + gridDim.x, ...
+template <>
+__global__ void __launch_bounds__(kTcFwdThreads, kTcFwdMinBlocks)
+fused_fwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p,
+                       Grid g, const float* __restrict__ coords, float* __restrict__ out,
+                       int64_t n, int n_freqs) {
+  extern __shared__ float smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  tc_stage_resident(m, p, base);
+  const int64_t tiles = (n + p.S - 1) / p.S;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t row0 = t * p.S;
+    __syncthreads();  // the previous tile's readers are done
+    tc_zero_x0_pad(m, p, base);   // a later layer's h shares h_0's buffer
+    build_x0_tc(p, base, coords, g, n_freqs, row0, n);
+    tile_forward_tc(m, p, base, out, row0, n);
+  }
 }
 
 // Routes the feature columns of dX (pitch P) into dG through the corner
@@ -169,33 +245,35 @@ fused_bwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ Tc
                        float* __restrict__ partial, int64_t n, int n_freqs, int) {
   extern __shared__ float smem[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem);
-  const int S = p.S, P0 = tc_x0_pitch(p), emb = 3 + 6 * n_freqs;
-  bf16* x0 = tc_x0(p, base);
+  const int P0 = tc_x0_pitch(p), emb = 3 + 6 * n_freqs;
   float* slot = partial + int64_t(blockIdx.x) * m.total;
   float* acc = tc_acc(p, base, slot);
   tc_begin(m, p, base, acc);
-  const int64_t tiles = (n + S - 1) / S;
+  const int64_t tiles = (n + p.S - 1) / p.S;
   for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int64_t row0 = t * S;
+    const int64_t row0 = t * p.S;
     __syncthreads();  // the previous tile's readers are done
-    build_x0([&](int s, int col, float v) { x0[s * P0 + col] = __float2bfloat16_rn(v); },
-             coords, g, n_freqs, S, row0, n);
+    build_x0_tc(p, base, coords, g, n_freqs, row0, n);
     tc_load_grad(m, p, base, gout, row0, n);
     const float* dx = tile_backward_tc(m, p, base, acc);
-    route_dx(dx, P0, emb, g, coords, dgrid, S, row0, n);
+    route_dx(dx, P0, emb, g, coords, dgrid, p.S, row0, n);
   }
   tc_end(m, p, base, acc, slot);
+}
+
+// The forward kernel at a precision.
+inline decltype(&fused_fwd_kernel<true>) fwd_kernel(bool bf16) {
+  return bf16 ? fused_fwd_kernel<true> : fused_fwd_kernel<false>;
 }
 
 template <bool BF16>
 cudaError_t launch_fwd(const Mlp& m, const Grid& g, const float* coords, float* out,
                        int64_t n, int n_freqs, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(m);
-  cudaError_t err = allow_smem(fused_fwd_kernel<BF16>, smem);
+  Launch b;
+  cudaError_t err = fwd_launch(fwd_kernel(BF16), BF16, m, n, &b);
   if (err != cudaSuccess) return err;
-  const int64_t blocks = (n + kFwdTile - 1) / kFwdTile;
-  fused_fwd_kernel<BF16><<<dim3(unsigned(blocks)), kMlpThreads, smem, stream>>>(
-      m, g, coords, out, n, n_freqs);
+  fused_fwd_kernel<BF16><<<dim3(unsigned(b.blocks)), b.threads, b.smem, stream>>>(
+      m, b.p, g, coords, out, n, n_freqs);
   return cudaGetLastError();
 }
 
@@ -208,14 +286,14 @@ template <bool BF16>
 cudaError_t launch_bwd(const Mlp& m, const Grid& g, const float* coords,
                        const float* gout, float* dgrid, float* dparams,
                        float* partial, int64_t n, int n_freqs, cudaStream_t stream) {
-  BwdLaunch b;
+  Launch b;
   cudaError_t err = bwd_launch(bwd_kernel(BF16), BF16, m, n, &b);
   if (err != cudaSuccess) return err;
-  fused_bwd_kernel<BF16><<<dim3(unsigned(b.slots)), b.threads, b.smem, stream>>>(
+  fused_bwd_kernel<BF16><<<dim3(unsigned(b.blocks)), b.threads, b.smem, stream>>>(
       m, b.p, g, coords, gout, dgrid, partial, n, n_freqs, b.S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce_slots(partial, dparams, m.total, b.slots, stream);
+  return launch_reduce_slots(partial, dparams, m.total, b.blocks, stream);
 }
 
 bool make_args(Mlp* m, Grid* g, const void* grid, const void* const* w,
@@ -260,22 +338,37 @@ extern "C" int lfgc_fused_forward_fwd(const void* grid, const void* coords,
                   : launch_fwd<false>(m, g, cp, o, n, n_freqs, s));
 }
 
+// For reports, the forward's launch at these widths and precision on the
+// current card: out = [samples a tile, dynamic shared bytes a block, blocks
+// an SM, weights resident] (snake_mlp_tc.cuh launch_report).
+extern "C" int lfgc_fused_forward_fwd_plan(const int* dims, int nw, int bf16, int* out) {
+  Mlp m;
+  Launch b;
+  if (!make_mlp(&m, nullptr, nullptr, dims, nw)) return int(cudaErrorInvalidValue);
+  const cudaError_t err = fwd_launch(fwd_kernel(bf16), bf16, m, 1, &b);
+  if (err == cudaSuccess) launch_report(b, out);
+  return int(err);
+}
+
 // The number of partial slots lfgc_fused_forward_bwd needs at this precision
 // on the current card; 0 if the widths do not fit.
 extern "C" int lfgc_fused_forward_bwd_slots(int64_t n, const int* dims, int nw, int bf16) {
   Mlp m;
   if (!make_mlp(&m, nullptr, nullptr, dims, nw) || n <= 0) return 0;
-  BwdLaunch b;
-  return bwd_launch(bwd_kernel(bf16), bf16, m, n, &b) == cudaSuccess ? b.slots : 0;
+  Launch b;
+  return bwd_launch(bwd_kernel(bf16), bf16, m, n, &b) == cudaSuccess ? b.blocks : 0;
 }
 
 // For reports, the backward's launch at these widths and precision on the
 // current card: out = [samples a tile, dynamic shared bytes a block, blocks
-// an SM, weights and sums resident] (snake_mlp_tc.cuh bwd_report).
+// an SM, weights and sums resident] (snake_mlp_tc.cuh launch_report).
 extern "C" int lfgc_fused_forward_bwd_plan(const int* dims, int nw, int bf16, int* out) {
   Mlp m;
+  Launch b;
   if (!make_mlp(&m, nullptr, nullptr, dims, nw)) return int(cudaErrorInvalidValue);
-  return int(bwd_report(bwd_kernel(bf16), bf16, m, out));
+  const cudaError_t err = bwd_launch(bwd_kernel(bf16), bf16, m, 1, &b);
+  if (err == cudaSuccess) launch_report(b, out);
+  return int(err);
 }
 
 // For the output gradient gout (n, dims[nw]): dgrid (D, H, W, C), zeroed by

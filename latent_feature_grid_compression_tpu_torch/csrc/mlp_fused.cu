@@ -6,22 +6,22 @@
 //   _bwd_kernel  (the backward, from _mlp_bwd: recompute the chain, then dX,
 //                 dW and db accumulated over sample blocks)
 // Those pad every layer to the 128-lane MXU tile and keep the activations in
-// VMEM.  Here a block keeps a tile of samples and one layer's weights at a
-// time in shared memory (snake_mlp.cuh); no activation goes to device memory.
+// VMEM.  Here a block keeps a tile of samples and the weights in shared
+// memory; no activation goes to device memory.
 //
 // Bound on the card: at the flagship widths (31 -> 4 x 32 -> 1) a sample
 // costs 8,192 FLOPs forward and about three times that backward, against
 // 128 bytes of input and 4 of output (plus dX backward).  With bf16 operands
 // (989 TFLOP/s on the tensor cores) that is below the ridge: the forward is
 // bound by bytes at 0.00126 ms for 32,768 samples, the backward at 0.00248
-// ms; in float32 (67 TFLOP/s) by operations.  The forward kernel and the
-// 'f32' backward multiply on the CUDA cores with float32 FMAs (bf16 operands
-// rounded, then multiplied exactly in float32), out of shared memory
-// (snake_mlp.cuh); tensor cores for the forward are later work.  The 'bf16'
-// backward runs its products on the tensor cores (mma.sync on bf16
-// fragments, snake_mlp_tc.cuh), the same arithmetic up to the order of the
-// float32 sums: ldmatrix feeds 16 x 16 operands a warp instruction where
-// each float32 FMA took two shared loads.
+// ms; in float32 (67 TFLOP/s) by operations.  The 'bf16' kernels run their
+// products on the tensor cores (mma.sync on bf16 fragments loaded by
+// ldmatrix, snake_mlp_tc.cuh) in blocks that stage every layer's weights
+// once and walk tiles of samples: the forward's routine is the backward's
+// recompute of the chain.  The 'f32' kernels multiply on the CUDA cores with
+// float32 FMAs out of shared memory (snake_mlp.cuh), a forward block a tile
+// of kFwdTile samples, one layer's weights at a time.  Both precisions do the
+// same arithmetic as the plain versions up to the order of the float32 sums.
 //
 // dW and db are reduced per block into slots and then summed in a fixed order
 // (snake_mlp.cuh): the backward is reproducible bit for bit on one card.
@@ -36,10 +36,12 @@ namespace {
 
 using namespace lfgc;
 
+// 'f32': tile_forward of snake_mlp.cuh, a block a tile of kFwdTile samples
+// (the plan p unused).
 template <bool BF16>
 __global__ void __launch_bounds__(kMlpThreads)
-mlp_fwd_kernel(Mlp m, const float* __restrict__ x, float* __restrict__ out,
-               int64_t n) {
+mlp_fwd_kernel(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p,
+               const float* __restrict__ x, float* __restrict__ out, int64_t n) {
   extern __shared__ float smem[];
   const int S = kFwdTile, P = m.pitch, K0 = m.dim[0];
   float* a = smem;
@@ -51,6 +53,26 @@ mlp_fwd_kernel(Mlp m, const float* __restrict__ x, float* __restrict__ out,
     a[s * P + k] = row0 + s < n ? op<BF16>(x[(row0 + s) * K0 + k]) : 0.0f;
   }
   tile_forward<BF16>(m, a, b, wst, S, out, row0, n);
+}
+
+// 'bf16': the tensor-core tile_forward_tc (snake_mlp_tc.cuh) on tiles of
+// p.S samples in blocks of kTcFwdThreads that stage the weights once (where
+// they stay) and walk tiles blockIdx.x, + gridDim.x, ...
+template <>
+__global__ void __launch_bounds__(kTcFwdThreads, kTcFwdMinBlocks)
+mlp_fwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p,
+                     const float* __restrict__ x, float* __restrict__ out, int64_t n) {
+  extern __shared__ float smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  tc_stage_resident(m, p, base);
+  const int64_t tiles = (n + p.S - 1) / p.S;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t row0 = t * p.S;
+    __syncthreads();  // the previous tile's readers are done
+    tc_zero_x0_pad(m, p, base);   // a later layer's h shares h_0's buffer
+    tc_load_x(m, p, base, x, row0, n);
+    tile_forward_tc(m, p, base, out, row0, n);
+  }
 }
 
 // 'f32': tile_backward of snake_mlp.cuh on tiles of S samples (the plan p
@@ -113,15 +135,19 @@ mlp_bwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ TcPl
   tc_end(m, p, base, acc, slot);
 }
 
+// The forward kernel at a precision.
+inline decltype(&mlp_fwd_kernel<true>) fwd_kernel(bool bf16) {
+  return bf16 ? mlp_fwd_kernel<true> : mlp_fwd_kernel<false>;
+}
+
 template <bool BF16>
 cudaError_t launch_fwd(const Mlp& m, const float* x, float* out, int64_t n,
                        cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(m);
-  cudaError_t err = allow_smem(mlp_fwd_kernel<BF16>, smem);
+  Launch b;
+  cudaError_t err = fwd_launch(fwd_kernel(BF16), BF16, m, n, &b);
   if (err != cudaSuccess) return err;
-  const int64_t blocks = (n + kFwdTile - 1) / kFwdTile;
-  mlp_fwd_kernel<BF16><<<dim3(unsigned(blocks)), kMlpThreads, smem, stream>>>(
-      m, x, out, n);
+  mlp_fwd_kernel<BF16><<<dim3(unsigned(b.blocks)), b.threads, b.smem, stream>>>(
+      m, b.p, x, out, n);
   return cudaGetLastError();
 }
 
@@ -134,14 +160,14 @@ template <bool BF16>
 cudaError_t launch_bwd(const Mlp& m, const float* x, const float* g, float* dx,
                        float* dparams, float* partial, int64_t n,
                        cudaStream_t stream) {
-  BwdLaunch b;
+  Launch b;
   cudaError_t err = bwd_launch(bwd_kernel(BF16), BF16, m, n, &b);
   if (err != cudaSuccess) return err;
-  mlp_bwd_kernel<BF16><<<dim3(unsigned(b.slots)), b.threads, b.smem, stream>>>(
+  mlp_bwd_kernel<BF16><<<dim3(unsigned(b.blocks)), b.threads, b.smem, stream>>>(
       m, b.p, x, g, dx, partial, n, b.S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce_slots(partial, dparams, m.total, b.slots, stream);
+  return launch_reduce_slots(partial, dparams, m.total, b.blocks, stream);
 }
 
 }  // namespace
@@ -164,23 +190,38 @@ extern "C" int lfgc_mlp_fused_fwd(const void* x, const void* const* w,
   return int(bf16 ? launch_fwd<true>(m, xp, o, n, s) : launch_fwd<false>(m, xp, o, n, s));
 }
 
+// For reports, the forward's launch at these widths and precision on the
+// current card: out = [samples a tile, dynamic shared bytes a block, blocks
+// an SM, weights resident] (snake_mlp_tc.cuh launch_report).
+extern "C" int lfgc_mlp_fused_fwd_plan(const int* dims, int nw, int bf16, int* out) {
+  Mlp m;
+  Launch b;
+  if (!make_mlp(&m, nullptr, nullptr, dims, nw)) return int(cudaErrorInvalidValue);
+  const cudaError_t err = fwd_launch(fwd_kernel(bf16), bf16, m, 1, &b);
+  if (err == cudaSuccess) launch_report(b, out);
+  return int(err);
+}
+
 // The number of partial slots (rows of `partial`, each of the flat
 // [dW .., db ..] length) that lfgc_mlp_fused_bwd needs at this precision on
 // the current card; 0 if the widths do not fit.
 extern "C" int lfgc_mlp_fused_bwd_slots(int64_t n, const int* dims, int nw, int bf16) {
   Mlp m;
   if (!make_mlp(&m, nullptr, nullptr, dims, nw) || n <= 0) return 0;
-  BwdLaunch b;
-  return bwd_launch(bwd_kernel(bf16), bf16, m, n, &b) == cudaSuccess ? b.slots : 0;
+  Launch b;
+  return bwd_launch(bwd_kernel(bf16), bf16, m, n, &b) == cudaSuccess ? b.blocks : 0;
 }
 
 // For reports, the backward's launch at these widths and precision on the
 // current card: out = [samples a tile, dynamic shared bytes a block, blocks
-// an SM, weights and sums resident] (snake_mlp_tc.cuh bwd_report).
+// an SM, weights and sums resident] (snake_mlp_tc.cuh launch_report).
 extern "C" int lfgc_mlp_fused_bwd_plan(const int* dims, int nw, int bf16, int* out) {
   Mlp m;
+  Launch b;
   if (!make_mlp(&m, nullptr, nullptr, dims, nw)) return int(cudaErrorInvalidValue);
-  return int(bwd_report(bwd_kernel(bf16), bf16, m, out));
+  const cudaError_t err = bwd_launch(bwd_kernel(bf16), bf16, m, 1, &b);
+  if (err == cudaSuccess) launch_report(b, out);
+  return int(err);
 }
 
 // For the output gradient g (n, dims[nw]): dx (n, dims[0]) and the flat

@@ -113,11 +113,11 @@ def tiled_net_out(model: FeatureGridModel, meta: VolumeMeta,
     """Reconstruct, optionally compute stats and write .vti volumes.
 
     Without volume files the stats come from :func:`eval_stats_on_device`
-    (on ``gt_dev``, the ground truth already on the device, when given);
-    with them, the field comes to the host and the stats are taken there in
-    float64."""
+    on ``gt_dev`` (the ground truth already on the device) when given, else
+    on ``gt_vol``; with them, the field comes to the host and the stats are
+    taken there in float64 against ``gt_vol``."""
     dev = resolve_device(device)
-    if evaluate and not write_vols and gt_vol is not None:
+    if evaluate and not write_vols and (gt_dev is not None or gt_vol is not None):
         vol = gt_dev if gt_dev is not None else torch.from_numpy(
             np.ascontiguousarray(gt_vol, dtype=np.float32))
         return eval_stats_on_device(model, meta, vol, device=dev)

@@ -21,8 +21,9 @@ Weights keep the port's (out, in) layout.  :func:`mlp_fused` is a
 versions for CPU tensors and launch the kernels (or raise) for CUDA tensors;
 nothing falls back.  ``launches`` and ``bwd_launches`` count kernel launches
 and nothing else.  The kernels' dW and db are reduced in a fixed order
-(bitwise reproducible on one card).  The ``'bf16'`` backward multiplies on
-the tensor cores (``csrc/snake_mlp_tc.cuh``), the rest on the CUDA cores.
+(bitwise reproducible on one card).  The ``'bf16'`` kernels multiply on the
+tensor cores (``csrc/snake_mlp_tc.cuh``), the ``'f32'`` ones on the CUDA
+cores.
 """
 
 from __future__ import annotations
@@ -167,17 +168,29 @@ def grad_buffers(kernel: str, slots_symbol: str, weights: Sequence[torch.Tensor]
             torch.empty((slots, total), device=device, dtype=torch.float32))
 
 
-def bwd_plan(kernel: str, dims: Sequence[int], precision: str) -> dict:
-    """How the backward kernel of ``csrc/<kernel>.cu`` launches at these
-    widths and precision ('bf16', or 'mixed' for the one-kernel forward) on
-    this card: samples a tile, dynamic shared memory a block, blocks an SM,
-    and whether all the weights and the dW/db sums stay in shared memory."""
-    lib, fn = _build.entry(kernel, f'lfgc_{kernel}_bwd_plan', PLAN_ARGTYPES)
+def _launch_plan(kernel: str, direction: str, dims: Sequence[int], precision: str) -> dict:
+    """How the forward (``direction='fwd'``) or backward (``'bwd'``) kernel
+    of ``csrc/<kernel>.cu`` launches at these widths and precision ('bf16',
+    or 'mixed' for the one-kernel forward) on this card: samples a tile,
+    dynamic shared memory a block, blocks an SM, and whether all the weights
+    (backward: and the dW/db sums) stay in shared memory.  Raises where the
+    widths do not fit."""
+    lib, fn = _build.entry(kernel, f'lfgc_{kernel}_{direction}_plan', PLAN_ARGTYPES)
     out = (ctypes.c_int * 4)()
     err = fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1,
              int(precision in ('bf16', 'mixed')), out)
     _build.raise_on_error(lib, kernel, err)
     return dict(zip(('tile', 'smem_bytes', 'blocks_per_sm', 'resident'), out))
+
+
+def fwd_plan(kernel: str, dims: Sequence[int], precision: str) -> dict:
+    """:func:`_launch_plan` of the forward kernel."""
+    return _launch_plan(kernel, 'fwd', dims, precision)
+
+
+def bwd_plan(kernel: str, dims: Sequence[int], precision: str) -> dict:
+    """:func:`_launch_plan` of the backward kernel."""
+    return _launch_plan(kernel, 'bwd', dims, precision)
 
 
 def param_grads(flat: torch.Tensor, weights: Sequence[torch.Tensor],

@@ -267,16 +267,19 @@ GRAD_FLOOR = 1.0
 
 
 # the flagship's widths, a wide and a narrow one, a 1-wide input and a
-# single layer (every width <= 128; the bf16 backward pads each to a
-# multiple of 16); a train step's batch with a ragged last tile, one
-# sample, 17, and one sample over the bf16 backward's tile
-@pytest.mark.parametrize('size', ['batch', '1', '17', 'tile+1'])
+# single layer (every width <= 128; the bf16 kernels pad each to a multiple
+# of 16); a train step's batch with a ragged last tile, one sample, 17, one
+# sample over the bf16 backward's tile and over the forward's, and a point
+# query of 2^18 + 3
+@pytest.mark.parametrize('size', ['batch', '1', '17', 'tile+1', 'fwd_tile+1', 'query'])
 @pytest.mark.parametrize('dims', [[31, 32, 32, 32, 32, 1], [128, 128, 128, 128, 4],
                                   [19, 24, 24, 3], [1, 8, 1], [40, 3]])
 @pytest.mark.parametrize('precision', ['bf16', 'f32'])
 def test_mlp_kernels_match_plain(cuda_device, dims, precision, size):
     n = {'batch': 32768 + 5, '1': 1, '17': 17,
-         'tile+1': mf.bwd_plan(mf.KERNEL, dims, 'bf16')['tile'] + 1}[size]
+         'tile+1': mf.bwd_plan(mf.KERNEL, dims, 'bf16')['tile'] + 1,
+         'fwd_tile+1': mf.fwd_plan(mf.KERNEL, dims, 'bf16')['tile'] + 1,
+         'query': (1 << 18) + 3}[size]
     ws, bs = _mlp_params(dims, cuda_device, 1)
     x = torch.randn((n, dims[0]), device=cuda_device)
     g = torch.randn((n, dims[-1]), device=cuda_device)
@@ -295,11 +298,25 @@ def test_mlp_kernels_match_plain(cuda_device, dims, precision, size):
     assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
 
 
+def test_mlp_forward_streams_weights_that_do_not_fit(cuda_device):
+    """Nine layers of 128 do not fit in shared memory at once: the bf16
+    forward stages one layer's weights at a time, and still agrees."""
+    dims = [128] * 9 + [4]
+    assert mf.fwd_plan(mf.KERNEL, dims, 'bf16')['resident'] == 0
+    ws, bs = _mlp_params(dims, cuda_device, 6)
+    x = torch.randn((32768 + 5, dims[0]), device=cuda_device)
+    out = mf.mlp_fused_cuda(ws, bs, x, 'bf16')
+    assert _rel(out, mf.mlp_fused_plain(ws, bs, x, 'bf16')) <= MLP_TOL['bf16'][0]
+
+
+# one sample, 17, one over the forward's bf16 tile, a train step's batch
+@pytest.mark.parametrize('size', ['1', '17', 'fwd_tile+1', 'batch'])
 @pytest.mark.parametrize('precision', ['mixed', 'f32'])
 @pytest.mark.parametrize('C,G', [(16, 15), (8, 9), (5, 22)])
-def test_fused_forward_kernels_match_plain(cuda_device, C, G, precision):
-    n = 32768 + 5
+def test_fused_forward_kernels_match_plain(cuda_device, C, G, precision, size):
     dims = [3 + 12 + C, 32, 32, 32, 32, 1]
+    n = {'1': 1, '17': 17, 'batch': 32768 + 5,
+         'fwd_tile+1': mf.fwd_plan(ff.KERNEL, dims, 'mixed')['tile'] + 1}[size]
     ws, bs = _mlp_params(dims, cuda_device, 2)
     grid = torch.randn((G, G, G, C), device=cuda_device)
     coords = torch.rand((n, 3), device=cuda_device) * 2.4 - 1.2   # incl. OOB

@@ -72,7 +72,7 @@ def _sources():
             if f.endswith('.py'):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, 'chip_smoke.py')
-    yield os.path.join(REPO, 'ablate_backward.py')
+    yield os.path.join(REPO, 'ablate_mlp.py')
     yield os.path.join(REPO, 'infer_torch.py')
     yield os.path.join(REPO, 'train_torch.py')
     # the card's tests run where JAX is not installed
@@ -123,10 +123,12 @@ def test_bwd_kernel_entry_matches_wrapper_signature():
     (mf, 'lfgc_mlp_fused_bwd', mf.BWD_ARGTYPES),
     (mf, 'lfgc_mlp_fused_bwd_slots', mf.SLOTS_ARGTYPES),
     (mf, 'lfgc_mlp_fused_bwd_plan', mf.PLAN_ARGTYPES),
+    (mf, 'lfgc_mlp_fused_fwd_plan', mf.PLAN_ARGTYPES),
     (ff, 'lfgc_fused_forward_fwd', ff.FWD_ARGTYPES),
     (ff, 'lfgc_fused_forward_bwd', ff.BWD_ARGTYPES),
     (ff, 'lfgc_fused_forward_bwd_slots', ff.SLOTS_ARGTYPES),
-    (ff, 'lfgc_fused_forward_bwd_plan', mf.PLAN_ARGTYPES)])
+    (ff, 'lfgc_fused_forward_bwd_plan', mf.PLAN_ARGTYPES),
+    (ff, 'lfgc_fused_forward_fwd_plan', mf.PLAN_ARGTYPES)])
 def test_mlp_kernel_entries_match_wrapper_signatures(mod, entry, argtypes):
     _check_entry(mod.KERNEL, entry, argtypes)
 
@@ -152,24 +154,33 @@ def test_mlp_limits_match_the_kernels():
     assert f'kMaxWidth = {mf.MAX_WIDTH};' in src
 
 
+# each bf16 kernel, its launch bound and the routine its body runs
+TC_KERNELS = {'fwd': ('kTcFwdThreads, kTcFwdMinBlocks', 'tile_forward_tc(', 'tile_forward<'),
+              'bwd': ('kTcThreads, 2', 'tile_backward_tc(', 'tile_backward<')}
+
+
+@pytest.mark.parametrize('direction', sorted(TC_KERNELS))
 @pytest.mark.parametrize('kernel', ['mlp_fused', 'fused_forward'])
-def test_bf16_backward_runs_on_the_tensor_cores(kernel):
-    """No nvcc here: check statically that the bf16 backward kernel goes
-    through the shared tensor-core tile routine (mma.sync on bf16 fragments
-    loaded by ldmatrix), which has no scalar FMA product loop."""
+def test_bf16_kernels_run_on_the_tensor_cores(kernel, direction):
+    """No nvcc here: check statically that the bf16 kernel goes through the
+    shared tensor-core tile routine (mma.sync on bf16 fragments loaded by
+    ldmatrix), which has no scalar FMA product loop, and that the forward
+    and the backward's recompute share their per-layer code."""
     with open(os.path.join(PORT, 'csrc', 'snake_mlp_tc.cuh')) as f:
         tc = f.read()
     assert 'mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32' in tc
     assert 'ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16' in tc
     assert 'fmaf(' not in tc
+    assert 'tc_chain<false>(' in tc and 'tc_chain<true>(' in tc
     with open(os.path.join(PORT, 'csrc', f'{kernel}.cu')) as f:
         src = f.read()
     assert '#include "snake_mlp_tc.cuh"' in src
-    # the bf16 instantiation is a specialization whose body takes the new
-    # routine, and only it does
-    m = re.search(r'template <>\n__global__ void __launch_bounds__\(kTcThreads, 2\)\n'
-                  r'\w+_bwd_kernel<true>\(', src)
-    assert m, 'no bf16 backward specialization'
-    body = src[m.end():src.index('\ntemplate <', m.end())]
-    assert 'tile_backward_tc(' in body and 'tile_backward<' not in body
-    assert src.count('tile_backward_tc(') == 1
+    # the bf16 instantiation is a specialization with its own launch bound
+    # whose body takes the new routine, and only it does
+    bound, routine, cuda_cores = TC_KERNELS[direction]
+    m = re.search(r'template <>\n__global__ void __launch_bounds__\(' + bound + r'\)\n'
+                  rf'\w+_{direction}_kernel<true>\(', src)
+    assert m, f'no bf16 {direction} specialization'
+    body = src[m.end():src.index('\n}\n', m.end())]
+    assert routine in body and cuda_cores not in body
+    assert src.count(routine) == 1

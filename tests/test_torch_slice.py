@@ -72,6 +72,28 @@ def test_device_stats_match_jax(models):
     np.testing.assert_allclose(out[1:], ref[1:], rtol=1e-4)
 
 
+def test_device_stats_from_gt_dev_alone_match_jax(models):
+    """With the ground truth given only as a device tensor, tiled_net_out
+    takes the device-stats path, as the JAX package's does."""
+    jspec, jparams, model = models
+    vol = _volume(4)
+    ref = jrec.tiled_net_out(jspec, jparams, JaxMeta(SHAPE), gt_dev=jax.numpy.asarray(vol))
+    out = trec.tiled_net_out(model, VolumeMeta(SHAPE), gt_dev=torch.from_numpy(vol),
+                             device='cpu')
+    assert out[0] != 0.0
+    assert abs(out[0] - ref[0]) <= 1e-3
+    np.testing.assert_allclose(out[1:], ref[1:], rtol=1e-4)
+
+
+def test_gt_dev_alone_gives_the_gt_vol_stats(models):
+    _, _, model = models
+    vol = _volume(5)
+    meta = VolumeMeta(SHAPE)
+    from_dev = trec.tiled_net_out(model, meta, gt_dev=torch.from_numpy(vol), device='cpu')
+    from_host = trec.tiled_net_out(model, meta, gt_vol=vol, device='cpu')
+    assert from_dev == from_host and from_dev[0] > 0.0
+
+
 def test_device_stats_equal_host_stats(models):
     _, _, model = models
     vol = _volume(1)
