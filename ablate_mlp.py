@@ -86,12 +86,19 @@ def use(csrc: Path):
     _build._loaded.clear()
 
 
-def build_all(src: Path, root: Path):
-    """Each variant's sources (from `src`), every nvcc started together."""
+def build_all(src: Path, root: Path, variants=VARIANTS, sources=SOURCES):
+    """Each variant's sources, every nvcc started together: a copy of `src`
+    with the variant's substitutions, or of the directory a variant names
+    in their place (another tree's csrc/).  Returns nvcc's output (ptxas
+    reports) by variant."""
     procs = []
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         csrc = root / name / 'csrc'
-        shutil.copytree(src, csrc)
+        if isinstance(subs, Path):
+            shutil.copytree(subs, csrc)
+            subs = []
+        else:
+            shutil.copytree(src, csrc)
         for f, old, new in subs:
             text = (csrc / f).read_text()
             if old not in text:
@@ -99,14 +106,17 @@ def build_all(src: Path, root: Path):
             (csrc / f).write_text(text.replace(old, new))
         use(csrc)
         _build.BUILD_DIR.mkdir(parents=True)
-        for kernel in SOURCES:
-            procs.append(subprocess.Popen(
+        for kernel in sources:
+            procs.append((name, subprocess.Popen(
                 _build._nvcc_command(kernel, _build.library_path(kernel)),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for p in procs:
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = dict.fromkeys(variants, '')
+    for name, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f'nvcc failed:\n{log}')
+            raise RuntimeError(f'nvcc failed ({name}):\n{log}')
+        logs[name] += log
+    return logs
 
 
 def main():

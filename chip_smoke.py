@@ -19,13 +19,17 @@ JSON line, in order:
   3. kernel      the trilinear fetch kernel against its plain PyTorch version
                  (max |diff| <= 1e-5) and F.grid_sample (<= 1e-4) at grids
                  4..62 on random coordinates, and at the flagship shape on a
-                 chunk of the 255^3 lattice; kernel, plain, library and
-                 bound times
+                 chunk of the 255^3 lattice and on one train step's trainer
+                 positions; kernel, plain, library and bound times, and the
+                 kernel's launch plan (gs.fwd_plan)
   4. kernel_bwd  the grid-gradient kernel against its plain version
                  (max |diff| <= 1e-5 * max |dG|: atomics add in a
                  run-dependent order) at the flagship shape on the trainer's
-                 positions and at grids 4..62; kernel, plain, library
-                 (aten grid_sampler_3d_backward) and bound times
+                 positions and at grids 4..62 and C 5, 32 on uniform
+                 coordinates, on both of its routes (dG summed in each
+                 block's shared memory first, or straight into dG);
+                 kernel, plain, library (aten grid_sampler_3d_backward) and
+                 bound times, and the plan (gs.bwd_plan)
   5. kernel_mlp  the fused MLP kernels (forward, backward) against their
                  plain versions in 'bf16' and 'f32': at the flagship widths
                  (31 -> 4 x 32 -> 1) on one train step's batch through a real
@@ -409,16 +413,21 @@ def phase_kernel():
     """Kernel vs plain vs F.grid_sample at the NAS range of grids, on
     uniform random coordinates (out-of-range ones included), and at the
     flagship shape on the coordinates the main path gives it: one chunk of
-    the 255^3 lattice, whose neighbouring samples share grid corners."""
+    the 255^3 lattice (evaluation), whose neighbouring samples share grid
+    corners, and one train step's trainer positions (1,520 of the 1,584
+    launches of a train-3 run)."""
     g = torch.Generator(device='cuda').manual_seed(SEED)
-    n = CHUNK
     rows = []
     cases = [(16, 4), (16, 15), (16, 22), (16, 23), (16, 32), (16, 62),
              (5, 15), (32, 15)]
-    for C, G, kind in [(C, G, 'uniform') for C, G in cases] + [(16, 15, 'lattice')]:
+    for C, G, kind in ([(C, G, 'uniform') for C, G in cases]
+                       + [(16, 15, 'lattice'), (16, 15, 'trainer')]):
+        n = TRAIN_BATCH if kind == 'trainer' else CHUNK
         feats = torch.randn((C, G, G, G), device='cuda', generator=g)
         if kind == 'uniform':
             coords = torch.rand((n, 3), device='cuda', generator=g) * 2.4 - 1.2
+        elif kind == 'trainer':
+            coords = trainer_positions(n, g)
         else:
             coords, _ = lattice_chunk(VolumeMeta((VOLUME_N,) * 3), 32 * n, n,
                                       torch.device('cuda'))
@@ -444,7 +453,8 @@ def phase_kernel():
                'library_ms': time_ms(lambda: F.grid_sample(
                    feats[None], coords.view(1, n, 1, 1, 3), mode='bilinear',
                    padding_mode='zeros', align_corners=False)),
-               'bound_ms': bound, 'bound_by': bound_by}
+               'bound_ms': bound, 'bound_by': bound_by,
+               'plan': gs.fwd_plan(n, C, G, G, G, gs._vec4(C, grid_cl, out))}
         emit(row)
         rows.append(row)
     return rows
@@ -461,12 +471,14 @@ def trainer_positions(n, generator):
 def phase_kernel_bwd():
     """Gradient kernel vs plain vs aten's grid_sampler_3d_backward, at one
     train step's batch: the flagship shape on the trainer's positions, then
-    the NAS range of grids on uniform random coordinates."""
+    the NAS range of grids and C 5 (scalar adds) and 32 on uniform random
+    coordinates; each row names the route its shape takes."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 2)
-    n = TRAIN_BATCH
     rows = []
-    cases = [(16, 15, 'trainer')] + [(16, G, 'uniform') for G in (4, 22, 23, 32, 62)]
-    for C, G, kind in cases:
+    cases = ([(16, 15, 'trainer', TRAIN_BATCH)]
+             + [(16, G, 'uniform', TRAIN_BATCH) for G in (4, 22, 23, 32, 62)]
+             + [(5, 15, 'uniform', TRAIN_BATCH), (32, 15, 'uniform', TRAIN_BATCH)])
+    for C, G, kind, n in cases:
         if kind == 'trainer':
             coords = trainer_positions(n, g)
         else:
@@ -499,15 +511,18 @@ def phase_kernel_bwd():
                'n': n, 'coords': kind, 'max_abs_err': err, 'max_abs_dG': scale,
                'max_abs_err_library': err_lib,
                'library_skipped_grid_grad': lib_grid is None or lib_grid.numel() == 0,
-               'atomics': n * 8 * C,
+               'adds': n * 8 * C,
                'kernel_ms': time_ms(lambda: gs.grid_sample_channel_minor_backward_cuda(
                    grad, coords, G, G, G)),
                'plain_ms': time_ms(lambda: grid_sample_channel_minor_backward(
                    grad, coords, G, G, G)),
                'library_ms': time_ms(library),
-               'bound_ms': bound, 'bound_by': bound_by}
+               'bound_ms': bound, 'bound_by': bound_by,
+               'plan': gs.bwd_plan(n, C, G, G, G, gs._vec4(C, grad, out))}
         emit(row)
         rows.append(row)
+    routes = {r['plan']['route'] for r in rows}
+    check(routes == {'shared', 'global'}, f'gradient cases took the routes {routes} only')
     return rows
 
 
@@ -1115,6 +1130,7 @@ def main(argv=None):
     # each kernel's numbers at the main path's own inputs (the flagship,
     # and the precision the model uses: bf16 MLP, 'mixed' fused forward)
     flagship = next(r for r in rows if r['coords'] == 'lattice')
+    trainer = next(r for r in rows if r['coords'] == 'trainer')
     flagship_bwd = next(r for r in bwd_rows if r['coords'] == 'trainer')
     mlp = next(r for r in mlp_rows if r['case'] == 'flagship' and r['precision'] == 'bf16')
     fused = next(r for r in fused_rows if r['case'] == 'flagship, trainer coords'
@@ -1129,15 +1145,17 @@ def main(argv=None):
                      'pallas_kernels.py:158', path_counts, 'train',
                      max_abs_err=max(r['max_abs_err'] for r in rows),
                      **numbers(flagship),
-                     shape={'n': flagship['n'], 'C': 16, 'grid': 15, 'coords': 'lattice'}),
+                     shape={'n': flagship['n'], 'C': 16, 'grid': 15, 'coords': 'lattice'},
+                     plan=flagship['plan'],
+                     trainer={**numbers(trainer), 'n': trainer['n'], 'plan': trainer['plan']}),
         kernel_entry(gs.BWD_KERNEL, 'grid_sample_bwd.cu', 'pallas_kernels.py:142',
                      'pallas_kernels.py:182', path_counts, 'train',
                      max_abs_err=max(r['max_abs_err'] for r in bwd_rows),
                      max_abs_err_relative=max(r['max_abs_err'] / r['max_abs_dG']
                                               for r in bwd_rows),
-                     **numbers(flagship_bwd), atomics=flagship_bwd['atomics'],
+                     **numbers(flagship_bwd),
                      shape={'n': flagship_bwd['n'], 'C': 16, 'grid': 15,
-                            'coords': 'trainer'}),
+                            'coords': 'trainer'}, plan=flagship_bwd['plan']),
         kernel_entry('mlp_fused_fwd', 'mlp_fused.cu', 'mlp_pallas.py:103', None,
                      path_counts, 'train_mlp_pallas',
                      max_abs_err=max(r['max_abs_err'] for r in mlp_rows),

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace lfgc {
 
 constexpr int kMaxLayers = 16;    // weight matrices (ops/mlp_fused.py MAX_LAYERS)
@@ -292,13 +294,6 @@ inline cudaError_t launch_reduce_slots(const float* partial, float* out, int tot
   reduce_slots_kernel<<<dim3(unsigned((total + 31) / 32)), dim3(32, 8), 0, stream>>>(
       partial, out, total, slots);
   return cudaGetLastError();
-}
-
-// Lets `kernel` take `bytes` of dynamic shared memory (needed above 48 KB).
-template <class K>
-inline cudaError_t allow_smem(K* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(bytes));
 }
 
 }  // namespace lfgc

@@ -213,16 +213,10 @@ struct Launch {
 template <class Kernel>
 inline cudaError_t occupy(Kernel* kernel, bool bf16, int64_t n, int64_t f32_blocks,
                           Launch* b) {
+  int sms = 0;
   cudaError_t err = allow_smem(kernel, b->smem);
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b->per_sm, kernel, b->threads,
-                                                        b->smem);
-  }
+  if (err == cudaSuccess) err = occupancy(kernel, b->threads, b->smem, &b->per_sm, &sms);
   if (err != cudaSuccess) return err;
-  if (b->per_sm < 1) return cudaErrorInvalidValue;
   const int64_t tiles = (n + b->S - 1) / b->S, most = int64_t(sms) * b->per_sm;
   b->blocks = int(bf16 ? (tiles < most ? tiles : most) : f32_blocks);
   return cudaSuccess;

@@ -18,6 +18,13 @@ their gradient).  ``launches`` and ``bwd_launches`` count kernel launches
 (and nothing else), so a run can show that its path went through the
 kernels.  The backward kernel adds with atomics, so on the card its result
 is not bitwise reproducible from run to run.
+
+:func:`fwd_plan` and :func:`bwd_plan` report how the kernels launch for a
+shape on the current card: the forward's lanes (float4 or scalar), the
+backward's route ('shared': dG summed in each block's shared memory, then
+added into dG once a block; 'global': every product added straight into
+dG), and the grid, which the C code chooses from the shape and the number of
+samples before the launch.
 """
 
 from __future__ import annotations
@@ -41,6 +48,11 @@ bwd_launches = 0
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
+# the plan entries: n, C, D, H, W, vec4, out (7 ints)
+PLAN_ARGTYPES = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+PLAN_FIELDS = ('route', 'threads', 'blocks_per_sm', 'blocks', 'samples_per_warp',
+               'channels_per_lane', 'smem_bytes')
 
 
 def _launch(name: str, entry: str, a: torch.Tensor, coords: torch.Tensor,
@@ -111,6 +123,37 @@ def grid_sample_channel_minor_backward_cuda(g: torch.Tensor, coords: torch.Tenso
             _vec4(C, g, dgrid))
     bwd_launches += 1
     return dgrid
+
+
+def _plan(name: str, entry: str, routes, n: int, C: int, D: int, H: int, W: int,
+          vec4: bool) -> dict:
+    lib, fn = _build.entry(name, entry, PLAN_ARGTYPES)
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    _build.raise_on_error(lib, name, fn(n, C, D, H, W, int(vec4), out))
+    plan = dict(zip(PLAN_FIELDS, out))
+    plan['route'] = routes[plan['route']]
+    return plan
+
+
+def fwd_plan(n: int, C: int, D: int, H: int, W: int, vec4: bool = True) -> dict:
+    """How the forward kernel launches for n samples from a (D, H, W, C)
+    grid on the current card: route 'float4' (4 channels a lane; ``vec4``,
+    which the wrapper takes where C % 4 == 0 and the pointers are aligned)
+    or 'scalar', threads a block, blocks an SM, blocks, samples a warp
+    step, channels a lane, shared bytes a block (0)."""
+    return _plan(KERNEL, 'lfgc_grid_sample_fwd_plan', ('scalar', 'float4'),
+                 n, C, D, H, W, vec4)
+
+
+def bwd_plan(n: int, C: int, D: int, H: int, W: int, vec4: bool = True) -> dict:
+    """How the backward kernel launches for n samples into a (D, H, W, C)
+    gradient on the current card: route 'shared' (each block sums dG in
+    ``smem_bytes`` of shared memory, where dG fits and each of its
+    addresses would take at least ~1,000 of the n * 8 adds) or 'global',
+    threads a block, blocks an SM, blocks, samples a warp step, channels a
+    lane."""
+    return _plan(BWD_KERNEL, 'lfgc_grid_sample_bwd_plan', ('global', 'shared'),
+                 n, C, D, H, W, vec4)
 
 
 class _Fetch(torch.autograd.Function):

@@ -52,12 +52,17 @@ def _inputs(shape, n, seed):
     return torch.from_numpy(features), torch.from_numpy(coords)
 
 
-# C = 5: the scalar path; C = 40: two channel blocks; (3, 5, 7, 9): axis order
+# C % 4 != 0 (1, 3, 5): scalar loads, 4 channels a lane; C = 40: 10 lanes a
+# sample, 3 samples a warp; C = 64: 16 lanes, 2 samples; (3, 5, 7, 9): axis
+# order; grids 4..62.  n: one sample, a partial warp step, one over a warp
+# step of C = 16, a train step's batch + 5 and an evaluation chunk + 3
+@pytest.mark.parametrize('n', [1, 7, 33, 32768 + 5, (1 << 18) + 3])
 @pytest.mark.parametrize('shape', [(16, 15, 15, 15), (16, 62, 62, 62),
                                    (5, 15, 15, 15), (32, 15, 15, 15),
-                                   (40, 9, 9, 9), (3, 5, 7, 9)])
-def test_kernel_matches_plain(cuda_device, shape):
-    f, c = _inputs(shape, 4096, 6)
+                                   (40, 9, 9, 9), (3, 5, 7, 9), (1, 4, 4, 4),
+                                   (4, 23, 23, 23), (8, 32, 32, 32), (64, 6, 6, 6)])
+def test_kernel_matches_plain(cuda_device, shape, n):
+    f, c = _inputs(shape, n, 6)
     before = gs.launches
     with torch.no_grad():
         out = gs.grid_sample_3d_cuda(f.to(cuda_device), c.to(cuda_device))
@@ -65,6 +70,13 @@ def test_kernel_matches_plain(cuda_device, shape):
     assert gs.launches == before + 1
     np.testing.assert_allclose(out.cpu().numpy(), grid_sample_3d(f, c).numpy(),
                                atol=KERNEL_TOL)
+    C, D, H, W = shape
+    plan = gs.fwd_plan(n, C, D, H, W, C % 4 == 0)
+    lanes = min(-(-C // plan['channels_per_lane']), 32)
+    assert plan['route'] == ('float4' if C % 4 == 0 else 'scalar')
+    assert plan['samples_per_warp'] == 32 // lanes
+    assert plan['blocks'] <= plan['blocks_per_sm'] * torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
 
 
 def test_kernel_unaligned_grid_takes_scalar_path(cuda_device):
@@ -130,18 +142,35 @@ def _lattice_positions(n, res, seed):
     return (pos.to(torch.float32) / (res - 1)) * 2.0 - 1.0
 
 
+def _route_edge(C):
+    """The largest cubic grid whose C-channel gradient takes the shared
+    route and the smallest that takes the global one, from the plan."""
+    routes = {G: gs.bwd_plan(32768, C, G, G, G)['route'] for G in range(4, 63)}
+    shared = [G for G, r in routes.items() if r == 'shared']
+    glob = [G for G, r in routes.items() if r == 'global']
+    assert shared and glob and max(shared) < min(glob), routes
+    return {'last_shared': max(shared), 'first_global': min(glob)}
+
+
 # the flagship's trainer positions, then the NAS range of grids (23..62 are
-# the blocked Pallas variant's) on random coordinates; C = 5 the scalar path
+# the blocked Pallas variant's) on random coordinates, the edge between the
+# two routes, C = 5 (scalar adds), 8 and 32
 @pytest.mark.parametrize('C,G,kind', [(16, 15, 'lattice'), (16, 4, 'uniform'),
                                       (16, 22, 'uniform'), (16, 23, 'uniform'),
                                       (16, 32, 'uniform'), (16, 62, 'uniform'),
-                                      (5, 15, 'uniform')])
+                                      (5, 15, 'uniform'), (8, 15, 'uniform'),
+                                      (32, 15, 'uniform'), (16, 'last_shared', 'uniform'),
+                                      (16, 'first_global', 'uniform')])
 def test_bwd_kernel_matches_plain(cuda_device, C, G, kind):
     """Atomics add in a run-dependent order: the tolerance is relative to
     the gradient's size, not 0."""
     n = 32768
+    if isinstance(G, str):
+        route, G = G.split('_')[1], _route_edge(C)[G]
+        assert gs.bwd_plan(n, C, G, G, G)['route'] == route
     if kind == 'lattice':
         coords = _lattice_positions(n, 255, 0)
+        assert gs.bwd_plan(n, C, G, G, G)['route'] == 'global'
     else:
         coords = torch.rand((n, 3), device=cuda_device) * 2.4 - 1.2
     g = torch.randn((n, C), device=cuda_device)
@@ -154,6 +183,33 @@ def test_bwd_kernel_matches_plain(cuda_device, C, G, kind):
     assert float((out - ref).abs().max()) <= 1e-5 * scale
 
 
+def test_bwd_plan_follows_the_shape(cuda_device):
+    """The route comes from the shape and n: the flagship's 78 adds an
+    address of dG take the global route; grid 4's 4,096 take the blocks'
+    shared memory, about one block an SM; with 4,096 samples grid 4 takes
+    512 an address and the global route; grid 62's dG never fits."""
+    assert gs.bwd_plan(32768, 16, 15, 15, 15)['route'] == 'global'
+    small = gs.bwd_plan(32768, 16, 4, 4, 4)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert small['route'] == 'shared' and small['blocks'] == sms
+    assert small['smem_bytes'] == 4 ** 3 * 16 * 4 and small['threads'] == 1024
+    assert gs.bwd_plan(4096, 16, 4, 4, 4)['route'] == 'global'
+    big = gs.bwd_plan(1 << 30, 16, 62, 62, 62)
+    assert big['route'] == 'global' and big['smem_bytes'] == 0
+
+
+@pytest.mark.parametrize('n', [0, 1])
+def test_bwd_kernel_tiny_batches(cuda_device, n):
+    c = torch.rand((n, 3), device=cuda_device) * 2 - 1
+    g = torch.randn((n, 16), device=cuda_device)
+    before = gs.bwd_launches
+    out = gs.grid_sample_channel_minor_backward_cuda(g, c, 15, 15, 15)
+    torch.cuda.synchronize()
+    assert gs.bwd_launches == before + (n > 0)
+    ref = grid_sample_channel_minor_backward(g, c, 15, 15, 15)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-6)
+
+
 def test_bwd_kernel_unaligned_takes_scalar_path(cuda_device):
     c = torch.rand((1000, 3), device=cuda_device) * 2 - 1
     storage = torch.empty(1000 * 8 + 1, device=cuda_device)
@@ -163,6 +219,22 @@ def test_bwd_kernel_unaligned_takes_scalar_path(cuda_device):
     out = gs.grid_sample_channel_minor_backward_cuda(g, c, 6, 6, 6)
     ref = grid_sample_channel_minor_backward(g, c, 6, 6, 6)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+
+
+def test_bwd_kernel_unaligned_on_the_shared_route(cuda_device):
+    """Scalar adds and a scalar flush on the shared route: 4,096 samples on
+    grid 3 add 1,214 times into each address of dG (so the tolerance, as
+    for every atomic sum, is relative to max |dG|)."""
+    n = 4096
+    c = torch.rand((n, 3), device=cuda_device) * 2 - 1
+    storage = torch.empty(n * 8 + 1, device=cuda_device)
+    g = storage[1:].view(n, 8)
+    g.copy_(torch.randn((n, 8), device=cuda_device))
+    assert g.data_ptr() % 16 != 0
+    assert gs.bwd_plan(n, 8, 3, 3, 3, False)['route'] == 'shared'
+    out = gs.grid_sample_channel_minor_backward_cuda(g, c, 3, 3, 3)
+    ref = grid_sample_channel_minor_backward(g, c, 3, 3, 3)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 def _train_setup(device, res=64, drop_type='smallify', max_pass=60, **backends):

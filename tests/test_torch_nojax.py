@@ -73,6 +73,7 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, 'chip_smoke.py')
     yield os.path.join(REPO, 'ablate_mlp.py')
+    yield os.path.join(REPO, 'ablate_fetch.py')
     yield os.path.join(REPO, 'infer_torch.py')
     yield os.path.join(REPO, 'train_torch.py')
     # the card's tests run where JAX is not installed
@@ -116,6 +117,97 @@ def test_kernel_entry_matches_wrapper_signature():
 
 def test_bwd_kernel_entry_matches_wrapper_signature():
     _check_entry(gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_f32', gs._ARGTYPES)
+
+
+@pytest.mark.parametrize('kernel,entry', [(gs.KERNEL, 'lfgc_grid_sample_fwd_plan'),
+                                          (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_plan')])
+def test_grid_sample_plan_entries_match_wrapper_signature(kernel, entry):
+    assert len(gs.PLAN_ARGTYPES) == 7
+    _check_entry(kernel, entry, gs.PLAN_ARGTYPES)
+
+
+@pytest.mark.parametrize('plan,routes,report', [
+    (gs.fwd_plan, ('scalar', 'float4'), [1, 256, 4, 512, 8, 4, 0]),
+    (gs.bwd_plan, ('global', 'shared'), [1, 1024, 1, 132, 2, 1, 4096]),
+    (gs.bwd_plan, ('global', 'shared'), [0, 256, 8, 512, 8, 4, 0])])
+def test_grid_sample_plan_reads_the_entrys_report(monkeypatch, plan, routes, report):
+    """No card here: a stand-in entry fills the report, and the wrapper
+    names its fields and the route."""
+    calls = []
+
+    def fn(*args):
+        calls.append(args[:6])
+        for k, v in enumerate(report):
+            args[6][k] = v
+        return 0
+    monkeypatch.setattr(_build, 'entry', lambda name, symbol, argtypes: (None, fn))
+    got = plan(32768, 16, 15, 15, 15)
+    assert calls == [(32768, 16, 15, 15, 15, 1)]
+    assert got == {**dict(zip(gs.PLAN_FIELDS, report)), 'route': routes[report[0]]}
+
+
+# what each kernel source must show: the fetch sized by occupancy and
+# loading float4 lanes; the gradient's shared route summing dG in the
+# block's shared memory between two barriers, at one block an SM
+KERNEL_SOURCE_MARKS = {
+    'grid_sample_fwd': ('#include "launch.cuh"', 'lfgc::occupancy(grid_sample_fwd_kernel<true>',
+                        'for (int c = 4 * sub; c < C; c += 4 * Lw)',
+                        'const int64_t next = i + stride;'),
+    'grid_sample_bwd': ('#include "launch.cuh"', '__launch_bounds__(kSharedThreads, 1)',
+                        'extern __shared__', 'kSharedMinAdds',
+                        'atomicAdd(sum + int(r) * pitch + c, __fmul_rn(w, gv));',
+                        '  __syncthreads();\n\n  const int Q = vec4 ? C / 4 : C;',
+                        'lfgc::allow_smem(grid_sample_bwd_shared_kernel'),
+}
+
+
+@pytest.mark.parametrize('kernel', sorted(KERNEL_SOURCE_MARKS))
+def test_grid_sample_kernels_take_their_hopper_designs(kernel):
+    """No nvcc here: check statically that each kernel source has its
+    design, that every kernel it defines carries the name the profiler
+    reports are read by, and that the gradient's shared route is chosen in
+    one place (plan_of) before the launch."""
+    with open(os.path.join(PORT, 'csrc', f'{kernel}.cu')) as f:
+        src = f.read()
+    for mark in KERNEL_SOURCE_MARKS[kernel]:
+        assert mark in src, mark
+    names = re.findall(r'__global__ void __launch_bounds__\([^)]*\)\n(\w+)\(', src)
+    assert names and all(kernel in name for name in names), names
+    if kernel == gs.BWD_KERNEL:
+        # the route is set in one place (plan_of), from the shape and n
+        assert src.count('p->shared =') == 1
+
+
+def _ablation_cases():
+    import ablate_fetch
+    import ablate_mlp
+    for script in (ablate_mlp, ablate_fetch):
+        for name, subs in script.VARIANTS.items():
+            yield pytest.param(subs, id=f'{script.__name__}-{name}')
+
+
+@pytest.mark.parametrize('subs', _ablation_cases())
+def test_ablation_variants_apply_to_the_sources(subs):
+    """Each variant of the ablation scripts replaces text that the kernel
+    sources hold exactly once (the scripts raise on the card otherwise)."""
+    for f, old, new in subs:
+        with open(os.path.join(PORT, 'csrc', f)) as fh:
+            assert fh.read().count(old) == 1, (f, old)
+        assert new != old
+
+
+def test_occupancy_query_lives_in_one_header():
+    """The launch helpers are shared through csrc/launch.cuh, not copied."""
+    csrc = os.path.join(PORT, 'csrc')
+    holders = []
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        if 'cudaOccupancyMaxActiveBlocksPerMultiprocessor' in text:
+            holders.append(name)
+        if name != 'launch.cuh':
+            assert 'cudaFuncAttributeMaxDynamicSharedMemorySize' not in text, name
+    assert holders == ['launch.cuh']
 
 
 @pytest.mark.parametrize('mod,entry,argtypes', [
