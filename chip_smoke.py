@@ -8,11 +8,12 @@ Builds the CUDA kernels from the sources in this checkout and drives the
 port's paths at the full width of the flagship model
 (experiment-config-files/mhd_p_smallify.txt: 16 features on a 15^3 grid,
 db2, 2 Fourier frequencies, 4 x 32 SnakeAlt MLP, batch 2048 x 16): the
-decompression path with random weights from a seed, point queries, and the
+decompression path with random weights from a seed, point queries, the
 training path through train_torch.py under each backend (the fetch kernels
 with the MLP as PyTorch ops; --mlp_backend pallas, the fused MLP kernels;
---interp_backend fused, the one-kernel forward).  Phases, each printing one
-JSON line, in order:
+--interp_backend fused, the one-kernel forward), and the training path of
+each other gate family under the default backend.  Phases, each printing
+one JSON line, in order:
 
   1. device      card name, and its name and power limit from nvidia-smi
   2. build       nvcc of every csrc/*.cu (started together), seconds, ptxas
@@ -20,12 +21,14 @@ JSON line, in order:
                  (max |diff| <= 1e-5) and F.grid_sample (<= 1e-4) at grids
                  4..62 on random coordinates, and at the flagship shape on a
                  chunk of the 255^3 lattice and on one train step's trainer
-                 positions; kernel, plain, library and bound times, and the
+                 positions (also at C 22 on 17^3, mhd_p_HyperparamSearch.txt's
+                 shape); kernel, plain, library and bound times, and the
                  kernel's launch plan (gs.fwd_plan)
   4. kernel_bwd  the grid-gradient kernel against its plain version
                  (max |diff| <= 1e-5 * max |dG|: atomics add in a
-                 run-dependent order) at the flagship shape on the trainer's
-                 positions and at grids 4..62 and C 5, 32 on uniform
+                 run-dependent order) at the flagship shape and at C 22 on
+                 17^3 on the trainer's positions, and at grids 4..62 and C 5,
+                 32 on uniform
                  coordinates, on both of its routes (dG summed in each
                  block's shared memory first, or straight into dG);
                  kernel, plain, library (aten grid_sampler_3d_backward) and
@@ -63,18 +66,29 @@ JSON line, in order:
                  steps under torch.profiler.  Then train_mlp_pallas and
                  train_fused: the same under each kernel backend, PSNR
                  within 1 dB of train's, samples/s beside train's
- 11. step_rates  the flagship step time of each backend without the
+ 11. train_families  train_torch.py on each other gate family's published
+                 config, cut to max_pass = 3, default backend: train_
+                 straight_through (mhd_p_masked_st.txt with --drop_type
+                 straight_through), train_masked_straight_through,
+                 train_static_variational, train_dynamic_variational; the
+                 fetch kernel once a step and an evaluation chunk, the
+                 gradient once a step, the volume loss (MSE; the variational
+                 loss carries the rising KL weight) falls in both phases,
+                 PSNR finite, the container restores; PSNR, ratio, zeros and
+                 samples/s a phase; the dynamic family also the profile of 50
+                 steps
+ 12. step_rates  the flagship step time of each backend without the
                  profiler, 5 rounds of 100 steps, the backends in turns
- 12. kernels     one line {"kernels": [...]} for every ported kernel
+ 13. kernels     one line {"kernels": [...]} for every ported kernel
 
 Every count of launches is set to 0 just before a path is driven and read
 just after it.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
 
-``--only`` takes a comma-separated list of phases 2-11 (build, kernel,
+``--only`` takes a comma-separated list of phases 2-12 (build, kernel,
 kernel_bwd, kernel_mlp, kernel_fused, checkpoint, binary, queries, train,
-step_rates) and runs the device phase and those, in the order above, with
+train_families, step_rates) and runs the device phase and those, in the order above, with
 the same checks; the kernels line and the ok line need every phase, so a
 partial run prints neither (a quick loop on one kernel, never the smoke).
 """
@@ -105,8 +119,10 @@ from latent_feature_grid_compression_tpu_torch.eval.reconstruct import (
 from latent_feature_grid_compression_tpu_torch.config import load_config
 from latent_feature_grid_compression_tpu_torch.io.checkpoint import save_checkpoint
 from latent_feature_grid_compression_tpu_torch.io.container import restore_model
+from latent_feature_grid_compression_tpu_torch.models.gates import is_dynamic
 from latent_feature_grid_compression_tpu_torch.models.feature_grid import (
     FeatureGridModel, apply_model, decode_volume, init_model, make_spec)
+from latent_feature_grid_compression_tpu_torch.models.variance import init_variance_model
 from latent_feature_grid_compression_tpu_torch.ops import _build
 from latent_feature_grid_compression_tpu_torch.ops import fused_forward as ff
 from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
@@ -128,7 +144,15 @@ PEAK_BF16_FLOPS = 989e12   # dense, tensor cores
 
 FLAGSHIP = dict(d_in=3, hidden=32, d_out=1, num_layers=4, n_freqs=2,
                 grid_features=16, grid_size=15, wavelet='db2')
-FLAGSHIP_CONFIG = os.path.join(REPO, 'experiment-config-files', 'mhd_p_smallify.txt')
+CONFIGS = os.path.join(REPO, 'experiment-config-files')
+FLAGSHIP_CONFIG = os.path.join(CONFIGS, 'mhd_p_smallify.txt')
+# the other gate families' published configs (flagship widths) and flags;
+# straight-through has no config of its own and takes masked-ST's
+FAMILIES = {
+    'straight_through': ('mhd_p_masked_st.txt', ['--drop_type', 'straight_through']),
+    'masked_straight_through': ('mhd_p_masked_st.txt', []),
+    'static_variational': ('mhd_p_static_variational.txt', []),
+    'dynamic_variational': ('mhd_p_dynamic_variational.txt', [])}
 VOLUME_N = 255
 SEED = 0
 TRAIN_MAX_PASS = 3    # the published 60 passes cut to 3: 1013 + 507 steps
@@ -420,8 +444,10 @@ def phase_kernel():
     rows = []
     cases = [(16, 4), (16, 15), (16, 22), (16, 23), (16, 32), (16, 62),
              (5, 15), (32, 15)]
+    # the trainer cases: the flagship, and mhd_p_HyperparamSearch.txt's C 22
+    # on 17^3
     for C, G, kind in ([(C, G, 'uniform') for C, G in cases]
-                       + [(16, 15, 'lattice'), (16, 15, 'trainer')]):
+                       + [(16, 15, 'lattice'), (16, 15, 'trainer'), (22, 17, 'trainer')]):
         n = TRAIN_BATCH if kind == 'trainer' else CHUNK
         feats = torch.randn((C, G, G, G), device='cuda', generator=g)
         if kind == 'uniform':
@@ -475,7 +501,7 @@ def phase_kernel_bwd():
     coordinates; each row names the route its shape takes."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 2)
     rows = []
-    cases = ([(16, 15, 'trainer', TRAIN_BATCH)]
+    cases = ([(16, 15, 'trainer', TRAIN_BATCH), (22, 17, 'trainer', TRAIN_BATCH)]
              + [(16, G, 'uniform', TRAIN_BATCH) for G in (4, 22, 23, 32, 62)]
              + [(5, 15, 'uniform', TRAIN_BATCH), (32, 15, 'uniform', TRAIN_BATCH)])
     for C, G, kind, n in cases:
@@ -886,37 +912,49 @@ PROFILED_KERNELS = ('grid_sample_fwd', 'grid_sample_bwd', 'mlp_fwd_kernel',
                     'reduce_slots_kernel')
 
 
-def flagship_steps(suffix, steps, warmup=5):
-    """A flagship phase-1 state under the backend ``suffix`` of BACKENDS
-    (a fresh model; the step's work does not depend on the values) after
-    ``warmup`` steps, and a function that takes the next step."""
-    cfg = load_config(FLAGSHIP_CONFIG)
-    spec = make_spec(**dict(FLAGSHIP, drop_type='smallify'), **BACKENDS[suffix][0])
-    model = init_model(spec, torch.Generator().manual_seed(SEED), device='cuda')
+def flagship_steps(suffix, steps, warmup=5, config=FLAGSHIP_CONFIG):
+    """A flagship phase-1 state of the gate family of ``config`` (smallify
+    by default) under the backend ``suffix`` of BACKENDS (a fresh model, and
+    variance model for the dynamic family; the step's work does not depend
+    on the values) after ``warmup`` steps, and a function that takes the
+    next step (with its gate noise, drawn beforehand as the trainer draws
+    it)."""
+    cfg = load_config(config)
+    spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type,
+                            drop_momentum=cfg.drop_momentum,
+                            drop_threshold=cfg.drop_threshold), **BACKENDS[suffix][0])
+    gen = torch.Generator().manual_seed(SEED)
+    model = init_model(spec, gen, device='cuda')
+    variance = None
+    if is_dynamic(spec.drop_type):
+        variance = tuple([t.cuda() for t in ts] for ts in init_variance_model(gen))
     vol = torch.rand((VOLUME_N,) * 3, device='cuda') * 2 - 1
     ph = tr.make_phase_spec(cfg, spec, VolumeMeta((VOLUME_N,) * 3), phase=1)
-    st = tr.init_train_state(model, cfg.lr, cfg.lr, train_gates=True)
+    st = tr.init_train_state(model, cfg.lr, cfg.lr, train_gates=True, variance=variance,
+                             weight_dkl=cfg.lambda_drop_loss)
     c = tr.PhaseConstants(ph, vol)
-    norm, gt = tr.chunk_inputs(c, tr.draw_positions(
-        c, steps + warmup, ph.batch_n, torch.Generator(device='cuda').manual_seed(SEED)))
+    g = torch.Generator(device='cuda').manual_seed(SEED)
+    norm, gt = tr.chunk_inputs(c, tr.draw_positions(c, steps + warmup, ph.batch_n, g))
+    noise = tr.draw_noise(ph, steps + warmup, g, vol.device)
     taken = iter(range(steps + warmup))
 
     def step():
         i = next(taken)
-        tr.train_step(ph, st, c, norm[i], gt[i])
+        tr.train_step(ph, st, c, norm[i], gt[i],
+                      noise=None if noise is None else [a[i] for a in noise])
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     return step
 
 
-def profile_train_steps(suffix='', steps=50):
-    """Device busy and idle share of ``steps`` flagship phase-1 steps under
-    the backend ``suffix`` of BACKENDS, host clock around work that ends in
-    a synchronise."""
+def profile_train_steps(suffix='', steps=50, config=FLAGSHIP_CONFIG):
+    """Device busy and idle share of ``steps`` flagship phase-1 steps of the
+    family of ``config`` under the backend ``suffix`` of BACKENDS, host
+    clock around work that ends in a synchronise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step = flagship_steps(suffix, steps)
+    step = flagship_steps(suffix, steps, config=config)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -970,13 +1008,16 @@ def phase_step_rates(rounds=5, steps=100):
     return row
 
 
-def phase_train(tmp, vol_path, suffix='', default=None):
+def phase_train(tmp, vol_path, suffix='', default=None, family=None):
     """The training path under the backend ``suffix`` of BACKENDS through its
     CLI, from counts at 0 to the export; ``default``: the info of the
     default backend's run, whose PSNR a kernel backend's must be within
-    PSNR_BACKEND_DB of."""
+    PSNR_BACKEND_DB of.  ``family``: a gate family of FAMILIES, trained from
+    its config under the default backend in place of the flagship."""
     import train_torch
-    path = 'train' + suffix
+    path = 'train' + suffix if family is None else 'train_' + family
+    config, flags = ((FLAGSHIP_CONFIG, BACKENDS[suffix][1]) if family is None else
+                     (os.path.join(CONFIGS, FAMILIES[family][0]), FAMILIES[family][1]))
     meta = VolumeMeta((VOLUME_N,) * 3)
     n_chunks = math.ceil(meta.n_voxels / CHUNK)
     cwd = os.getcwd()
@@ -985,9 +1026,9 @@ def phase_train(tmp, vol_path, suffix='', default=None):
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        info = train_torch.main(['--config', FLAGSHIP_CONFIG, '--data', vol_path,
+        info = train_torch.main(['--config', config, '--data', vol_path,
                                  '--max_pass', str(TRAIN_MAX_PASS), '--basedir', '/',
-                                 '--expname', path, *BACKENDS[suffix][1]])
+                                 '--expname', path, *flags])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         counts = read_counts()
@@ -1006,10 +1047,18 @@ def phase_train(tmp, vol_path, suffix='', default=None):
           f'{path} took {steps} steps and launched {counts}, expected {want}')
     for ph in (1, 2):
         check(info[f'train_phase{ph}_steps'] > 0, f'phase {ph} took no step')
-    check(info['train_phase1_last_loss'] < info['train_phase1_first_loss'],
-          'phase 1 loss did not fall')
-    check(info['train_phase2_last_loss'] < info['train_phase1_first_loss'],
-          'phase 2 ended above the first loss')
+    if family is None:
+        check(info['train_phase1_last_loss'] < info['train_phase1_first_loss'],
+              'phase 1 loss did not fall')
+        check(info['train_phase2_last_loss'] < info['train_phase1_first_loss'],
+              'phase 2 ended above the first loss')
+    else:
+        # the volume loss (MSE): a variational family's loss also carries
+        # the KL term, whose weight rises every step
+        for ph in (1, 2):
+            check(info[f'train_phase{ph}_last_volume_loss']
+                  < info[f'train_phase{ph}_first_volume_loss'],
+                  f'{path} phase {ph} volume loss did not fall')
     check(math.isfinite(info['psnr']), f"non-finite PSNR {info['psnr']}")
     if default is not None:
         check(abs(info['psnr'] - default['psnr']) <= PSNR_BACKEND_DB,
@@ -1025,17 +1074,20 @@ def phase_train(tmp, vol_path, suffix='', default=None):
                  'binary_model_file_mask.bnr', 'vol.vti', 'gt.vti'):
         check(name in files, f'{path} did not write {name}')
     shutil.rmtree(exp)
-    prof = profile_train_steps(suffix)
+    prof = None
+    if family is None or family == 'dynamic_variational':
+        prof = profile_train_steps(suffix, config=config)
 
     def rates(i):
         return {ph: i[f'train_phase{ph}_samples_per_sec'] for ph in (1, 2)}
-    emit({'phase': path, 'config': os.path.relpath(FLAGSHIP_CONFIG, REPO),
-          'flags': BACKENDS[suffix][1],
+    emit({'phase': path, 'config': os.path.relpath(config, REPO),
+          'flags': flags,
           'max_pass': TRAIN_MAX_PASS, 'batch': TRAIN_BATCH,
           'volume': list(meta.resolution),
           'phases': {ph: {k: info[f'train_phase{ph}_{k}'] for k in
                           ('steps', 'seconds', 'samples_per_sec', 'first_loss',
-                           'last_loss')} for ph in (1, 2)},
+                           'last_loss', 'first_volume_loss', 'last_volume_loss')}
+                     for ph in (1, 2)},
           'steady_samples_per_sec': info.get('train_samples_per_sec'),
           'default_samples_per_sec': None if default is None else rates(default),
           'default_steady_samples_per_sec': (None if default is None
@@ -1064,7 +1116,7 @@ def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
 
 
 PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'checkpoint',
-          'binary', 'queries', 'train', 'step_rates')
+          'binary', 'queries', 'train', 'train_families', 'step_rates')
 
 
 def parse_args(argv):
@@ -1106,7 +1158,7 @@ def main(argv=None):
     tmp = tempfile.mkdtemp(prefix='lfgc_chip_smoke_')
     try:
         vol_path = os.path.join(tmp, 'mhd_like.npy')
-        if want('checkpoint') or want('train'):
+        if want('checkpoint') or want('train') or want('train_families'):
             np.save(vol_path, synth_volume(VOLUME_N, seed=1, octaves=6))
         if want('checkpoint'):
             _, model, path_counts['decompress'] = phase_checkpoint(tmp, vol_path)
@@ -1120,6 +1172,10 @@ def main(argv=None):
             for suffix in ('_mlp_pallas', '_fused'):
                 _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
                                                                default)
+        if want('train_families'):
+            for family in FAMILIES:
+                _, path_counts['train_' + family] = phase_train(tmp, vol_path,
+                                                                family=family)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want('step_rates'):
@@ -1130,8 +1186,10 @@ def main(argv=None):
     # each kernel's numbers at the main path's own inputs (the flagship,
     # and the precision the model uses: bf16 MLP, 'mixed' fused forward)
     flagship = next(r for r in rows if r['coords'] == 'lattice')
-    trainer = next(r for r in rows if r['coords'] == 'trainer')
-    flagship_bwd = next(r for r in bwd_rows if r['coords'] == 'trainer')
+    trainer = next(r for r in rows if r['coords'] == 'trainer' and r['C'] == 16)
+    trainer_c22 = next(r for r in rows if r['coords'] == 'trainer' and r['C'] == 22)
+    flagship_bwd = next(r for r in bwd_rows if r['coords'] == 'trainer' and r['C'] == 16)
+    bwd_c22 = next(r for r in bwd_rows if r['coords'] == 'trainer' and r['C'] == 22)
     mlp = next(r for r in mlp_rows if r['case'] == 'flagship' and r['precision'] == 'bf16')
     fused = next(r for r in fused_rows if r['case'] == 'flagship, trainer coords'
                  and r['precision'] == 'mixed')
@@ -1147,7 +1205,8 @@ def main(argv=None):
                      **numbers(flagship),
                      shape={'n': flagship['n'], 'C': 16, 'grid': 15, 'coords': 'lattice'},
                      plan=flagship['plan'],
-                     trainer={**numbers(trainer), 'n': trainer['n'], 'plan': trainer['plan']}),
+                     trainer={**numbers(trainer), 'n': trainer['n'], 'plan': trainer['plan']},
+                     trainer_c22_grid17={**numbers(trainer_c22), 'n': trainer_c22['n']}),
         kernel_entry(gs.BWD_KERNEL, 'grid_sample_bwd.cu', 'pallas_kernels.py:142',
                      'pallas_kernels.py:182', path_counts, 'train',
                      max_abs_err=max(r['max_abs_err'] for r in bwd_rows),
@@ -1155,7 +1214,9 @@ def main(argv=None):
                                               for r in bwd_rows),
                      **numbers(flagship_bwd),
                      shape={'n': flagship_bwd['n'], 'C': 16, 'grid': 15,
-                            'coords': 'trainer'}, plan=flagship_bwd['plan']),
+                            'coords': 'trainer'}, plan=flagship_bwd['plan'],
+                     trainer_c22_grid17={**numbers(bwd_c22), 'n': bwd_c22['n'],
+                                         'plan': bwd_c22['plan']}),
         kernel_entry('mlp_fused_fwd', 'mlp_fused.cu', 'mlp_pallas.py:103', None,
                      path_counts, 'train_mlp_pallas',
                      max_abs_err=max(r['max_abs_err'] for r in mlp_rows),

@@ -15,10 +15,13 @@ the plain MLP whatever the backends (:func:`predict_trilinear`).
 The architecture lives in the frozen :class:`ModelSpec`; the parameters in a
 :class:`FeatureGridModel` (``coeffs``: lowpass (F, g, g, g) then details
 (F, 7, s, s, s), coarsest first; ``mlp_w`` in ``nn.Linear``'s (out, in)
-layout; ``mlp_b``; with smallify gates also ``betas`` and the tracker
-buffers ``ema`` and ``ema_var``).  The forward functions read only those
-attributes, so they also take a :class:`Params` of plain tensors (the
-trainer's views into its flat parameter vector).
+layout; ``mlp_b``; with gates the family's gate tensors, as
+``models/gates.py`` names them: ``betas`` and the smallify tracker buffers
+``ema`` and ``ema_var``, ``mask_values`` (straight-through), or
+``log_thetas`` and ``log_var`` (variational)).  The forward functions read
+only those attributes, so they also take a :class:`Params` of plain tensors
+(the trainer's views into its flat parameter vector).  The stochastic
+families take their noise as an argument (``noise=``, one tensor a level).
 
 Between the training phases, :func:`save_dropvalues_on_grid` bakes the gate
 values into the grid and :func:`remove_drop_layers` hard-prunes it.
@@ -117,7 +120,7 @@ def make_spec(d_in=3, hidden=32, d_out=1, num_layers=4, n_freqs=2,
     ``mlp_backend`` 'xla' runs the MLP as PyTorch ops, 'pallas' as the fused
     MLP kernels (every width <= 128, else it raises).  Options whose kernels
     or modules are not ported yet ('pallas_bf16', bfloat16 compute) raise
-    too."""
+    too, and so does an unknown ``drop_type``."""
     G.check_drop_type(drop_type)
     if interp_backend == 'pallas_bf16':
         raise ValueError("interp_backend='pallas_bf16' is not yet ported "
@@ -182,18 +185,25 @@ class Params:
     mlp_w: Sequence[torch.Tensor]
     mlp_b: Sequence[torch.Tensor]
     betas: Optional[Sequence[torch.Tensor]] = None
+    mask_values: Optional[Sequence[torch.Tensor]] = None
+    log_thetas: Optional[Sequence[torch.Tensor]] = None
+    log_var: Optional[Sequence[torch.Tensor]] = None
 
 
 class FeatureGridModel(nn.Module):
-    """Parameters of one model: wavelet coefficients, the MLP and, with
-    smallify gates, their betas (parameters) and tracker state (buffers).
-    The forward pass is :func:`apply_model`."""
+    """Parameters of one model: wavelet coefficients, the MLP and the
+    gates' trainable tensors (``betas``, ``mask_values``, ``log_thetas``,
+    ``log_var``: None where the family lacks them) and, with smallify, the
+    tracker state (buffers).  The forward pass is :func:`apply_model`."""
 
     def __init__(self, spec: ModelSpec, coeffs: Sequence[torch.Tensor],
                  mlp_w: Sequence[torch.Tensor], mlp_b: Sequence[torch.Tensor],
                  betas: Optional[Sequence[torch.Tensor]] = None,
                  ema: Optional[Sequence[torch.Tensor]] = None,
-                 ema_var: Optional[Sequence[torch.Tensor]] = None):
+                 ema_var: Optional[Sequence[torch.Tensor]] = None,
+                 mask_values: Optional[Sequence[torch.Tensor]] = None,
+                 log_thetas: Optional[Sequence[torch.Tensor]] = None,
+                 log_var: Optional[Sequence[torch.Tensor]] = None):
         super().__init__()
         want = coeff_shapes(spec)
         got = tuple(tuple(c.shape) for c in coeffs)
@@ -203,13 +213,15 @@ class FeatureGridModel(nn.Module):
         self.coeffs = nn.ParameterList([nn.Parameter(c) for c in coeffs])
         self.mlp_w = nn.ParameterList([nn.Parameter(w) for w in mlp_w])
         self.mlp_b = nn.ParameterList([nn.Parameter(b) for b in mlp_b])
-        self.betas = None
-        if betas is not None:
-            sizes = tuple(s[1:] for s in want)
-            if tuple(tuple(b.shape) for b in betas) != sizes:
-                raise ValueError(f"gate shapes {[tuple(b.shape) for b in betas]} "
+        sizes = tuple(s[1:] for s in want)
+        for name, ts in (('betas', betas), ('mask_values', mask_values),
+                         ('log_thetas', log_thetas), ('log_var', log_var)):
+            if ts is not None and tuple(tuple(t.shape) for t in ts) != sizes:
+                raise ValueError(f"{name} shapes {[tuple(t.shape) for t in ts]} "
                                  f"do not match the coefficients' {sizes}")
-            self.betas = nn.ParameterList([nn.Parameter(b) for b in betas])
+            setattr(self, name, None if ts is None else
+                    nn.ParameterList([nn.Parameter(t) for t in ts]))
+        if betas is not None:
             ema = [torch.sign(b.detach()) for b in betas] if ema is None else ema
             ema_var = ([torch.zeros_like(b) for b in betas] if ema_var is None
                        else ema_var)
@@ -238,9 +250,10 @@ def _detached(ts):
 def init_model(spec: ModelSpec, generator: torch.Generator,
                device: str | torch.device = 'cuda') -> FeatureGridModel:
     """Grid: U(0, 1) volume -> multi-level DWT; MLP: nn.Linear's default
-    init; gates: betas ~ N(0, 1).  Everything is drawn from ``generator`` on
-    the CPU, in that order, then moved to ``device`` (the card by default;
-    raises without one unless ``device='cpu'``)."""
+    init; gates: ``gates.init_gates`` (only smallify's betas ~ N(0, 1) are
+    drawn).  Everything is drawn from ``generator`` on the CPU, in that
+    order, then moved to ``device`` (the card by default; raises without one
+    unless ``device='cpu'``)."""
     dev = resolve_device(device)
     grid = torch.rand((spec.grid_features,) + (spec.grid_size,) * 3,
                       generator=generator)
@@ -251,24 +264,26 @@ def init_model(spec: ModelSpec, generator: torch.Generator,
         assert tuple(tuple(int(v) for v in s) for s in shapes) == spec.level_shapes
     mlp_w, mlp_b = init_mlp(generator, spec.mlp_in, spec.hidden, spec.d_out,
                             spec.num_layers)
-    betas, ema, ema_var = G.init_gates(generator, spec.drop_type,
-                                       [tuple(c.shape) for c in coeffs])
-    return FeatureGridModel(spec, coeffs, mlp_w, mlp_b, betas, ema,
-                            ema_var).to(dev)
+    gates = G.init_gates(generator, spec.drop_type, [tuple(c.shape) for c in coeffs],
+                         spec.drop_momentum)
+    return FeatureGridModel(spec, coeffs, mlp_w, mlp_b, **G.fields_of(gates)).to(dev)
 
 
 def decode_volume(model, *, train_gates: bool = False,
-                  masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                  masks: Optional[Sequence[torch.Tensor]] = None,
+                  noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """(Gated) inverse DWT -> (F, G, G, G) spatial feature grid.
 
-    Gating: ``train_gates`` applies the spec's gates (phase 1); otherwise
+    Gating: ``train_gates`` applies the spec's gates (phase 1), with
+    ``noise`` the per-level noise of the stochastic families; otherwise
     ``masks``, frozen binary keep-masks (one per coefficient tensor, without
     the feature axis), are multiplied in (phase 2); with neither the
     coefficients are decoded as they are."""
     spec = model.spec
     coeffs = list(model.coeffs)
     if train_gates and spec.drop_type:
-        coeffs = [G.apply_gate(spec.drop_type, model.betas, i, c)
+        coeffs = [G.apply_gate(spec.drop_type, model, i, c,
+                               None if noise is None else noise[i], spec.thresholds[i])
                   for i, c in enumerate(coeffs)]
     elif masks is not None:
         coeffs = [c * m[None] for c, m in zip(coeffs, masks)]
@@ -312,12 +327,13 @@ def predict_trilinear(model, grid_cl: torch.Tensor, coords: torch.Tensor
 
 def apply_model(model, coords: torch.Tensor, *, train: bool = True,
                 train_gates: bool = False,
-                masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                masks: Optional[Sequence[torch.Tensor]] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """Full forward pass at (N, d_in) normalized coordinates -> (N, d_out),
     differentiable in the model's tensors (on the card through the kernels'
     ``torch.autograd.Function``s); the spec's backends choose the kernels
     (:func:`predict`)."""
-    grid = decode_volume(model, train_gates=train_gates, masks=masks)
+    grid = decode_volume(model, train_gates=train_gates, masks=masks, noise=noise)
     return predict(model, channel_minor(grid), coords, train=train)
 
 
@@ -331,18 +347,15 @@ def save_dropvalues_on_grid(model: FeatureGridModel):
     be negative.  ``masks`` are the frozen keep-masks of the finetune phase.
     ``model'`` keeps the gates.  Without gates: (model, None, 0.0)."""
     spec = model.spec
-    if not spec.drop_type or model.betas is None:
+    mask_bits = G.gate_size(spec.drop_type, model)
+    if not mask_bits:
         return model, None, 0.0
-    betas = list(model.betas)
-    masks = G.pruning_masks(spec.drop_type, model.ema_var, spec.thresholds)
-    baked = G.bake_values(spec.drop_type, betas, model.ema_var,
-                          list(model.coeffs), spec.thresholds)
+    masks = G.pruning_masks(spec.drop_type, model, spec.thresholds)
+    baked = G.bake_values(spec.drop_type, model, list(model.coeffs), spec.thresholds)
     counts = torch.stack([torch.count_nonzero(c) for c in baked]).tolist()
     zeros = sum(c.numel() - nz for c, nz in zip(baked, counts))
-    mask_bits = G.gate_size(spec.drop_type, betas)
-    out = FeatureGridModel(spec, baked, _detached(model.mlp_w),
-                           _detached(model.mlp_b), _detached(betas),
-                           _detached(model.ema), _detached(model.ema_var))
+    out = FeatureGridModel(spec, baked, _detached(model.mlp_w), _detached(model.mlp_b),
+                           **{k: _detached(v) for k, v in G.fields_of(model).items()})
     return out, masks, float(zeros) - mask_bits / 32.0
 
 

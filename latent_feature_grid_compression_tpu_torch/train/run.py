@@ -3,7 +3,8 @@ single device).
 
 training(cfg) -> info dict:
   load + normalize volume -> build model (or warm-start from
-  ``cfg.checkpoint_path``) -> phase 1 (gates + their loss, 2/3 of max_pass)
+  ``cfg.checkpoint_path``) and, for dynamic variational dropout, the
+  variance model -> phase 1 (gates + their loss, 2/3 of max_pass)
   -> bake the gate values into the grid -> phase 2 (finetune at lr/10 under
   the frozen masks, 1/3 of max_pass) -> hard prune -> full-volume
   evaluation, compression accounting, ``model.npz``, the packed binary
@@ -28,9 +29,11 @@ from ..device import resolve_device
 from ..eval.reconstruct import tiled_net_out
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.container import store_model_parameters
+from ..models import gates as G
 from ..models.feature_grid import (FeatureGridModel, init_model, make_spec,
                                    num_net_params, remove_drop_layers,
                                    save_dropvalues_on_grid)
+from ..models.variance import init_variance_model
 from .trainer import (StepTimer, init_train_state, make_phase_spec, solve_phase,
                       state_to_model)
 
@@ -46,7 +49,7 @@ def check_ported(cfg: TrainConfig):
             or cfg.mesh_local_decode:
         raise ValueError("multi-device training is not yet ported "
                          "(ROADMAP Queue 1 item 5)")
-    # the other drop types, bf16 and 'pallas_bf16' raise in make_spec
+    # bf16, 'pallas_bf16' and unknown drop types raise in make_spec
 
 
 def experiment_dir(cfg: TrainConfig) -> str:
@@ -101,21 +104,27 @@ def evaluate_model_training(model: FeatureGridModel, meta: VolumeMeta,
     return info
 
 
-def _phase_generator(seed: int, phase: int, device: torch.device) -> torch.Generator:
-    """The positions' generator of one phase, on the training device."""
+def _phase_generator(seed: int, phase: int, device: torch.device,
+                     stream: Tuple[int, ...] = ()) -> torch.Generator:
+    """A generator of one phase on the training device: the positions'
+    (``stream`` ()), or the gate noise's (``stream`` (1,))."""
     return torch.Generator(device=device).manual_seed(
-        int(np.random.SeedSequence([seed, phase]).generate_state(1)[0]))
+        int(np.random.SeedSequence([seed, phase, *stream]).generate_state(1)[0]))
 
 
 def training(cfg: TrainConfig, verbose: bool = True,
              volume_np: Optional[np.ndarray] = None, write_vols: bool = True,
              device: str | torch.device = 'cuda',
-             positions: Tuple[Optional[Iterator], Optional[Iterator]] = (None, None)
-             ) -> dict:
+             positions: Tuple[Optional[Iterator], Optional[Iterator]] = (None, None),
+             gate_noise: Optional[Iterator] = None,
+             variance_model=None) -> dict:
     """Full two-phase training run; returns the info dict.
 
     positions: per phase, an optional iterator of (N, 3) integer voxel
-    positions used in place of the phase's generator."""
+    positions used in place of the phase's generator.  gate_noise: an
+    optional iterator of phase 1's per-level gate noise (a list a step) in
+    place of its generator.  variance_model: (weights, biases) to start the
+    dynamic family's variance model from, in place of its init."""
     check_ported(cfg)
     dev = resolve_device(device)
     if volume_np is None:
@@ -133,7 +142,14 @@ def training(cfg: TrainConfig, verbose: bool = True,
                      interp_backend=cfg.interp_backend,
                      compute_dtype=cfg.compute_dtype,
                      mlp_backend=cfg.mlp_backend)
-    model = init_model(spec, torch.Generator().manual_seed(cfg.seed), device=dev)
+    # one init generator: the model (grid, MLP, gates), then the variance model
+    init_gen = torch.Generator().manual_seed(cfg.seed)
+    model = init_model(spec, init_gen, device=dev)
+    variance = None
+    if G.is_dynamic(spec.drop_type):
+        variance = variance_model or init_variance_model(init_gen, cfg.d_in, 1, 4, 32)
+        variance = tuple([torch.as_tensor(t, dtype=torch.float32).to(dev) for t in ts]
+                         for ts in variance)
     if cfg.checkpoint_path:
         model = load_checkpoint(cfg.checkpoint_path, spec, device=dev, model=model)
 
@@ -141,10 +157,10 @@ def training(cfg: TrainConfig, verbose: bool = True,
     os.makedirs(experiment_path, exist_ok=True)
     timers, phase_stats = [], {}
 
-    def run_phase(phase, state, masks):
+    def run_phase(phase, state, masks, gate_noise=None):
         ph = make_phase_spec(cfg, spec, meta, phase=phase)
         timers.append(StepTimer(ph.batch_n))
-        losses = []
+        losses, vol_losses = [], []
         start = state.step
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
@@ -152,28 +168,34 @@ def training(cfg: TrainConfig, verbose: bool = True,
         # solve_phase ends in a device read: the wall time is the card's
         state = solve_phase(ph, state, volume, cfg.steps_per_chunk, masks,
                             generator=_phase_generator(cfg.seed, phase, dev),
-                            positions=positions[phase - 1], verbose=verbose,
-                            timer=timers[-1], metric_cb=losses.append)
+                            positions=positions[phase - 1],
+                            noise_generator=_phase_generator(cfg.seed, phase, dev, (1,)),
+                            gate_noise=gate_noise, verbose=verbose,
+                            timer=timers[-1], metric_cb=losses.append,
+                            volume_cb=vol_losses.append)
         seconds = time.perf_counter() - t0
         steps = state.step - start
-        losses = np.concatenate(losses) if losses else np.zeros(0)
         phase_stats.update({
             f'phase{phase}_steps': steps, f'phase{phase}_seconds': seconds,
-            f'phase{phase}_samples_per_sec': steps * ph.batch_n / seconds,
-            f'phase{phase}_first_loss': float(losses[0]) if steps else None,
-            f'phase{phase}_last_loss': float(losses[-1]) if steps else None})
+            f'phase{phase}_samples_per_sec': steps * ph.batch_n / seconds})
+        for name, values in (('loss', losses), ('volume_loss', vol_losses)):
+            values = np.concatenate(values) if values else np.zeros(0)
+            phase_stats[f'phase{phase}_first_{name}'] = float(values[0]) if steps else None
+            phase_stats[f'phase{phase}_last_{name}'] = float(values[-1]) if steps else None
         return state
 
     # --- phase 1: gated training -----------------------------------------
     state = init_train_state(model, lr=cfg.lr, shadow_lr=cfg.lr,
-                             train_gates=bool(spec.drop_type))
-    state = run_phase(1, state, None)
+                             train_gates=bool(spec.drop_type), variance=variance,
+                             weight_dkl=cfg.lambda_drop_loss)
+    state = run_phase(1, state, None, gate_noise)
     model = state_to_model(state, model)
 
     # --- bake the gates into the grid ------------------------------------
     model, masks, zeros = save_dropvalues_on_grid(model)
 
     # --- phase 2: finetune at lr/10 under the frozen masks -----------------
+    # (without the variance model: its gradient there is 0, so is its update)
     state2 = init_train_state(model, lr=cfg.lr / 10.0,
                               shadow_lr=float(state.shadow_lr), train_gates=False)
     # the plateau state carries over (the reference reuses its strategy)

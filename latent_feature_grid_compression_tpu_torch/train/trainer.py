@@ -1,10 +1,13 @@
 """Single-device two-phase trainer (port of the JAX package's
-``train/trainer.py``, single-device smallify and dense paths).
+``train/trainer.py``, single-device paths of every gate family).
 
 One step: IID integer voxel positions -> normalized, anisotropy-scaled
-coordinates and the exact ground-truth voxels -> gated decode, feature fetch
-and MLP by the spec's backends (the CUDA kernels on the card, through their
-``torch.autograd.Function``s) -> MSE plus the smallify loss -> autograd ->
+coordinates and the exact ground-truth voxels -> gated decode (the
+stochastic families with this step's gate noise), feature fetch and MLP by
+the spec's backends (the CUDA kernels on the card, through their
+``torch.autograd.Function``s) -> the loss: MSE plus the smallify loss
+(smallify, straight-through), or the variational loss at a constant or a
+predicted (variance model) log-sigma with the ramped KL weight -> autograd ->
 Adam with torch semantics
 (bias-corrected moments, eps outside the sqrt, t as float32) -> the smallify
 sign-variance tracker, fed with the pre-update betas -> volume-pass
@@ -13,8 +16,8 @@ accounting, the lr strategy and the stop rules.
 Every trainable of a phase lives in ONE float32 vector (as the JAX trainer
 differentiates with respect to its raveled parameters): the model's tensors
 are views into it, autograd returns its gradient as one vector, and Adam is a
-handful of elementwise launches on the vector.  The gates' betas sit at its
-end, so the tracker works on one slice too.
+handful of elementwise launches on the vector.  The gates' tensors follow
+the MLP (so the tracker works on one slice), then the variance model.
 
 No per-step host synchronisation.  The pass accounting depends only on the
 step index, so the host computes it (in float32, as the JAX step does on the
@@ -27,14 +30,15 @@ after a boundary step in the same chunk are guarded so that a stopped step
 changes nothing, as the JAX trainer's idle branch.  Positions for a chunk
 are drawn at once from an explicit ``torch.Generator`` on the device, or
 taken from an iterator of (N, 3) integer arrays (the tests replay the JAX
-trainer's stream that way).
+trainer's stream that way); the gate noise likewise, one draw a level from a
+generator of its own, or from an iterator of per-level lists.
 
 Reference quirk kept: in phase 2 the lr strategy's decays reach only the
 shadow lr (the reference's strategy still points at the phase-1 optimizer),
 so phase 2 trains at a constant lr/10 while the plateau logic runs on the
 shadow lr.  Not ported yet: resume and mid-phase state saves, the
-profiler trace and the TensorBoard writer (ROADMAP Queue 1 item 6), the
-variational families (item 2) and multi-device (item 5).
+profiler trace and the TensorBoard writer (ROADMAP Queue 1 item 6) and
+multi-device (item 5).
 """
 
 from __future__ import annotations
@@ -50,7 +54,10 @@ import torch
 
 from ..config import TrainConfig
 from ..data.volume import VolumeMeta
-from ..models.feature_grid import FeatureGridModel, ModelSpec, Params, apply_model
+from ..models import gates as G
+from ..models.feature_grid import (FeatureGridModel, ModelSpec, Params, apply_model,
+                                   coeff_shapes)
+from ..models.variance import apply_variance_model
 from . import losses as L
 
 _F32 = np.float32
@@ -72,12 +79,22 @@ class PhaseSpec:
     loader_len: int
     lambda_drop_loss: float
     lambda_weight_loss: float
+    weight_dkl_multiplier: float
+    variational_sigma: float
     use_smallify_decay: bool
     pass_decay: int
     lr_decay: float
     lr_stop: float
     decay_applies_to_lr: bool         # False in phase 2 (reference quirk)
     use_masks: bool                   # phase-2 frozen-mask multiply
+
+    @property
+    def variational(self) -> bool:
+        return G.is_variational(self.drop_type)
+
+    @property
+    def dynamic_variational(self) -> bool:
+        return G.is_dynamic(self.drop_type)
 
     @property
     def t_max(self) -> int:
@@ -116,6 +133,8 @@ def make_phase_spec(cfg: TrainConfig, spec: ModelSpec, meta: VolumeMeta, *,
         loader_len=-(-meta.n_voxels // cfg.batch_size),
         lambda_drop_loss=cfg.lambda_drop_loss,
         lambda_weight_loss=cfg.lambda_weight_loss,
+        weight_dkl_multiplier=cfg.weight_dkl_multiplier,
+        variational_sigma=cfg.variational_sigma,
         use_smallify_decay=cfg.smallify_decay != 0,
         pass_decay=cfg.smallify_decay if cfg.smallify_decay != 0 else cfg.pass_decay,
         # both strategies take the config's lr_decay
@@ -129,40 +148,56 @@ def make_phase_spec(cfg: TrainConfig, spec: ModelSpec, meta: VolumeMeta, *,
 class FlatLayout:
     """Where each trainable tensor of a phase lies in the flat vector:
     coefficients, MLP weights ((out, in) layout), MLP biases, then the
-    betas when the phase trains gates."""
+    family's gate tensors when the phase trains gates (``betas``,
+    ``mask_values``, or ``log_thetas`` and ``log_var``), then the variance
+    model's weights and biases when given (phase 1 of dynamic
+    variational).  ``slices`` maps each group's name to its slice."""
 
-    def __init__(self, model: FeatureGridModel, with_gates: bool):
+    def __init__(self, model: FeatureGridModel, with_gates: bool, variance=None):
         self.spec = model.spec
-        groups = [list(model.coeffs), list(model.mlp_w), list(model.mlp_b)]
-        if with_gates:
-            if model.betas is None:
-                raise ValueError("the phase trains gates but the model has none")
-            groups.append(list(model.betas))
+        names, groups = self._groups(model, with_gates, variance)
+        self.names = names
         self.group_sizes = [len(g) for g in groups]
         tensors = [t for g in groups for t in g]
         self.shapes = [tuple(t.shape) for t in tensors]
         self.counts = [t.numel() for t in tensors]
-        n_coeffs = sum(self.counts[:self.group_sizes[0]])
-        self.coeff_slice = slice(0, n_coeffs)
-        n_first3 = sum(self.counts[:sum(self.group_sizes[:3])])
-        self.gate_slice = slice(n_first3, sum(self.counts)) if with_gates else None
+        self.slices, k, start = {}, 0, 0
+        for name, size in zip(names, self.group_sizes):
+            n = sum(self.counts[k:k + size])
+            self.slices[name] = slice(start, start + n)
+            k, start = k + size, start + n
+        self.with_gates = with_gates
 
-    def flatten(self, model: FeatureGridModel) -> torch.Tensor:
-        tensors = list(model.coeffs) + list(model.mlp_w) + list(model.mlp_b)
-        if self.gate_slice is not None:
-            tensors += list(model.betas)
-        return torch.cat([t.detach().reshape(-1) for t in tensors]).float()
+    @staticmethod
+    def _groups(model, with_gates, variance):
+        names = ['coeffs', 'mlp_w', 'mlp_b']
+        groups = [list(model.coeffs), list(model.mlp_w), list(model.mlp_b)]
+        if with_gates:
+            for name in G.trainable_fields(model.spec.drop_type):
+                if getattr(model, name) is None:
+                    raise ValueError("the phase trains gates but the model has none")
+                names.append(name)
+                groups.append(list(getattr(model, name)))
+        if variance is not None:
+            names += ['var_w', 'var_b']
+            groups += [list(variance[0]), list(variance[1])]
+        return tuple(names), groups
 
-    def views(self, flat: torch.Tensor) -> Params:
-        """The model's tensors as views into ``flat`` (one split: its
-        backward is one concatenation)."""
+    def flatten(self, model: FeatureGridModel, variance=None) -> torch.Tensor:
+        _, groups = self._groups(model, self.with_gates, variance)
+        return torch.cat([t.detach().reshape(-1) for g in groups for t in g]).float()
+
+    def views(self, flat: torch.Tensor):
+        """(the model's tensors, the variance model's (weights, biases) or
+        None) as views into ``flat`` (one split: its backward is one
+        concatenation)."""
         ts = [p.view(s) for p, s in zip(torch.split(flat, self.counts), self.shapes)]
-        out, k = [], 0
-        for n in self.group_sizes:
-            out.append(ts[k:k + n])
+        out, k = {}, 0
+        for name, n in zip(self.names, self.group_sizes):
+            out[name] = ts[k:k + n]
             k += n
-        return Params(self.spec, out[0], out[1], out[2],
-                      out[3] if self.gate_slice is not None else None)
+        variance = (out.pop('var_w'), out.pop('var_b')) if 'var_w' in out else None
+        return Params(self.spec, **out), variance
 
 
 @dataclasses.dataclass
@@ -178,23 +213,27 @@ class TrainState:
     no_gain: torch.Tensor             # 0-dim int32
     stop: torch.Tensor                # 0-dim bool: the data-dependent stop
     stop_step: torch.Tensor           # 0-dim int64: the step it came at
+    weight_dkl: torch.Tensor          # 0-dim float32: the variational KL weight
     ema: Optional[torch.Tensor]       # smallify tracker over the betas slice
     ema_var: Optional[torch.Tensor]
 
 
 def init_train_state(model: FeatureGridModel, lr: float, shadow_lr: float,
-                     train_gates: bool) -> TrainState:
+                     train_gates: bool, variance=None,
+                     weight_dkl: float = 0.0) -> TrainState:
     """Fresh optimizer and strategy state for the model's tensors (and its
-    gates and tracker when ``train_gates``), on the model's device."""
-    layout = FlatLayout(model, with_gates=train_gates)
-    flat = layout.flatten(model)
+    gates and smallify tracker when ``train_gates``; and the variance
+    model's (weights, biases) when given), on the model's device;
+    ``weight_dkl`` starts the KL weight's ramp."""
+    layout = FlatLayout(model, with_gates=train_gates, variance=variance)
+    flat = layout.flatten(model, variance)
     dev = flat.device
 
     def scalar(value, dtype=torch.float32):
         return torch.full((), value, dtype=dtype, device=dev)
 
     ema = ema_var = None
-    if train_gates:
+    if 'betas' in layout.slices:
         ema = torch.cat([e.reshape(-1) for e in model.ema]).float()
         ema_var = torch.cat([e.reshape(-1) for e in model.ema_var]).float()
     return TrainState(
@@ -204,27 +243,26 @@ def init_train_state(model: FeatureGridModel, lr: float, shadow_lr: float,
         # inf == "no loss seen yet" (the reference's None)
         last_loss=scalar(math.inf), no_gain=scalar(0, torch.int32),
         stop=scalar(False, torch.bool), stop_step=scalar(0, torch.int64),
-        ema=ema, ema_var=ema_var)
+        weight_dkl=scalar(weight_dkl), ema=ema, ema_var=ema_var)
+
+
+def _own(ts):
+    return None if ts is None else [t.detach().clone() for t in ts]
 
 
 def state_to_model(state: TrainState, model: FeatureGridModel) -> FeatureGridModel:
     """The model with the state's tensors (and tracker); tensors the phase
     did not train (the gates in phase 2) come from ``model``."""
-    p = state.layout.views(state.flat.detach())
-    betas, ema, ema_var = (None, None, None) if model.betas is None else (
-        [b.detach() for b in model.betas], model.ema, model.ema_var)
-    if p.betas is not None:
-        betas = p.betas
+    p, _ = state.layout.views(state.flat.detach())
+    gates = G.fields_of(model)
+    gates.update({name: getattr(p, name) for name in G.FIELDS[:4]
+                  if getattr(p, name) is not None})
+    if state.ema is not None:
         sizes = [b.numel() for b in p.betas]
-        ema = [e.view(b.shape) for e, b in zip(torch.split(state.ema, sizes), p.betas)]
-        ema_var = [e.view(b.shape)
-                   for e, b in zip(torch.split(state.ema_var, sizes), p.betas)]
-
-    def own(ts):
-        return None if ts is None else [t.clone() for t in ts]
-
-    return FeatureGridModel(model.spec, own(p.coeffs), own(p.mlp_w), own(p.mlp_b),
-                            own(betas), own(ema), own(ema_var))
+        for name, flat in (('ema', state.ema), ('ema_var', state.ema_var)):
+            gates[name] = [e.view(b.shape) for e, b in zip(torch.split(flat, sizes), p.betas)]
+    return FeatureGridModel(model.spec, _own(p.coeffs), _own(p.mlp_w), _own(p.mlp_b),
+                            **{k: _own(v) for k, v in gates.items()})
 
 
 def adam_update(flat, g, m, v, lr, bc1, bc2, b1=0.9, b2=0.999, eps=1e-8):
@@ -263,6 +301,19 @@ def chunk_inputs(c: PhaseConstants, pos: torch.Tensor):
     return norm, gt
 
 
+def draw_noise(ph: PhaseSpec, n_steps: int, generator: torch.Generator,
+               device: torch.device) -> Optional[List[torch.Tensor]]:
+    """The gate noise of ``n_steps`` steps, (n_steps, *gate shape) a level
+    in one call each: U[0, 1) for straight-through, N(0, 1) for the
+    variational families; None for the others."""
+    kind = G.noise_kind(ph.drop_type)
+    if kind is None:
+        return None
+    draw = torch.rand if kind == 'uniform' else torch.randn
+    return [draw((n_steps,) + tuple(s[1:]), generator=generator, device=device)
+            for s in coeff_shapes(ph.spec)]
+
+
 def draw_positions(c: PhaseConstants, n_steps: int, N: int,
                    generator: torch.Generator) -> torch.Tensor:
     """(n_steps, N, 3) IID uniform voxel indices (the reference's
@@ -274,39 +325,61 @@ def draw_positions(c: PhaseConstants, n_steps: int, N: int,
 
 
 def loss_and_grad(ph: PhaseSpec, layout: FlatLayout, flat: torch.Tensor,
-                  norm: torch.Tensor, gt: torch.Tensor, masks=None):
-    """(loss, volume loss, gradient of the loss with respect to ``flat``)."""
+                  norm: torch.Tensor, gt: torch.Tensor, masks=None, noise=None,
+                  weight_dkl: Optional[torch.Tensor] = None):
+    """(loss, volume loss, gradient of the loss with respect to ``flat``).
+    ``noise``: this step's per-level gate noise (straight-through,
+    variational); ``weight_dkl``: this step's KL weight (variational)."""
     x = flat.detach().requires_grad_(True)
-    p = layout.views(x)
+    p, variance = layout.views(x)
     train_gates = bool(ph.drop_type)
     pred = apply_model(p, norm, train=True, train_gates=train_gates,
-                       masks=masks if ph.use_masks else None)[:, 0]
-    vol_loss = torch.mean((pred - gt) ** 2)
-    loss = vol_loss
-    if train_gates:
-        # the sums over the levels taken over the flat slices at once
-        loss = loss + L.smallify_family_loss(
-            ph.drop_type, [x[layout.coeff_slice]], [x[layout.gate_slice]],
-            ph.lambda_drop_loss, ph.lambda_weight_loss)
+                       masks=masks if ph.use_masks else None, noise=noise)[:, 0]
+    # the sums over the levels taken over the flat slices at once
+    s = layout.slices
+    coeffs = [x[s['coeffs']]]
+    if train_gates and ph.variational:
+        if ph.dynamic_variational:
+            log_sigma = apply_variance_model(*variance, norm)[:, 0]
+        else:
+            log_sigma = torch.full_like(pred, ph.variational_sigma)
+        gates = G.Gates(log_thetas=[x[s['log_thetas']]], log_var=[x[s['log_var']]])
+        loss, _, vol_loss, _, _ = L.variational_loss(
+            coeffs, gates, pred, gt, log_sigma, weight_dkl, ph.lambda_weight_loss,
+            batch_scale=ph.n_voxels / ph.batch_n, data_scale=ph.n_voxels / pred.shape[0])
+    else:
+        vol_loss = torch.mean((pred - gt) ** 2)
+        loss = vol_loss
+        if train_gates:
+            name = G.trainable_fields(ph.drop_type)[0]
+            loss = loss + L.smallify_family_loss(
+                ph.drop_type, coeffs, G.Gates(**{name: [x[s[name]]]}),
+                ph.lambda_drop_loss, ph.lambda_weight_loss)
     g, = torch.autograd.grad(loss, x)
     return loss.detach(), vol_loss.detach(), g
 
 
 def train_step(ph: PhaseSpec, st: TrainState, c: PhaseConstants,
                norm: torch.Tensor, gt: torch.Tensor, masks=None,
-               guard: bool = False):
+               guard: bool = False, noise=None):
     """One step in place on ``st``; returns (loss, volume loss) on the
     device.  ``guard``: the stop flag may be set, so every update is taken
-    only where it is not (a stopped step changes nothing)."""
+    only where it is not (a stopped step changes nothing).  ``noise``: the
+    step's per-level gate noise."""
     t = st.step + 1
-    loss, vol_loss, g = loss_and_grad(ph, st.layout, st.flat, norm, gt, masks)
+    weight_dkl = None
+    if ph.variational:
+        # the KL weight is ramped before the loss that uses it
+        weight_dkl = L.ramp_weight_dkl(st.weight_dkl, ph.weight_dkl_multiplier)
+    loss, vol_loss, g = loss_and_grad(ph, st.layout, st.flat, norm, gt, masks, noise,
+                                      weight_dkl)
     flat, m, v = adam_update(st.flat, g, st.m, st.v, st.lr, c.bc1[t - 1],
                              c.bc2[t - 1])
     ema = ema_var = None
     if ph.drop_type == 'smallify':
         # fed with the pre-update betas
         mom = ph.spec.drop_momentum
-        phi = torch.sign(st.flat[st.layout.gate_slice]) - st.ema
+        phi = torch.sign(st.flat[st.layout.slices['betas']]) - st.ema
         ema = st.ema + mom * phi
         ema_var = (1.0 - mom) * (st.ema_var + mom * phi * phi)
 
@@ -316,6 +389,8 @@ def train_step(ph: PhaseSpec, st: TrainState, c: PhaseConstants,
     st.flat, st.m, st.v = take(st.flat, flat), take(st.m, m), take(st.v, v)
     if ema is not None:
         st.ema, st.ema_var = take(st.ema, ema), take(st.ema_var, ema_var)
+    if weight_dkl is not None:
+        st.weight_dkl = take(st.weight_dkl, weight_dkl)
 
     cur, boundary = ph.passes(t)
     if boundary:
@@ -394,18 +469,30 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 steps_per_chunk: int, masks=None, *,
                 generator: Optional[torch.Generator] = None,
                 positions: Optional[Iterator] = None,
+                noise_generator: Optional[torch.Generator] = None,
+                gate_noise: Optional[Iterator] = None,
                 verbose: bool = True, timer: Optional[StepTimer] = None,
-                metric_cb: Optional[Callable[[np.ndarray], None]] = None
+                metric_cb: Optional[Callable[[np.ndarray], None]] = None,
+                volume_cb: Optional[Callable[[np.ndarray], None]] = None
                 ) -> TrainState:
     """Run one phase until its pass budget is spent or the plateau stop.
 
-    volume:     the (X, Y, Z) ground truth on the training device.
-    generator:  draws the positions (a ``torch.Generator`` on that device)
-                unless ``positions`` yields (N, 3) integer arrays, one per
-                step.
-    metric_cb:  called after every chunk with the losses of its steps."""
+    volume:           the (X, Y, Z) ground truth on the training device.
+    generator:        draws the positions (a ``torch.Generator`` on that
+                      device) unless ``positions`` yields (N, 3) integer
+                      arrays, one per step.
+    noise_generator:  draws the gate noise of the stochastic families
+                      (another generator on that device) unless
+                      ``gate_noise`` yields a list of per-level tensors, one
+                      list per step.
+    metric_cb:        called after every chunk with the losses of its steps;
+    volume_cb:        likewise with their volume losses (MSE)."""
     if positions is None and generator is None:
         raise ValueError("solve_phase needs a generator or a positions iterator")
+    if (G.noise_kind(ph.drop_type) and gate_noise is None
+            and noise_generator is None):
+        raise ValueError(f"drop_type {ph.drop_type!r} needs a noise generator "
+                         f"or a gate-noise iterator")
     c = PhaseConstants(ph, volume)
     N = ph.batch_n
     first = True
@@ -417,6 +504,14 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
         else:
             pos = torch.from_numpy(np.stack([np.asarray(next(positions))
                                              for _ in range(n)])).to(volume.device)
+        noise = None
+        if G.noise_kind(ph.drop_type) and gate_noise is None:
+            noise = draw_noise(ph, n, noise_generator, volume.device)
+        elif G.noise_kind(ph.drop_type):
+            steps = [next(gate_noise) for _ in range(n)]
+            noise = [torch.from_numpy(np.stack([np.asarray(s[lvl], dtype=np.float32)
+                                                for s in steps])).to(volume.device)
+                     for lvl in range(len(steps[0]))]
         start = state.step
         tchunk = timer.chunk(n, first=first) if timer is not None \
             else contextlib.nullcontext()
@@ -426,7 +521,8 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
             guard = False
             for i in range(n):
                 loss, vol_loss = train_step(ph, state, c, norm_all[i], gt_all[i],
-                                            masks, guard)
+                                            masks, guard,
+                                            None if noise is None else [a[i] for a in noise])
                 losses.append(loss)
                 vol_losses.append(vol_loss)
                 cur, boundary = ph.passes(state.step)
@@ -448,6 +544,8 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
         losses, vol_losses = read[2:2 + k], read[2 + len(losses):][:k]
         if metric_cb is not None:
             metric_cb(np.asarray(losses))
+        if volume_cb is not None:
+            volume_cb(np.asarray(vol_losses))
         if verbose and k:
             vp = _F32(state.step) * _F32(N) * _F32(1.0 / float(ph.n_voxels))
             print(f"Pass [{vp:.4f} / {ph.max_pass:.1f}]: volume loss: "

@@ -1,55 +1,105 @@
 """Stream-matched A/B of the two training entry points: the JAX package's
 ``train.run.training`` and the port's, both phases, bake, prune and
 evaluation, from the same initial parameters (a JAX checkpoint, through
-``checkpoint_path``) and the same positions (the port replays the JAX
-trainer's stream, ``tests/torch_ab.py::jax_pos_stream``).  At the
-configuration of ``tests/test_ab_parity.py``: final PSNR within 0.05 dB,
-equal zero counts, equal compression ratio."""
+``checkpoint_path``; the dynamic family's variance model from JAX's init,
+through ``variance_from_jax``) and the same positions and gate noise (the
+port replays the JAX trainer's streams, ``tests/torch_ab.py::jax_pos_stream``
+and ``jax_gate_noise_stream``, and ``tests/torch_port_util.py::
+jax_gate_uniform_stream`` for straight-through).  At the configuration of
+``tests/test_ab_parity.py``: final PSNR within 0.05 dB, equal zero counts,
+equal compression ratio."""
 
 import os
 
 import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
 from latent_feature_grid_compression_tpu.config import TrainConfig as JaxConfig
+from latent_feature_grid_compression_tpu.config import dict_from_file
+from latent_feature_grid_compression_tpu.data.volume import normalize_volume
 from latent_feature_grid_compression_tpu.io.checkpoint import save_checkpoint
 from latent_feature_grid_compression_tpu.models import init_model, make_spec
+from latent_feature_grid_compression_tpu.models.variance import init_variance_model
 from latent_feature_grid_compression_tpu.train import training as jax_training
 from latent_feature_grid_compression_tpu_torch.config import TrainConfig
+from latent_feature_grid_compression_tpu_torch.convert import variance_from_jax
+from latent_feature_grid_compression_tpu_torch.data.synthetic import synth_volume
 from latent_feature_grid_compression_tpu_torch.train import training
 from tests.test_ab_parity import synthetic_volume
-from tests.torch_ab import jax_pos_stream
+from tests.torch_ab import jax_gate_noise_stream, jax_pos_stream
+from tests.torch_port_util import jax_gate_uniform_stream
+
+# test_ab_parity.py's settings of each family; drop_momentum is the
+# variational families' initial dropout rate, 0.7 puts the rates near the
+# 0.75 threshold so that pruning happens within a short run
+FAMILY_KW = {
+    'smallify': dict(lambda_drop_loss=2e-5, lambda_weight_loss=1e-8),
+    '': dict(lambda_drop_loss=2e-5, lambda_weight_loss=1e-8),
+    'straight_through': dict(lambda_drop_loss=1e-6, lambda_weight_loss=1e-8),
+    'masked_straight_through': dict(lambda_drop_loss=1e-6, lambda_weight_loss=1e-8),
+    'static_variational': dict(lambda_drop_loss=1e-6, lambda_weight_loss=1e-8,
+                               weight_dkl_multiplier=5e-4, variational_sigma=-7.0,
+                               drop_momentum=0.7),
+    'dynamic_variational': dict(lambda_drop_loss=1e-6, lambda_weight_loss=1e-8,
+                                weight_dkl_multiplier=5e-4, variational_sigma=0.0,
+                                drop_momentum=0.7)}
 
 
-def run_ab(tmp_path, drop_type, max_pass):
-    vol = synthetic_volume()
+# test_ab_parity.py's widths
+TINY = dict(batch_size=256, sample_size=8, grid_size=8, grid_features=8, n_hidden_size=16,
+            n_layers=2)
+
+
+def run_ab(tmp_path, drop_type, max_pass, vol=None, seed=0, **overrides):
+    """Both trainers on ``vol`` (default: test_ab_parity.py's synthetic
+    volume) at TINY's widths and FAMILY_KW's settings, each replaced by
+    ``overrides``; returns (JAX's info, the port's)."""
+    vol = synthetic_volume() if vol is None else vol
     kw = dict(data='', basedir=f'/{os.path.relpath(tmp_path)}/', drop_type=drop_type,
-              max_pass=max_pass, batch_size=256, sample_size=8, grid_size=8,
-              grid_features=8, n_hidden_size=16, n_layers=2, steps_per_chunk=64,
-              lr=0.01, pass_decay=20, lr_decay=0.2, seed=0,
-              rng_impl='threefry2x32', lambda_drop_loss=2e-5,
-              lambda_weight_loss=1e-8)
-    spec = make_spec(grid_size=8, grid_features=8, hidden=16, num_layers=2,
-                     drop_type=drop_type)
+              max_pass=max_pass, steps_per_chunk=64, lr=0.01, pass_decay=20,
+              lr_decay=0.2, seed=seed, rng_impl='threefry2x32', **TINY)
+    kw.update(FAMILY_KW[drop_type])
+    kw.update(overrides)
+    spec = make_spec(grid_size=kw['grid_size'], grid_features=kw['grid_features'],
+                     hidden=kw['n_hidden_size'], num_layers=kw['n_layers'],
+                     n_freqs=kw.get('n_embedding_freq', 2),
+                     wavelet=kw.get('wavelet_filter', 'db2'), drop_type=drop_type,
+                     drop_momentum=kw.get('drop_momentum', 0.025),
+                     drop_threshold=kw.get('drop_threshold', 0.75))
     # the initial parameters training() derives from the seed, handed to both
-    k_model, _, k_train = jax.random.split(
-        jax.random.key(0, impl='threefry2x32'), 3)
+    k_model, k_var, k_train = jax.random.split(
+        jax.random.key(seed, impl='threefry2x32'), 3)
     params, aux = init_model(k_model, spec)
     ckpt = str(tmp_path / 'init.npz')
     save_checkpoint(ckpt, params, aux, drop_type)
     info_jax = jax_training(JaxConfig(expname='jax', checkpoint_path=ckpt, **kw),
                             verbose=False, volume_np=vol, write_vols=False)
-    N = 256 * 8
+    N = kw['batch_size'] * kw['sample_size']
     streams = (jax_pos_stream(k_train, 64, N, vol.shape),
                jax_pos_stream(jax.random.fold_in(k_train, 1), 64, N, vol.shape))
+    shapes = [c.shape[1:] for c in params.coeffs]
+    noise = {'straight_through': jax_gate_uniform_stream,
+             'static_variational': jax_gate_noise_stream,
+             'dynamic_variational': jax_gate_noise_stream}.get(drop_type)
+    variance = None
+    if 'dynamic' in drop_type:
+        # JAX's training() draws its variance model from k_var
+        var = init_variance_model(k_var, 3, 1, 4, 32)
+        variance = variance_from_jax([np.asarray(w) for w in var['w']],
+                                     [np.asarray(b) for b in var['b']], device='cpu')
     info = training(TrainConfig(expname='port', checkpoint_path=ckpt, **kw),
                     verbose=False, volume_np=vol, write_vols=False, device='cpu',
-                    positions=streams)
+                    positions=streams,
+                    gate_noise=None if noise is None else noise(k_train, 64, shapes),
+                    variance_model=variance)
     return info_jax, info
 
 
-def _check(info_jax, info, drop_type, rel=0.0):
-    assert abs(info['psnr'] - info_jax['psnr']) < 0.05, (info['psnr'], info_jax['psnr'])
+def _check(info_jax, info, drop_type, rel=0.0, db=0.05):
+    assert abs(info['psnr'] - info_jax['psnr']) < db, (info['psnr'], info_jax['psnr'])
     assert info['num_zeros'] == pytest.approx(info_jax['num_zeros'], rel=rel)
     assert info['compression_ratio'] == pytest.approx(info_jax['compression_ratio'],
                                                       rel=rel)
@@ -66,11 +116,101 @@ def test_training_stream_matched_short(tmp_path, drop_type):
     assert info['train_phase1_steps'] == 64 and info['train_phase2_steps'] == 32
 
 
+# 30 passes: (PSNR bound in dB, zero-count relative bound).  Float32
+# rounding differences between the two trajectories grow: they flip
+# borderline masks (smallify's sign-variance masks: 6096.75 vs 6080.75
+# zeros, within test_ab_parity.py's 2%; dynamic variational's dropout rates
+# near the threshold: 424.75 vs 440.75, 3.6%), and masked-ST's STE is
+# discontinuous at its threshold (0.0999 dB apart, 6888.75 vs 6896.75
+# zeros; test_ab_parity.py measured 0.32 dB from a 1e-6 init change and
+# bounds it by 0.6).  Measured, port vs JAX, seed 0: straight-through
+# 0.0002 dB, static variational 4e-6 dB, dynamic 0.0152 dB, their zero
+# counts otherwise equal.
+SLOW_BOUNDS = {'smallify': (0.05, 0.02), '': (0.05, 0.0), 'straight_through': (0.05, 0.0),
+               'masked_straight_through': (0.6, 0.02), 'static_variational': (0.05, 0.0),
+               'dynamic_variational': (0.05, 0.05)}
+
+
 @pytest.mark.slow
-@pytest.mark.parametrize('drop_type', ['smallify', ''])
+@pytest.mark.parametrize('drop_type', sorted(SLOW_BOUNDS))
 def test_training_stream_matched_30_passes(tmp_path, drop_type):
-    """Over 30 passes float32 rounding differences between the two
-    trajectories flip borderline sign-variance masks: the zero counts agree
-    to test_ab_parity.py's 2% (measured 6096.75 vs 6080.75, seed 0)."""
+    """30 passes of every family, with the bounds of SLOW_BOUNDS."""
     info_jax, info = run_ab(tmp_path, drop_type, 30)
-    _check(info_jax, info, drop_type, rel=0.02)
+    db, rel = SLOW_BOUNDS[drop_type]
+    _check(info_jax, info, drop_type, rel=rel, db=db)
+
+
+@pytest.mark.parametrize('drop_type', ['straight_through', 'masked_straight_through',
+                                       'static_variational', 'dynamic_variational'])
+def test_training_stream_matched_short_families(tmp_path, drop_type):
+    """6 passes of each of the other families, positions and gate noise
+    replayed."""
+    info_jax, info = run_ab(tmp_path, drop_type, 6)
+    _check(info_jax, info, drop_type)
+    assert info['train_phase1_steps'] == 64 and info['train_phase2_steps'] == 32
+
+
+# mhd_p_masked_st.txt's widths and settings; the witness below cuts only
+# its volume (mhd_like's generator at WITNESS_N^3 in place of 255^3) and its
+# pass count
+MASKED_ST_CONFIG = 'experiment-config-files/mhd_p_masked_st.txt'
+CONFIG_KEYS = ('batch_size', 'sample_size', 'grid_size', 'grid_features', 'n_hidden_size',
+               'n_layers', 'n_embedding_freq', 'wavelet_filter', 'lr', 'pass_decay',
+               'lr_decay', 'smallify_decay', 'lambda_drop_loss', 'lambda_weight_loss',
+               'drop_momentum', 'drop_threshold')
+WITNESS_N, WITNESS_PASSES = 127, 12
+
+
+class _SigmoidValues(torch.autograd.Function):
+    """A float32 sigmoid with other last bits: ``values(x)`` forward, the
+    exact y (1 - y) backward."""
+
+    @staticmethod
+    def forward(ctx, x, values):
+        y = values(x.detach())
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (1 - y) * y, None
+
+
+_XLA_SIGMOID = jax.jit(jax.nn.sigmoid)
+_TORCH_SIGMOID = torch.sigmoid
+# the port's sigmoid ('torch'), and two others that differ from it only in
+# the last bit: XLA's on the CPU bit for bit, and float64 rounded to float32
+SIGMOIDS = {
+    'torch': None,
+    'xla': lambda x: torch.from_numpy(np.array(_XLA_SIGMOID(jnp.asarray(x.numpy())))),
+    'exact': lambda x: _TORCH_SIGMOID(x.double()).float()}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize('sigmoid', sorted(SIGMOIDS))
+@pytest.mark.parametrize('seed', [0, 1, 2, 3])
+def test_masked_st_stream_matched_at_config_widths(tmp_path, monkeypatch, seed, sigmoid):
+    """Masked straight-through at its published config's widths (16
+    features x 15^3, db2, 4 x 32 SnakeAlt, batch 2048 x 16) through both
+    trainers with the same streams, the port's sigmoid as SIGMOIDS names.
+    Measured, port - JAX in zeros (of ~108,000; ratio ~340-390x) for seeds
+    0-3: 'torch' +80, +64, +128, +192; 'xla' -128, +112, +160, 0; 'exact'
+    +64, 0, +16, +64; PSNR at most 0.046 dB apart.  A last-bit change of
+    one function moves the count as far, either way: float32 rounding at
+    the discontinuous STE, not a fault.  Bounds: 0.05 dB, zeros 0.2%,
+    ratio 4%."""
+    if SIGMOIDS[sigmoid] is not None:
+        monkeypatch.setattr(torch, 'sigmoid',
+                            lambda x: _SigmoidValues.apply(x, SIGMOIDS[sigmoid]))
+    cfg = dict_from_file(MASKED_ST_CONFIG)
+    raw = synth_volume(WITNESS_N, seed=1, octaves=6)
+    vol = normalize_volume(raw, raw.min(), raw.max(), -1.0, 1.0).astype(np.float32)
+    info_jax, info = run_ab(tmp_path, 'masked_straight_through', WITNESS_PASSES, vol=vol,
+                            seed=seed, **{k: cfg[k] for k in CONFIG_KEYS})
+    print('witness', sigmoid, seed, {k: (info_jax[k], info[k]) for k in
+                                     ('psnr', 'num_zeros', 'compression_ratio')})
+    assert abs(info['psnr'] - info_jax['psnr']) < 0.05
+    assert info['num_zeros'] == pytest.approx(info_jax['num_zeros'], rel=2e-3)
+    assert info['compression_ratio'] == pytest.approx(info_jax['compression_ratio'], rel=4e-2)
+    assert info['num_parameters'] == info_jax['num_parameters']

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels (the fetch and its grid
 gradient, the fused MLP forward and backward, the one-kernel model forward
 and backward) against their plain PyTorch versions, the wrappers' checks,
-and the model, evaluation and training paths through them.
+and the model, evaluation and training paths through them (every gate
+family's train step).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it also runs where JAX is not installed; the
@@ -237,13 +238,15 @@ def test_bwd_kernel_unaligned_on_the_shared_route(cuda_device):
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
-def _train_setup(device, res=64, drop_type='smallify', max_pass=60, **backends):
+def _train_setup(device, res=64, drop_type='smallify', max_pass=60, cfg_kw=None,
+                 **backends):
     """A phase at the flagship's widths and batch on a smaller volume."""
     from latent_feature_grid_compression_tpu_torch.config import TrainConfig
     from latent_feature_grid_compression_tpu_torch.data.synthetic import synth_volume
     from latent_feature_grid_compression_tpu_torch.train import trainer as tr
     cfg = TrainConfig(batch_size=2048, sample_size=16, grid_size=15,
-                      grid_features=16, drop_type=drop_type, max_pass=max_pass)
+                      grid_features=16, drop_type=drop_type, max_pass=max_pass,
+                      **(cfg_kw or {}))
     spec = fg.make_spec(**dict(FLAGSHIP, drop_type=drop_type), **backends)
     model = fg.init_model(spec, torch.Generator().manual_seed(3), device=device)
     vol = torch.from_numpy(synth_volume(res, seed=1)).to(device)
@@ -521,3 +524,84 @@ def test_apply_model_on_card_matches_cpu_backends(cuda_device, backend):
         ref = fg.apply_model(model, c, train=False)
         out = fg.apply_model(model.to(cuda_device), c.to(cuda_device), train=False)
     assert _rel(out.cpu(), ref) <= MLP_TOL['bf16'][0]
+
+
+# the published settings of the other gate families (mhd_p_masked_st.txt,
+# mhd_p_static_variational.txt, mhd_p_dynamic_variational.txt)
+FAMILY_CFG = {
+    'straight_through': dict(lambda_drop_loss=1e-6, lambda_weight_loss=1e-8),
+    'masked_straight_through': dict(lambda_drop_loss=1e-6, lambda_weight_loss=1e-8),
+    'static_variational': dict(lambda_drop_loss=1.0, lambda_weight_loss=2.0,
+                               variational_sigma=-7.0, weight_dkl_multiplier=5e-5),
+    'dynamic_variational': dict(lambda_drop_loss=0.1, lambda_weight_loss=2.0,
+                                variational_sigma=0.0, weight_dkl_multiplier=3e-5)}
+
+
+@pytest.mark.parametrize('drop_type', sorted(FAMILY_CFG))
+def test_train_step_on_card_matches_cpu_families(cuda_device, drop_type):
+    """One full step of each other gate family (both kernels, the gate
+    noise, the family's loss at its published settings; the variance model
+    for the dynamic one) from the same state, positions and noise on the
+    card and on the CPU.  The variational gradients reach ~1e9: every
+    comparison is relative."""
+    from latent_feature_grid_compression_tpu_torch.models.variance import init_variance_model
+    outs = []
+    for dev in (torch.device('cpu'), cuda_device):
+        tr, ph, model, vol = _train_setup(dev, drop_type=drop_type,
+                                          cfg_kw=FAMILY_CFG[drop_type])
+        variance = None
+        if 'dynamic' in drop_type:
+            variance = tuple([t.to(dev) for t in ts]
+                             for ts in init_variance_model(torch.Generator().manual_seed(4)))
+        st = tr.init_train_state(model, 0.008, 0.008, train_gates=True, variance=variance,
+                                 weight_dkl=FAMILY_CFG[drop_type]['lambda_drop_loss'])
+        c = tr.PhaseConstants(ph, vol)
+        g = torch.Generator().manual_seed(5)
+        pos = torch.stack([torch.randint(0, 64, (1, ph.batch_n), generator=g)
+                           for _ in range(3)], -1).to(dev)
+        noise = tr.draw_noise(ph, 1, g, torch.device('cpu'))
+        norm, gt = tr.chunk_inputs(c, pos)
+        counts = (gs.launches, gs.bwd_launches)
+        loss, vol_loss = tr.train_step(ph, st, c, norm[0], gt[0], noise=None if noise is None
+                                       else [a[0].to(dev) for a in noise])
+        counts = (gs.launches - counts[0], gs.bwd_launches - counts[1])
+        outs.append((float(loss), float(vol_loss), st.flat.cpu(), st.m.cpu(),
+                     float(st.weight_dkl), counts))
+    (l0, v0, f0, m0, w0, c0), (l1, v1, f1, m1, w1, c1) = outs
+    assert c0 == (0, 0) and c1 == (1, 1)
+    assert abs(l0 - l1) <= 1e-5 * abs(l0) and abs(v0 - v1) <= 1e-5 * abs(v0)
+    assert w0 == w1
+    assert _rel(m1, m0) <= 1e-4
+    # Adam's first step moves each entry by ~lr in the sign of its gradient;
+    # where the gradient is within its rounding of 0 the sign may differ
+    sure = m0.abs() > 1e-4 * m0.abs().max()
+    np.testing.assert_allclose(f1[sure].numpy(), f0[sure].numpy(), atol=1e-5)
+    assert float((f1 - f0).abs().max()) <= 2 * 0.008 * 1.0001
+
+
+@pytest.mark.parametrize('route', ['mlp', 'fused'])
+def test_backward_kernels_at_the_variational_gradient_scale(cuda_device, route):
+    """The bf16 backward kernels given an upstream gradient of ~1e9 (the
+    static variational loss: squared error over sigma^2 = e^-14, times
+    n_voxels / N): bf16 has float32's exponent range, so the gradients stay
+    within the bf16 tolerance of the plain versions, relative to their own
+    scale."""
+    dims = [31, 32, 32, 32, 32, 1]
+    n = 32768
+    ws, bs = _mlp_params(dims, cuda_device, 7)
+    scale = 1e9
+    g = torch.randn((n, 1), device=cuda_device) * scale
+    if route == 'mlp':
+        x = torch.randn((n, dims[0]), device=cuda_device)
+        got = mf.mlp_fused_backward_cuda(ws, bs, x, g, 'bf16')
+        want = mf.mlp_fused_plain_backward(ws, bs, x, g, 'bf16')
+    else:
+        grid = torch.randn((15, 15, 15, 16), device=cuda_device)
+        coords = torch.rand((n, 3), device=cuda_device) * 2 - 1
+        got = ff.fused_forward_backward_cuda(grid, coords, ws, bs, 2, g, 'mixed')
+        want = ff.fused_forward_plain_backward(grid, coords, ws, bs, 2, g, 'mixed')
+    got = [got[0]] + list(got[1]) + list(got[2])
+    want = [want[0]] + list(want[1]) + list(want[2])
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b, GRAD_FLOOR * scale) <= MLP_TOL['bf16'][1]

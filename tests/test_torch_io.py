@@ -1,5 +1,5 @@
 """The port's checkpoint and container readers against the JAX package:
-npz checkpoints both ways, containers written by the JAX writer (8 and 5
+npz checkpoints both ways (every gate family's arrays), containers written by the JAX writer (8 and 5
 bits; db2 and no-wavelet) restored exactly as the JAX reader restores them,
 and the golden container written by the reference."""
 
@@ -16,6 +16,7 @@ from latent_feature_grid_compression_tpu.models import feature_grid as jfg
 from latent_feature_grid_compression_tpu_torch.io import checkpoint as tck
 from latent_feature_grid_compression_tpu_torch.io import container as tct
 from latent_feature_grid_compression_tpu_torch.models import feature_grid as tfg
+from latent_feature_grid_compression_tpu_torch.models import gates as tG
 from tests.torch_port_util import prune, to_port
 
 FIXTURES = os.path.join(os.path.dirname(__file__), 'fixtures')
@@ -40,6 +41,82 @@ def test_load_checkpoint_reads_jax_npz(tmp_path, drop_type):
     spec = tfg.make_spec(grid_size=15, grid_features=8, hidden=16, num_layers=3)
     model = tck.load_checkpoint(path, spec, device='cpu')
     _assert_same(model, jparams)
+
+
+FAMILIES = ['straight_through', 'masked_straight_through', 'static_variational',
+            'dynamic_variational']
+
+
+def _family_params(drop_type, seed):
+    """JAX params of the family with gate values off their init."""
+    jspec = jfg.make_spec(grid_size=9, grid_features=4, hidden=8, num_layers=2,
+                          drop_type=drop_type)
+    jparams, aux = jfg.init_model(jax.random.key(seed), jspec)
+    rng = np.random.default_rng(seed)
+    gates = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.standard_normal(a.shape).astype(np.float32),
+        jparams.gates)
+    spec = tfg.make_spec(grid_size=9, grid_features=4, hidden=8, num_layers=2,
+                         drop_type=drop_type)
+    return jparams.replace(gates=gates), aux, spec
+
+
+def _same_gates(model, jgates, drop_type):
+    for name in tG.trainable_fields(drop_type):
+        for got, want in zip(getattr(model, name), getattr(jgates, name)):
+            np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('drop_type', FAMILIES)
+def test_family_checkpoint_from_jax(tmp_path, drop_type):
+    """A JAX model.npz of each family loads with its gate arrays."""
+    jparams, aux, spec = _family_params(drop_type, 11)
+    path = str(tmp_path / 'model.npz')
+    jck.save_checkpoint(path, jparams, aux, drop_type)
+    model = tck.load_checkpoint(path, spec, device='cpu')
+    _assert_same(model, jparams)
+    _same_gates(model, jparams.gates, drop_type)
+
+
+@pytest.mark.parametrize('drop_type', FAMILIES)
+def test_family_checkpoint_to_jax(tmp_path, drop_type):
+    """The port's model.npz of each family names its family and loads in
+    the JAX package (over a fresh init there) with the same arrays, and
+    back in the port."""
+    jparams, aux, spec = _family_params(drop_type, 12)
+    model = to_port(jparams, spec)
+    path = str(tmp_path / 'model.npz')
+    tck.save_checkpoint(path, model)
+    with np.load(path) as z:
+        assert str(z['drop_type']) == drop_type
+        assert not any(k.startswith(('gate_betas', 'gate_ema')) for k in z.files)
+    jspec = jfg.make_spec(grid_size=9, grid_features=4, hidden=8, num_layers=2,
+                          drop_type=drop_type)
+    fresh, faux = jfg.init_model(jax.random.key(99), jspec)
+    loaded, _ = jck.load_checkpoint(path, fresh, faux)
+    _assert_same(model, loaded)
+    _same_gates(model, loaded.gates, drop_type)
+    again = tck.load_checkpoint(path, spec, device='cpu')
+    _same_gates(again, jparams.gates, drop_type)
+    # a pruned model (no gates) writes drop_type '' and no gate arrays
+    tck.save_checkpoint(path, tfg.remove_drop_layers(model, [
+        torch.ones(c.shape[1:]) for c in model.coeffs]))
+    with np.load(path) as z:
+        assert str(z['drop_type']) == '' and not any(k.startswith('gate_') for k in z.files)
+
+
+@pytest.mark.parametrize('drop_type', FAMILIES)
+def test_family_checkpoint_without_gates_warm_starts(tmp_path, drop_type):
+    """A gate-free file under a gated spec keeps the given model's gates,
+    and raises without a model, as for smallify."""
+    jparams, _, spec = _family_params(drop_type, 13)
+    path = str(tmp_path / 'model.npz')
+    jck.save_checkpoint(path, jparams.replace(gates=None), None, '')
+    init = to_port(jparams, spec)
+    model = tck.load_checkpoint(path, spec, device='cpu', model=init)
+    _same_gates(model, jparams.gates, drop_type)
+    with pytest.raises(ValueError, match='holds no gates'):
+        tck.load_checkpoint(path, spec, device='cpu')
 
 
 def test_save_checkpoint_loads_in_jax(tmp_path):

@@ -141,10 +141,11 @@ def test_interp_backends_all_select_the_trilinear_fetch(backend):
     pytest.param(dict(interp_backend='fused'), ('fused', 'xla'), id='kwargs1'),
     pytest.param(dict(mlp_backend='pallas'), ('trilinear', 'pallas'), id='kwargs2'),
     pytest.param(dict(compute_dtype='bfloat16'), None, id='kwargs3'),
-    pytest.param(dict(drop_type='straight_through'), None, id='kwargs4')])
+    pytest.param(dict(drop_type='straight_through'), ('trilinear', 'xla'), id='kwargs4')])
 def test_unported_options_raise(kwargs, backends):
-    """Options not ported yet raise "not yet ported"; the fused forward and
-    the fused MLP, ported since, build a spec that records them."""
+    """Options not ported yet raise "not yet ported"; the fused forward, the
+    fused MLP and the other gate families, ported since, build a spec that
+    records them."""
     if backends is None:
         with pytest.raises(ValueError, match='not yet ported'):
             tfg.make_spec(**dict(FLAGSHIP, **kwargs))

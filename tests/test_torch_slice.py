@@ -188,9 +188,10 @@ def test_init_model_on_cpu_keeps_its_draws():
     grid = torch.rand((spec.grid_features,) + (spec.grid_size,) * 3, generator=gen)
     coeffs, _ = encode_pyramid(spec.filter(), grid, spec.num_levels)
     mlp_w, mlp_b = init_mlp(gen, spec.mlp_in, spec.hidden, spec.d_out, spec.num_layers)
-    betas, ema, ema_var = init_gates(gen, spec.drop_type, [tuple(c.shape) for c in coeffs])
+    gates = init_gates(gen, spec.drop_type, [tuple(c.shape) for c in coeffs])
     for got, want in [(model.coeffs, coeffs), (model.mlp_w, mlp_w), (model.mlp_b, mlp_b),
-                      (model.betas, betas), (model.ema, ema), (model.ema_var, ema_var)]:
+                      (model.betas, gates.betas), (model.ema, gates.ema),
+                      (model.ema_var, gates.ema_var)]:
         assert len(got) == len(want)
         assert all(g.device.type == 'cpu' and torch.equal(g.detach(), w)
                    for g, w in zip(got, want))
