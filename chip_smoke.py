@@ -11,9 +11,11 @@ db2, 2 Fourier frequencies, 4 x 32 SnakeAlt MLP, batch 2048 x 16): the
 decompression path with random weights from a seed, point queries, the
 training path through train_torch.py under each backend (the fetch kernels
 with the MLP as PyTorch ops; --mlp_backend pallas, the fused MLP kernels;
---interp_backend fused, the one-kernel forward), and the training path of
-each other gate family under the default backend.  Phases, each printing
-one JSON line, in order:
+--interp_backend fused, the one-kernel forward), the training path of each
+other gate family under the default backend, and the bf16 compute path
+(--compute_dtype bfloat16, alone and with --interp_backend fused: the
+'bf16' modes of the fetch, its gradient and the one-kernel forward and
+backward).  Phases, each printing one JSON line, in order:
 
   1. device      card name, and its name and power limit from nvidia-smi
   2. build       nvcc of every csrc/*.cu (started together), seconds, ptxas
@@ -48,16 +50,31 @@ one JSON line, in order:
                  1e-6, 'mixed' to the bf16 tolerance);
                  library = the default route (fetch kernel, fourier_embed,
                  torch.cat, mlp_apply), forward and forward + backward
-  7. checkpoint  infer_torch.py --reconstruct checkpoint over the 255^3
+  7. kernel_bf16  the 'bf16' modes against their plain versions: the fetch
+                 (on its bf16 grid copy) and its gradient at the flagship on a
+                 chunk of the 255^3 lattice and on one train step's trainer
+                 positions, at grid 23 (the blocked Pallas kernels'
+                 counterpart), C 5, C 22 on 17^3, and the gradient on both
+                 routes; at least 99.9% of entries within 1e-6 and all within
+                 4e-3 of max |.| (the fetch is expected bit for bit); the
+                 one-kernel 'bf16' forward and backward at the flagship
+                 within 1e-2 of max |.|; kernel, plain, library (F.grid_sample
+                 on a bf16 input and grid, and its autograd backward; the
+                 default bf16 route for the one-kernel pair), bound and the
+                 grid copy's cast times, and the launch plans
+  8. checkpoint  infer_torch.py --reconstruct checkpoint over the 255^3
                  mhd_like volume: 64 kernel launches, field in [-1, 1],
                  on-device PSNR = float64 host PSNR to 1e-3 dB, kernel field
                  = plain field to 5e-5; voxels/s and the time split
-  8. binary      restore of tests/fixtures/golden_ref_container against its
+  9. binary      restore of tests/fixtures/golden_ref_container against its
                  recorded parameters, and a 64^3 reconstruction
-  9. queries     4 requests of 2^18 points through apply_model(train=False),
+ 10. queries     4 requests of 2^18 points through apply_model(train=False),
                  under each backend (queries, queries_mlp_pallas,
-                 queries_fused), against the plain versions of that path
- 10. train       train_torch.py on mhd_p_smallify.txt over the same volume,
+                 queries_fused), against the plain versions of that path;
+                 queries_bf16 (phase queries_bf16) likewise under
+                 compute_dtype='bfloat16', and queries_bf16_fused with
+                 interp_backend='fused'
+ 11. train       train_torch.py on mhd_p_smallify.txt over the same volume,
                  cut to max_pass = 3 (widths, batch and volume as published):
                  both phases, bake, prune, evaluation and export; each
                  kernel of the path launched once a step (the fetch also
@@ -65,8 +82,14 @@ one JSON line, in order:
                  exported container restores; the device idle share of 50
                  steps under torch.profiler.  Then train_mlp_pallas and
                  train_fused: the same under each kernel backend, PSNR
-                 within 1 dB of train's, samples/s beside train's
- 11. train_families  train_torch.py on each other gate family's published
+                 within 1 dB of train's, samples/s beside train's; and
+                 (phase train_bf16) train_bf16 and train_bf16_fused, the
+                 same under --compute_dtype bfloat16 (the 'bf16' fetch and
+                 gradient, the bf16 MLP chain on cuBLAS), and with
+                 --interp_backend fused (the one-kernel 'bf16' pair): each
+                 bf16 kernel once a step and the float32 fetch once an
+                 evaluation chunk, PSNR within 1 dB of train's
+ 12. train_families  train_torch.py on each other gate family's published
                  config, cut to max_pass = 3, default backend: train_
                  straight_through (mhd_p_masked_st.txt with --drop_type
                  straight_through), train_masked_straight_through,
@@ -77,19 +100,21 @@ one JSON line, in order:
                  PSNR finite, the container restores; PSNR, ratio, zeros and
                  samples/s a phase; the dynamic family also the profile of 50
                  steps
- 12. step_rates  the flagship step time of each backend without the
-                 profiler, 5 rounds of 100 steps, the backends in turns
- 13. kernels     one line {"kernels": [...]} for every ported kernel
+ 13. step_rates  the flagship step time of each backend (the bf16 paths
+                 too) without the profiler, 5 rounds of 100 steps, the
+                 backends in turns
+ 14. kernels     one line {"kernels": [...]} for every ported kernel
 
 Every count of launches is set to 0 just before a path is driven and read
 just after it.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
 
-``--only`` takes a comma-separated list of phases 2-12 (build, kernel,
-kernel_bwd, kernel_mlp, kernel_fused, checkpoint, binary, queries, train,
-train_families, step_rates) and runs the device phase and those, in the order above, with
-the same checks; the kernels line and the ok line need every phase, so a
+``--only`` takes a comma-separated list of phases 2-13 (build, kernel,
+kernel_bwd, kernel_mlp, kernel_fused, kernel_bf16, checkpoint, binary,
+queries, queries_bf16, train, train_bf16, train_families, step_rates) and
+runs the device phase and those, in the order above, with the same checks
+(train_bf16 without train compares no PSNR); the kernels line and the ok line need every phase, so a
 partial run prints neither (a quick loop on one kernel, never the smoke).
 """
 
@@ -129,8 +154,9 @@ from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
 from latent_feature_grid_compression_tpu_torch.ops import mlp_fused as mf
 from latent_feature_grid_compression_tpu_torch.ops.embedding import fourier_embed
 from latent_feature_grid_compression_tpu_torch.ops.interpolation import (
-    channel_minor, grid_sample_channel_minor, grid_sample_channel_minor_backward)
-from latent_feature_grid_compression_tpu_torch.ops.mlp import mlp_apply
+    channel_minor, grid_sample_channel_minor, grid_sample_channel_minor_backward,
+    grid_sample_channel_minor_backward_bf16, grid_sample_channel_minor_bf16)
+from latent_feature_grid_compression_tpu_torch.ops.mlp import mlp_apply, mlp_apply_bf16
 from latent_feature_grid_compression_tpu_torch.train import trainer as tr
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -174,12 +200,28 @@ GRAD_FLOOR = 1.0
 # the one-kernel forward in 'f32' against the fetch kernel + embedding + MLP
 # kernel route: the same arithmetic but torch's sin/cos for the embedding
 ROUTE_TOL = 1e-6
+# the 'bf16' fetch and gradient against their plain versions, relative to
+# max |.|: (share of entries, tolerance), and a bound on every entry.  The
+# plain versions round at the kernels' points and each product is exact, so
+# only the float32 order of a sum differs (none for the fetch, atomics for
+# the gradient); where a sum straddles a bf16 rounding boundary the rounded
+# value moves by one bf16 ulp (2^-8 of itself).  The gradient is held
+# against the plain version's terms summed in float64: two float32 orders
+# of the 4,096 adds an entry of a grid-4 gradient takes differ by up to
+# 1.3e-6 of max |dG| (measured on an H100), the plain version's own
+# rounding as much as the kernel's
+BF16_SHARE, BF16_TOL, BF16_MAX = 0.999, 1e-6, 4e-3
 PSNR_BACKEND_DB = 1.0  # a kernel backend's train-3 PSNR against the default's
 MLP_WIDTHS = ([128, 128, 128, 128, 4], [19, 24, 24, 3])
 # backends of the paths: make_spec options and train_torch.py flags
 BACKENDS = {'': ({}, []),
             '_mlp_pallas': (dict(mlp_backend='pallas'), ['--mlp_backend', 'pallas']),
-            '_fused': (dict(interp_backend='fused'), ['--interp_backend', 'fused'])}
+            '_fused': (dict(interp_backend='fused'), ['--interp_backend', 'fused']),
+            '_bf16': (dict(compute_dtype='bfloat16'), ['--compute_dtype', 'bfloat16']),
+            '_bf16_fused': (dict(interp_backend='fused', compute_dtype='bfloat16'),
+                            ['--interp_backend', 'fused', '--compute_dtype', 'bfloat16'])}
+# the bf16 compute path's backends (phases queries_bf16, train_bf16)
+BF16_BACKENDS = ('_bf16', '_bf16_fused')
 # at least ~10 ms of spinning at the H100's clock, and at least twice the
 # host's time to enqueue the calls of one timed run (measured in time_ms)
 SPIN_CYCLES = 20_000_000
@@ -192,15 +234,18 @@ def emit(obj):
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
-    gs.launches = gs.bwd_launches = 0
+    gs.launches = gs.bwd_launches = gs.bf16_launches = gs.bf16_bwd_launches = 0
     mf.launches = mf.bwd_launches = 0
-    ff.launches = ff.bwd_launches = 0
+    ff.launches = ff.bwd_launches = ff.bf16_launches = ff.bf16_bwd_launches = 0
 
 
 def read_counts():
     return {gs.KERNEL: gs.launches, gs.BWD_KERNEL: gs.bwd_launches,
             'mlp_fused_fwd': mf.launches, 'mlp_fused_bwd': mf.bwd_launches,
-            'fused_forward_fwd': ff.launches, 'fused_forward_bwd': ff.bwd_launches}
+            'fused_forward_fwd': ff.launches, 'fused_forward_bwd': ff.bwd_launches,
+            gs.BF16_KERNEL: gs.bf16_launches, gs.BF16_BWD_KERNEL: gs.bf16_bwd_launches,
+            'fused_forward_fwd_bf16': ff.bf16_launches,
+            'fused_forward_bwd_bf16': ff.bf16_bwd_launches}
 
 
 def only(launches):
@@ -247,11 +292,12 @@ def time_ms(fn, reps=25, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def fetch_bound_ms(n, C, D, H, W):
+def fetch_bound_ms(n, C, D, H, W, grid_bytes=4):
     """Least time for one fetch: the bytes it must move (coords read, output
-    written, grid read once) and its float32 operations (8 corners x C
-    FMAs, plus the pixel map and weights), whichever takes longer."""
-    nbytes = 4 * (n * (3 + C) + D * H * W * C)
+    written, grid read once at ``grid_bytes`` an element: 2 for the 'bf16'
+    mode's copy) and its float32 operations (8 corners x C FMAs, plus the
+    pixel map and weights), whichever takes longer."""
+    nbytes = 4 * n * (3 + C) + grid_bytes * D * H * W * C
     ops = n * (2 * 8 * C + 40)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
@@ -259,8 +305,9 @@ def fetch_bound_ms(n, C, D, H, W):
 
 def grad_bound_ms(n, C, D, H, W):
     """Least time for one grid gradient: the bytes it must move (coords and
-    g read, the gradient written once) and its float32 operations (8
-    corners x C multiply-adds, plus the pixel map and weights)."""
+    g read, the gradient written once; float32 in both modes) and its
+    float32 operations (8 corners x C multiply-adds, plus the pixel map and
+    weights)."""
     nbytes = n * (12 + 4 * C) + 4 * D * H * W * C
     ops = n * (2 * 8 * C + 40)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
@@ -635,12 +682,82 @@ def phase_kernel_mlp(model, grid_cl):
     return rows
 
 
+def fused_row(phase, case, grid, coords, ws, bs, nf, g, precision):
+    """The one-kernel forward and backward in ``precision`` against their
+    plain versions (dW, db also bitwise in a second call) and against the
+    fetch kernel + embedding + MLP kernel route of that precision; times of
+    kernel, plain version and library (the default route of that precision:
+    the fetch, ``fourier_embed``, ``torch.cat`` and the MLP as PyTorch ops,
+    the bf16 chain for 'bf16'), forward and forward + autograd backward."""
+    n = coords.shape[0]
+    D, H, W, C = grid.shape
+    dims = [3 + 6 * nf + C] + [w.shape[0] for w in ws]
+    fetch_precision = 'bf16' if precision == 'bf16' else 'f32'
+    with torch.no_grad():
+        out = ff.fused_forward_cuda(grid, coords, ws, bs, nf, precision)
+        dgrid, dws, dbs = ff.fused_forward_backward_cuda(grid, coords, ws, bs, nf, g, precision)
+        ref = ff.fused_forward_plain(grid, coords, ws, bs, nf, precision)
+        rdg, rdws, rdbs = ff.fused_forward_plain_backward(grid, coords, ws, bs, nf, g, precision)
+        _, dws2, dbs2 = ff.fused_forward_backward_cuda(grid, coords, ws, bs, nf, g, precision)
+        feats = (gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), coords)
+                 if precision == 'bf16' else gs.grid_sample_channel_minor_cuda(grid, coords))
+        route = mf.mlp_fused_cuda(ws, bs, torch.cat(
+            [coords, fourier_embed(coords, nf), feats], dim=-1),
+            'f32' if precision == 'f32' else 'bf16')
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        grad_err, grad_rel = compare_grads([dgrid] + dws + dbs, [rdg] + rdws + rdbs)
+        route_err = rel(out, route)
+    where = f'{case}, {precision}'
+    fwd_tol, grad_tol = MLP_TOL['f32' if precision == 'f32' else 'bf16']
+    check(all(bool(torch.isfinite(t).all()) for t in [out, dgrid] + dws + dbs),
+          f'non-finite fused output or gradient ({where})')
+    check(err <= fwd_tol * ref.abs().max().item(), f'fused forward vs plain {err} ({where})')
+    check(grad_rel <= grad_tol, f'fused backward vs plain {grad_rel} ({where})')
+    check(all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)),
+          f'fused dW, db differ in a second call ({where})')
+    route_tol = ROUTE_TOL if precision == 'f32' else fwd_tol
+    check(route_err <= route_tol, f'fused forward vs fetch + MLP kernels {route_err} ({where})')
+    bound, bound_by = mlp_bound_ms(n, dims, precision, fetch=(C, D, H, W))
+    bwd_bound, bwd_bound_by = mlp_bound_ms(n, dims, precision, backward=True,
+                                           fetch=(C, D, H, W))
+    chain = mlp_apply_bf16 if precision == 'bf16' else mlp_apply
+
+    def library(grid, *p):
+        x = torch.cat([coords, fourier_embed(coords, nf),
+                       gs.fetch(grid, coords, fetch_precision)], dim=-1)
+        return chain(p[:len(ws)], p[len(ws):], x)
+    with torch.no_grad():
+        times = {
+            'kernel_ms': time_ms(lambda: ff.fused_forward_cuda(
+                grid, coords, ws, bs, nf, precision)),
+            'plain_ms': time_ms(lambda: ff.fused_forward_plain(
+                grid, coords, ws, bs, nf, precision)),
+            'library_ms': time_ms(lambda: library(grid, *ws, *bs)),
+            'bwd_kernel_ms': time_ms(lambda: ff.fused_forward_backward_cuda(
+                grid, coords, ws, bs, nf, g, precision)),
+            'bwd_plain_ms': time_ms(lambda: ff.fused_forward_plain_backward(
+                grid, coords, ws, bs, nf, g, precision))}
+    times['bwd_library_ms'] = autograd_ms(library, [grid] + ws + bs, g)
+    row = {'phase': phase, 'case': case, 'grid': [D, H, W, C],
+           'dims': dims, 'n': n, 'precision': precision, 'max_abs_err': err,
+           'max_abs_output': ref.abs().max().item(),
+           'bwd_max_abs_err': grad_err, 'bwd_max_rel_err': grad_rel,
+           'vs_fetch_and_mlp_kernels_rel': route_err,
+           **times, 'bound_ms': bound, 'bound_by': bound_by,
+           'bwd_bound_ms': bwd_bound, 'bwd_bound_by': bwd_bound_by,
+           'fwd_launch': mf.fwd_plan(ff.KERNEL, dims, precision),
+           'bwd_launch': mf.bwd_plan(ff.KERNEL, dims, precision)}
+    emit(row)
+    return row
+
+
 def phase_kernel_fused(model, grid_cl):
-    """The one-kernel forward and backward against their plain versions
-    and the default route, on the flagship grid and weights at one train
-    step's batch (trainer positions, the main path's input, and uniform
-    coordinates with some out of range), and on a C = 8, 9^3 grid with a
-    3 x 16 MLP."""
+    """The one-kernel forward and backward ('mixed' and 'f32') against
+    their plain versions and the default route, on the flagship grid and
+    weights at one train step's batch (trainer positions, the main path's
+    input, and uniform coordinates with some out of range), and on a C = 8,
+    9^3 grid with a 3 x 16 MLP."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 4)
     n = TRAIN_BATCH
     nf = model.spec.n_freqs
@@ -655,70 +772,129 @@ def phase_kernel_fused(model, grid_cl):
               small_ws, small_bs)]
     rows = []
     for case, grid, coords, ws, bs in cases:
-        D, H, W, C = grid.shape
-        dims = [3 + 6 * nf + C] + [w.shape[0] for w in ws]
-        g = torch.randn((n, dims[-1]), device='cuda', generator=gen)
+        g = torch.randn((n, bs[-1].shape[0]), device='cuda', generator=gen)
         for precision in ('mixed', 'f32'):
-            with torch.no_grad():
-                out = ff.fused_forward_cuda(grid, coords, ws, bs, nf, precision)
-                dgrid, dws, dbs = ff.fused_forward_backward_cuda(
-                    grid, coords, ws, bs, nf, g, precision)
-                ref = ff.fused_forward_plain(grid, coords, ws, bs, nf, precision)
-                rdg, rdws, rdbs = ff.fused_forward_plain_backward(
-                    grid, coords, ws, bs, nf, g, precision)
-                _, dws2, dbs2 = ff.fused_forward_backward_cuda(
-                    grid, coords, ws, bs, nf, g, precision)
-                route = mf.mlp_fused_cuda(ws, bs, torch.cat(
-                    [coords, fourier_embed(coords, nf),
-                     gs.grid_sample_channel_minor_cuda(grid, coords)], dim=-1),
-                    'bf16' if precision == 'mixed' else 'f32')
-                torch.cuda.synchronize()
-                err = (out - ref).abs().max().item()
-                grad_err, grad_rel = compare_grads([dgrid] + dws + dbs, [rdg] + rdws + rdbs)
-                route_err = rel(out, route)
-            where = f'{case}, {precision}'
-            fwd_tol, grad_tol = MLP_TOL['bf16' if precision == 'mixed' else 'f32']
-            check(all(bool(torch.isfinite(t).all()) for t in [out, dgrid] + dws + dbs),
-                  f'non-finite fused output or gradient ({where})')
-            check(err <= fwd_tol * ref.abs().max().item(),
-                  f'fused forward vs plain {err} ({where})')
-            check(grad_rel <= grad_tol, f'fused backward vs plain {grad_rel} ({where})')
-            check(all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)),
-                  f'fused dW, db differ in a second call ({where})')
-            route_tol = ROUTE_TOL if precision == 'f32' else fwd_tol
-            check(route_err <= route_tol,
-                  f'fused forward vs fetch + MLP kernels {route_err} ({where})')
-            bound, bound_by = mlp_bound_ms(n, dims, precision, fetch=(C, D, H, W))
-            bwd_bound, bwd_bound_by = mlp_bound_ms(n, dims, precision, backward=True,
-                                                   fetch=(C, D, H, W))
+            rows.append(fused_row('kernel_fused', case, grid, coords, ws, bs, nf, g,
+                                  precision))
+    return rows
 
-            def library(grid, *p):
-                x = torch.cat([coords, fourier_embed(coords, nf), gs.fetch(grid, coords)],
-                              dim=-1)
-                return mlp_apply(p[:len(ws)], p[len(ws):], x)
-            with torch.no_grad():
-                times = {
-                    'kernel_ms': time_ms(lambda: ff.fused_forward_cuda(
-                        grid, coords, ws, bs, nf, precision)),
-                    'plain_ms': time_ms(lambda: ff.fused_forward_plain(
-                        grid, coords, ws, bs, nf, precision)),
-                    'library_ms': time_ms(lambda: library(grid, *ws, *bs)),
-                    'bwd_kernel_ms': time_ms(lambda: ff.fused_forward_backward_cuda(
-                        grid, coords, ws, bs, nf, g, precision)),
-                    'bwd_plain_ms': time_ms(lambda: ff.fused_forward_plain_backward(
-                        grid, coords, ws, bs, nf, g, precision))}
-            times['bwd_library_ms'] = autograd_ms(library, [grid] + ws + bs, g)
-            row = {'phase': 'kernel_fused', 'case': case, 'grid': [D, H, W, C],
-                   'dims': dims, 'n': n, 'precision': precision, 'max_abs_err': err,
-                   'max_abs_output': ref.abs().max().item(),
-                   'bwd_max_abs_err': grad_err, 'bwd_max_rel_err': grad_rel,
-                   'vs_fetch_and_mlp_kernels_rel': route_err,
-                   **times, 'bound_ms': bound, 'bound_by': bound_by,
-                   'bwd_bound_ms': bwd_bound, 'bwd_bound_by': bwd_bound_by,
-                   'fwd_launch': mf.fwd_plan(ff.KERNEL, dims, precision),
-                   'bwd_launch': mf.bwd_plan(ff.KERNEL, dims, precision)}
+
+def bf16_close(got, want):
+    """(share of entries within BF16_TOL * max |want|, max |got - want| over
+    max |want|, share of entries equal)."""
+    scale = max(want.abs().max().item(), 1e-30)
+    diff = (got - want).abs()
+    return ((diff <= BF16_TOL * scale).float().mean().item(), diff.max().item() / scale,
+            (diff == 0).float().mean().item())
+
+
+def check_bf16(got, want, what):
+    share, worst, _ = bf16_close(got, want)
+    check(bool(torch.isfinite(got).all()), f'non-finite output ({what})')
+    check(share >= BF16_SHARE and worst <= BF16_MAX,
+          f'{what}: {share} of entries within {BF16_TOL} of max |.|, worst {worst}')
+
+
+def phase_kernel_bf16(model, grid_cl):
+    """The 'bf16' fetch and gradient kernels against their plain versions at
+    the shapes of the bf16 compute path (the flagship on a lattice chunk
+    and on one train step's trainer positions) and at grid 23, C 5 and C 22
+    on 17^3; the gradient on both routes; then the one-kernel 'bf16'
+    forward and backward at the flagship (trainer positions)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    rows = []
+    lattice = lattice_chunk(VolumeMeta((VOLUME_N,) * 3), 32 * CHUNK, CHUNK,
+                            torch.device('cuda'))[0]
+    fwd_cases = [(16, 15, 'lattice', CHUNK), (16, 15, 'trainer', TRAIN_BATCH),
+                 (16, 23, 'uniform', CHUNK), (5, 15, 'uniform', CHUNK),
+                 (22, 17, 'trainer', TRAIN_BATCH)]
+    bwd_cases = [(16, 15, 'trainer', TRAIN_BATCH), (16, 4, 'uniform', TRAIN_BATCH),
+                 (16, 23, 'uniform', TRAIN_BATCH), (5, 15, 'uniform', TRAIN_BATCH),
+                 (22, 17, 'trainer', TRAIN_BATCH)]
+
+    def coords_of(kind, n):
+        if kind == 'lattice':
+            return lattice
+        if kind == 'trainer':
+            return trainer_positions(n, gen)
+        return torch.rand((n, 3), device='cuda', generator=gen) * 2.4 - 1.2
+    with torch.no_grad():
+        for C, G, kind, n in fwd_cases:
+            feats = torch.randn((C, G, G, G), device='cuda', generator=gen)
+            coords = coords_of(kind, n)
+            grid = channel_minor(feats)
+            grid16 = grid.to(torch.bfloat16)
+            out = gs.grid_sample_channel_minor_bf16_cuda(grid16, coords)
+            plain = grid_sample_channel_minor_bf16(grid, coords)
+            feats16, coords16 = feats.to(torch.bfloat16)[None], coords.to(torch.bfloat16)
+
+            def library():
+                return F.grid_sample(feats16, coords16.view(1, n, 1, 1, 3), mode='bilinear',
+                                     padding_mode='zeros', align_corners=False)
+            torch.cuda.synchronize()
+            case = f'bf16 fetch C={C}, G={G}, {kind} coords'
+            check_bf16(out, plain, case)
+            share, worst, equal = bf16_close(out, plain)
+            bound, bound_by = fetch_bound_ms(n, C, G, G, G, grid_bytes=2)
+            row = {'phase': 'kernel_bf16', 'name': gs.BF16_KERNEL, 'C': C, 'grid': G,
+                   'n': n, 'coords': kind, 'max_abs_err': (out - plain).abs().max().item(),
+                   'max_rel_err': worst, 'share_within_tol': share, 'share_equal': equal,
+                   'kernel_ms': time_ms(
+                       lambda: gs.grid_sample_channel_minor_bf16_cuda(grid16, coords)),
+                   'cast_ms': time_ms(lambda: grid.to(torch.bfloat16)),
+                   'plain_ms': time_ms(lambda: grid_sample_channel_minor_bf16(grid, coords)),
+                   'library_ms': time_ms(library),
+                   'bound_ms': bound, 'bound_by': bound_by,
+                   'plan': gs.fwd_plan(n, C, G, G, G, gs._vec8(C, grid16, out), 'bf16')}
             emit(row)
             rows.append(row)
+    for C, G, kind, n in bwd_cases:
+        coords = coords_of(kind, n)
+        grad = torch.randn((n, C), device='cuda', generator=gen)
+        with torch.no_grad():
+            out = gs.grid_sample_channel_minor_backward_bf16_cuda(grad, coords, G, G, G)
+            plain = grid_sample_channel_minor_backward_bf16(grad, coords, G, G, G)
+            exact = grid_sample_channel_minor_backward_bf16(grad, coords, G, G, G,
+                                                            torch.float64)
+        torch.cuda.synchronize()
+        case = f'bf16 gradient C={C}, G={G}, {kind} coords'
+        check_bf16(out.double(), exact, case)
+        share, worst, equal = bf16_close(out.double(), exact)
+        plain_share, plain_worst, _ = bf16_close(out, plain)
+        # the library: F.grid_sample's autograd backward on a bf16 input and grid
+        feats16 = torch.zeros((1, C, G, G, G), device='cuda', dtype=torch.bfloat16,
+                              requires_grad=True)
+        coords16 = coords.to(torch.bfloat16).view(1, n, 1, 1, 3)
+        grad16 = grad.t().reshape(1, C, n, 1, 1).to(torch.bfloat16)
+
+        def library():
+            torch.autograd.grad(F.grid_sample(feats16, coords16, mode='bilinear',
+                                              padding_mode='zeros', align_corners=False),
+                                feats16, grad16)
+        bound, bound_by = grad_bound_ms(n, C, G, G, G)
+        with torch.no_grad():
+            row = {'phase': 'kernel_bf16', 'name': gs.BF16_BWD_KERNEL, 'C': C, 'grid': G,
+                   'n': n, 'coords': kind,
+                   'max_abs_err': (out.double() - exact).abs().max().item(),
+                   'max_abs_dG': plain.abs().max().item(), 'max_rel_err': worst,
+                   'share_within_tol': share, 'share_equal_float64_sum': equal,
+                   'vs_float32_plain': {'max_rel_err': plain_worst,
+                                        'share_within_tol': plain_share},
+                   'kernel_ms': time_ms(lambda: gs.grid_sample_channel_minor_backward_bf16_cuda(
+                       grad, coords, G, G, G)),
+                   'plain_ms': time_ms(lambda: grid_sample_channel_minor_backward_bf16(
+                       grad, coords, G, G, G))}
+        row.update({'library_ms': time_ms(library), 'bound_ms': bound, 'bound_by': bound_by,
+                    'plan': gs.bwd_plan(n, C, G, G, G, gs._vec4(C, grad, out), 'bf16')})
+        emit(row)
+        rows.append(row)
+    routes = {r['plan']['route'] for r in rows if r['name'] == gs.BF16_BWD_KERNEL}
+    check(routes == {'shared', 'global'}, f'bf16 gradient cases took the routes {routes} only')
+    ws, bs = [w.detach() for w in model.mlp_w], [b.detach() for b in model.mlp_b]
+    g = torch.randn((TRAIN_BATCH, bs[-1].shape[0]), device='cuda', generator=gen)
+    rows.append(fused_row('kernel_bf16', 'flagship, trainer coords', grid_cl.detach(),
+                          trainer_positions(TRAIN_BATCH, gen), ws, bs, model.spec.n_freqs,
+                          g, 'bf16'))
     return rows
 
 
@@ -853,8 +1029,14 @@ def plain_predict_backend(model, grid_cl, coords):
     """The plain versions of the kernels of the model's backends."""
     spec = model.spec
     ws, bs = list(model.mlp_w), list(model.mlp_b)
+    bf16 = spec.compute_dtype == 'bfloat16'
     if spec.interp_backend == 'fused':
-        out = ff.fused_forward_plain(grid_cl, coords, ws, bs, spec.n_freqs, 'mixed')
+        out = ff.fused_forward_plain(grid_cl, coords, ws, bs, spec.n_freqs,
+                                     'bf16' if bf16 else 'mixed')
+    elif bf16:
+        x = torch.cat([coords, fourier_embed(coords, spec.n_freqs),
+                       grid_sample_channel_minor_bf16(grid_cl, coords)], dim=-1)
+        out = mlp_apply_bf16(ws, bs, x)
     elif spec.mlp_backend == 'pallas':
         x = torch.cat([coords, fourier_embed(coords, spec.n_freqs),
                        grid_sample_channel_minor(grid_cl, coords)], dim=-1)
@@ -887,7 +1069,9 @@ def phase_queries(model, suffix=''):
     k = len(reqs)
     want = only({'': {gs.KERNEL: k},
                  '_mlp_pallas': {gs.KERNEL: k, 'mlp_fused_fwd': k},
-                 '_fused': {'fused_forward_fwd': k}}[suffix])
+                 '_fused': {'fused_forward_fwd': k},
+                 '_bf16': {gs.BF16_KERNEL: k},
+                 '_bf16_fused': {'fused_forward_fwd_bf16': k}}[suffix])
     check(counts == want, f'{path} launched {counts}, expected {want}')
     grid_cl = channel_minor(decode_volume(qmodel))
     err = max((o - plain_predict_backend(qmodel, grid_cl, p)).abs().max().item()
@@ -906,10 +1090,12 @@ def phase_queries(model, suffix=''):
     return counts
 
 
-# kernels by the names the profiler gives them
-PROFILED_KERNELS = ('grid_sample_fwd', 'grid_sample_bwd', 'mlp_fwd_kernel',
-                    'mlp_bwd_kernel', 'fused_fwd_kernel', 'fused_bwd_kernel',
-                    'reduce_slots_kernel')
+# kernels by the names the profiler gives them (the gradient's two modes are
+# instantiations of its kernels, both under 'grid_sample_bwd'; the one-kernel
+# pair's 'mixed' and 'bf16' run the same kernels)
+PROFILED_KERNELS = ('grid_sample_fwd_kernel', 'grid_sample_fwd_bf16_kernel',
+                    'grid_sample_bwd', 'mlp_fwd_kernel', 'mlp_bwd_kernel',
+                    'fused_fwd_kernel', 'fused_bwd_kernel', 'reduce_slots_kernel')
 
 
 def flagship_steps(suffix, steps, warmup=5, config=FLAGSHIP_CONFIG):
@@ -1036,13 +1222,17 @@ def phase_train(tmp, vol_path, suffix='', default=None, family=None):
         os.chdir(cwd)
     exp = os.path.join(tmp, path)
     steps = info['train_phase1_steps'] + info['train_phase2_steps']
-    # each kernel of the path once a step; the final evaluation (the fetch
-    # and the plain MLP whatever the backend) fetches once a chunk
+    # each kernel of the path once a step; the final evaluation (the float32
+    # fetch and the plain MLP whatever the backend) fetches once a chunk
     want = only({'': {gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps},
                  '_mlp_pallas': {gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps,
                                  'mlp_fused_fwd': steps, 'mlp_fused_bwd': steps},
                  '_fused': {gs.KERNEL: n_chunks, 'fused_forward_fwd': steps,
-                            'fused_forward_bwd': steps}}[suffix])
+                            'fused_forward_bwd': steps},
+                 '_bf16': {gs.KERNEL: n_chunks, gs.BF16_KERNEL: steps,
+                           gs.BF16_BWD_KERNEL: steps},
+                 '_bf16_fused': {gs.KERNEL: n_chunks, 'fused_forward_fwd_bf16': steps,
+                                 'fused_forward_bwd_bf16': steps}}[suffix])
     check(steps > 0 and counts == want,
           f'{path} took {steps} steps and launched {counts}, expected {want}')
     for ph in (1, 2):
@@ -1115,8 +1305,9 @@ def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
     return out
 
 
-PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'checkpoint',
-          'binary', 'queries', 'train', 'train_families', 'step_rates')
+PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'kernel_bf16',
+          'checkpoint', 'binary', 'queries', 'queries_bf16', 'train', 'train_bf16',
+          'train_families', 'step_rates')
 
 
 def parse_args(argv):
@@ -1153,23 +1344,33 @@ def main(argv=None):
     mlp_rows = phase_kernel_mlp(flagship_model, flagship_grid) if want('kernel_mlp') else None
     fused_rows = (phase_kernel_fused(flagship_model, flagship_grid)
                   if want('kernel_fused') else None)
+    bf16_rows = (phase_kernel_bf16(flagship_model, flagship_grid)
+                 if want('kernel_bf16') else None)
     path_counts = {}
     model = flagship_model   # the checkpoint phase's model: the same seed
     tmp = tempfile.mkdtemp(prefix='lfgc_chip_smoke_')
     try:
         vol_path = os.path.join(tmp, 'mhd_like.npy')
-        if want('checkpoint') or want('train') or want('train_families'):
+        if want('checkpoint') or want('train') or want('train_bf16') or \
+                want('train_families'):
             np.save(vol_path, synth_volume(VOLUME_N, seed=1, octaves=6))
         if want('checkpoint'):
             _, model, path_counts['decompress'] = phase_checkpoint(tmp, vol_path)
         if want('binary'):
             path_counts['binary'] = phase_binary()
-        if want('queries'):
-            for suffix in BACKENDS:
-                path_counts['queries' + suffix] = phase_queries(model, suffix)
+        for phase, suffixes in (('queries', ('', '_mlp_pallas', '_fused')),
+                                ('queries_bf16', BF16_BACKENDS)):
+            if want(phase):
+                for suffix in suffixes:
+                    path_counts['queries' + suffix] = phase_queries(model, suffix)
+        default = None
         if want('train'):
             default, path_counts['train'] = phase_train(tmp, vol_path)
             for suffix in ('_mlp_pallas', '_fused'):
+                _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
+                                                               default)
+        if want('train_bf16'):
+            for suffix in BF16_BACKENDS:
                 _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
                                                                default)
         if want('train_families'):
@@ -1193,6 +1394,15 @@ def main(argv=None):
     mlp = next(r for r in mlp_rows if r['case'] == 'flagship' and r['precision'] == 'bf16')
     fused = next(r for r in fused_rows if r['case'] == 'flagship, trainer coords'
                  and r['precision'] == 'mixed')
+    bf16_fetch = [r for r in bf16_rows if r.get('name') == gs.BF16_KERNEL]
+    bf16_grad = [r for r in bf16_rows if r.get('name') == gs.BF16_BWD_KERNEL]
+    bf16_fused = next(r for r in bf16_rows if r.get('precision') == 'bf16')
+
+    def flagship_bf16(rows, kind):
+        return next(r for r in rows if r['C'] == 16 and r['grid'] == 15 and r['coords'] == kind)
+    bf16_trainer = flagship_bf16(bf16_fetch, 'trainer')
+    bf16_lattice = flagship_bf16(bf16_fetch, 'lattice')
+    bf16_grad_trainer = flagship_bf16(bf16_grad, 'trainer')
 
     def numbers(row, prefix=''):
         return {'ms': row[prefix + 'kernel_ms'], 'plain_ms': row[prefix + 'plain_ms'],
@@ -1246,7 +1456,47 @@ def main(argv=None):
                      library='the default route forward + autograd backward '
                              '(fetch and gradient kernels, cuBLAS)',
                      shape={'n': fused['n'], 'dims': fused['dims'], 'grid': fused['grid'],
-                            'precision': 'mixed'}, launch=fused['bwd_launch'])]})
+                            'precision': 'mixed'}, launch=fused['bwd_launch']),
+        kernel_entry(gs.BF16_KERNEL, 'grid_sample_fwd.cu', 'pallas_kernels.py:135',
+                     'pallas_kernels.py:158', path_counts, 'train_bf16',
+                     max_abs_err=max(r['max_abs_err'] for r in bf16_fetch),
+                     max_abs_err_relative=max(r['max_rel_err'] for r in bf16_fetch),
+                     **numbers(bf16_trainer), cast_ms=bf16_trainer['cast_ms'],
+                     library='F.grid_sample on a bf16 input and grid',
+                     shape={'n': bf16_trainer['n'], 'C': 16, 'grid': 15, 'coords': 'trainer',
+                            'precision': 'bf16'}, plan=bf16_trainer['plan'],
+                     lattice={**numbers(bf16_lattice), 'n': bf16_lattice['n'],
+                              'plan': bf16_lattice['plan']},
+                     cases={f"C{r['C']} G{r['grid']} {r['coords']}": numbers(r)
+                            for r in bf16_fetch}),
+        kernel_entry(gs.BF16_BWD_KERNEL, 'grid_sample_bwd.cu', 'pallas_kernels.py:142',
+                     'pallas_kernels.py:182', path_counts, 'train_bf16',
+                     max_abs_err=max(r['max_abs_err'] for r in bf16_grad),
+                     max_abs_err_relative=max(r['max_rel_err'] for r in bf16_grad),
+                     **numbers(bf16_grad_trainer),
+                     library='F.grid_sample autograd backward on a bf16 input and grid',
+                     shape={'n': bf16_grad_trainer['n'], 'C': 16, 'grid': 15,
+                            'coords': 'trainer', 'precision': 'bf16'},
+                     plan=bf16_grad_trainer['plan'],
+                     cases={f"C{r['C']} G{r['grid']} {r['coords']}":
+                            {**numbers(r), 'route': r['plan']['route']} for r in bf16_grad}),
+        kernel_entry('fused_forward_fwd_bf16', 'fused_forward.cu', 'fused_forward.py:113',
+                     None, path_counts, 'train_bf16_fused',
+                     max_abs_err=bf16_fused['max_abs_err'], **numbers(bf16_fused),
+                     library="the default bf16 route: fetch ('bf16' kernel) + fourier_embed "
+                             "+ torch.cat + mlp_apply_bf16 (cuBLAS)",
+                     shape={'n': bf16_fused['n'], 'dims': bf16_fused['dims'],
+                            'grid': bf16_fused['grid'], 'precision': 'bf16'},
+                     launch=bf16_fused['fwd_launch']),
+        kernel_entry('fused_forward_bwd_bf16', 'fused_forward.cu', 'fused_forward.py:129',
+                     None, path_counts, 'train_bf16_fused',
+                     max_abs_err=bf16_fused['bwd_max_abs_err'],
+                     max_abs_err_relative=bf16_fused['bwd_max_rel_err'],
+                     **numbers(bf16_fused, 'bwd_'),
+                     library='the default bf16 route forward + autograd backward',
+                     shape={'n': bf16_fused['n'], 'dims': bf16_fused['dims'],
+                            'grid': bf16_fused['grid'], 'precision': 'bf16'},
+                     launch=bf16_fused['bwd_launch'])]})
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}),
         flush=True)

@@ -66,11 +66,13 @@ class TrainConfig:
                                     # 'space' (ZeRO-style grid-tile sharding)
     mesh_local_decode: int = 0      # 1: each device decodes only its grid
                                     # x-tile (+halo)
-    compute_dtype: str = 'float32'
+    compute_dtype: str = 'float32'  # 'bfloat16': the bf16 compute path
+                                    # (the fetch in 'bf16', the bf16 MLP
+                                    # chain, the one-kernel forward in 'bf16')
     interp_backend: str = 'auto'    # 'auto' | 'xla' | 'pallas': the fetch
-                                    # kernels; 'fused': one kernel for fetch,
-                                    # embedding and MLP; 'pallas_bf16': not
-                                    # yet ported
+                                    # kernels; 'pallas_bf16': the fetch
+                                    # kernels in 'bf16'; 'fused': one kernel
+                                    # for fetch, embedding and MLP
     mlp_backend: str = 'xla'        # 'xla': the MLP as PyTorch ops;
                                     # 'pallas': the fused MLP kernels
     rng_impl: str = 'rbg'           # the JAX package's key type; the port

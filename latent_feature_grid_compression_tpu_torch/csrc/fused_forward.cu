@@ -36,7 +36,14 @@
 //
 // Precision: `bf16` set is the TPU kernel's 'mixed' (the fetch and the
 // routing into dG in float32, the MLP's products on bfloat16 operands);
-// unset, everything is float32.  sinf/cosf, not the fast intrinsics: the
+// unset, everything is float32.  `interp_bf16` set with `bf16` is the TPU
+// kernel's 'bf16': the MLP half as in 'mixed', the fetch of x0's feature
+// columns and the routing of dX into dG by trilinear.cuh's 'bf16' formulas
+// (lfgc::fetch_channels, lfgc::grad_term: the same code as the 'bf16' fetch
+// and gradient kernels, so the features equal grid_sample_fwd.cu's 'bf16'
+// output bit for bit; the grid's float32 values are rounded to bf16 as
+// they are loaded).  The mode reaches the kernels in Grid::bf16, a branch
+// taken alike by every thread.  sinf/cosf, not the fast intrinsics: the
 // Fourier arguments reach 2^(n_freqs-1) * 2 pi * |coord|.
 
 #include <cuda_runtime.h>
@@ -53,6 +60,7 @@ using namespace lfgc;
 struct Grid {
   const float* data;  // (D, H, W, C)
   int C, D, H, W;
+  int bf16;           // the interpolation in 'bf16' (else float32)
 };
 
 // float32(2^j * 2 pi), as the plain version's np.float32(2**j * 2 * pi).
@@ -106,8 +114,10 @@ __device__ void build_x0(float* a, int P, const float* __restrict__ coords,
 // plan p (zeros past n).  The embedding one entry a thread, as build_x0; the
 // features one thread a sample and 4 channels, which finds the cell and its
 // corner weights once for the 4 and loads them together (one float4 where
-// the grid allows).  Each channel is the fetch kernel's fmaf chain over the
-// corners in the same order, so the features equal its output bit for bit.
+// the grid allows).  Each channel is computed by the fetch kernels' code in
+// the mode IBF16 (lfgc::fetch_channels), so the features equal their output
+// bit for bit.
+template <bool IBF16>
 __device__ void build_x0_tc(const TcPlan& p, unsigned char* smem,
                             const float* __restrict__ coords, const Grid& g, int n_freqs,
                             int64_t row0, int64_t n) {
@@ -125,22 +135,23 @@ __device__ void build_x0_tc(const TcPlan& p, unsigned char* smem,
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (r < n) {
       const float* c = coords + 3 * r;
-      for_each_corner(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
-                      [&](int64_t row, float w) {
-                        const float* src = g.data + row * C + c0;
-                        if (vec4) {
-                          const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-                          acc[0] = fmaf(w, v.x, acc[0]);
-                          acc[1] = fmaf(w, v.y, acc[1]);
-                          acc[2] = fmaf(w, v.z, acc[2]);
-                          acc[3] = fmaf(w, v.w, acc[3]);
-                        } else {
+      fetch_channels<IBF16>(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
+                            [&](int64_t row, float* v) {
+                              const float* src = g.data + row * C + c0;
+                              if (vec4) {
+                                const float4 f = __ldg(reinterpret_cast<const float4*>(src));
+                                v[0] = f.x;
+                                v[1] = f.y;
+                                v[2] = f.z;
+                                v[3] = f.w;
+                              } else {
 #pragma unroll
-                          for (int k = 0; k < 4; ++k) {
-                            if (c0 + k < C) acc[k] = fmaf(w, __ldg(src + k), acc[k]);
-                          }
-                        }
-                      });
+                                for (int k = 0; k < 4; ++k) {
+                                  v[k] = c0 + k < C ? __ldg(src + k) : 0.0f;
+                                }
+                              }
+                            },
+                            acc);
     }
     bf16* d = x0 + s * P0 + emb + c0;
 #pragma unroll
@@ -184,13 +195,19 @@ fused_fwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ Tc
     const int64_t row0 = t * p.S;
     __syncthreads();  // the previous tile's readers are done
     tc_zero_x0_pad(m, p, base);   // a later layer's h shares h_0's buffer
-    build_x0_tc(p, base, coords, g, n_freqs, row0, n);
+    if (g.bf16) {
+      build_x0_tc<true>(p, base, coords, g, n_freqs, row0, n);
+    } else {
+      build_x0_tc<false>(p, base, coords, g, n_freqs, row0, n);
+    }
     tile_forward_tc(m, p, base, out, row0, n);
   }
 }
 
 // Routes the feature columns of dX (pitch P) into dG through the corner
-// weights, by atomics.
+// weights, by atomics, in the mode IBF16 (lfgc::grad_term, the gradient
+// kernels' terms).
+template <bool IBF16>
 __device__ void route_dx(const float* dx, int P, int emb, const Grid& g,
                          const float* __restrict__ coords, float* __restrict__ dgrid,
                          int S, int64_t row0, int64_t n) {
@@ -200,10 +217,10 @@ __device__ void route_dx(const float* dx, int P, int emb, const Grid& g,
     if (r >= n) continue;
     const float v = dx[s * P + emb + ch];
     const float* c = coords + 3 * r;
-    for_each_corner(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
-                    [&](int64_t row, float w) {
-                      atomicAdd(dgrid + row * g.C + ch, __fmul_rn(w, v));
-                    });
+    for_each_corner_split(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
+                          [&](int64_t row, float wxy, float wz) {
+                            atomicAdd(dgrid + row * g.C + ch, grad_term<IBF16>(wxy, wz, v));
+                          });
   }
 }
 
@@ -229,7 +246,7 @@ fused_bwd_kernel(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p
       dz[s * P + o] = row0 + s < n ? gout[(row0 + s) * D + o] : 0.0f;
     }
     const float* dx = tile_backward<BF16>(m, smem, S, slot, t == blockIdx.x);
-    route_dx(dx, P, emb, g, coords, dgrid, S, row0, n);
+    route_dx<false>(dx, P, emb, g, coords, dgrid, S, row0, n);
   }
 }
 
@@ -253,10 +270,18 @@ fused_bwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ Tc
   for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int64_t row0 = t * p.S;
     __syncthreads();  // the previous tile's readers are done
-    build_x0_tc(p, base, coords, g, n_freqs, row0, n);
+    if (g.bf16) {
+      build_x0_tc<true>(p, base, coords, g, n_freqs, row0, n);
+    } else {
+      build_x0_tc<false>(p, base, coords, g, n_freqs, row0, n);
+    }
     tc_load_grad(m, p, base, gout, row0, n);
     const float* dx = tile_backward_tc(m, p, base, acc);
-    route_dx(dx, P0, emb, g, coords, dgrid, p.S, row0, n);
+    if (g.bf16) {
+      route_dx<true>(dx, P0, emb, g, coords, dgrid, p.S, row0, n);
+    } else {
+      route_dx<false>(dx, P0, emb, g, coords, dgrid, p.S, row0, n);
+    }
   }
   tc_end(m, p, base, acc, slot);
 }
@@ -296,13 +321,16 @@ cudaError_t launch_bwd(const Mlp& m, const Grid& g, const float* coords,
   return launch_reduce_slots(partial, dparams, m.total, b.blocks, stream);
 }
 
+// The kernels' arguments; false where they do not fit, or where the
+// interpolation is asked for in bf16 with a float32 MLP (no TPU mode).
 bool make_args(Mlp* m, Grid* g, const void* grid, const void* const* w,
                const void* const* b, const int* dims, int nw, int C, int D, int H,
-               int W, int n_freqs) {
+               int W, int n_freqs, int bf16, int interp_bf16) {
   if (!make_mlp(m, w, b, dims, nw) || n_freqs < 0 || C < 1 || D < 1 || H < 1 ||
-      W < 1 || dims[0] != 3 + 6 * n_freqs + C) {
+      W < 1 || dims[0] != 3 + 6 * n_freqs + C || (interp_bf16 && !bf16)) {
     return false;
   }
+  g->bf16 = interp_bf16 != 0;
   g->data = static_cast<const float*>(grid);
   g->C = C;
   g->D = D;
@@ -316,18 +344,19 @@ bool make_args(Mlp* m, Grid* g, const void* grid, const void* const* w,
 // Plain C entries for ctypes.  Pointers are device pointers except `w`, `b`
 // (host arrays of nw device pointers, one per layer) and `dims` (host array
 // of nw + 1 widths, dims[0] = 3 + 6 n_freqs + C); the launcher copies them
-// into the kernel's by-value parameters.  Each returns the CUDA error of its
-// launches (0 on success).
+// into the kernel's by-value parameters.  `bf16` and `interp_bf16` give the
+// precision: 'f32' (0, 0), 'mixed' (1, 0) or 'bf16' (1, 1).  Each returns
+// the CUDA error of its launches (0 on success).
 
 // out (n, dims[nw]) from the channel-minor grid (D, H, W, C) at coords (n, 3).
 extern "C" int lfgc_fused_forward_fwd(const void* grid, const void* coords,
                                       const void* const* w, const void* const* b,
                                       const int* dims, int nw, void* out, int64_t n,
                                       int C, int D, int H, int W, int n_freqs,
-                                      int bf16, void* stream) {
+                                      int bf16, int interp_bf16, void* stream) {
   Mlp m;
   Grid g;
-  if (!make_args(&m, &g, grid, w, b, dims, nw, C, D, H, W, n_freqs)) {
+  if (!make_args(&m, &g, grid, w, b, dims, nw, C, D, H, W, n_freqs, bf16, interp_bf16)) {
     return int(cudaErrorInvalidValue);
   }
   if (n <= 0) return int(cudaSuccess);
@@ -379,10 +408,11 @@ extern "C" int lfgc_fused_forward_bwd(const void* grid, const void* coords,
                                       const int* dims, int nw, const void* gout,
                                       void* dgrid, void* dparams, void* partial,
                                       int64_t n, int C, int D, int H, int W,
-                                      int n_freqs, int bf16, void* stream) {
+                                      int n_freqs, int bf16, int interp_bf16,
+                                      void* stream) {
   Mlp m;
   Grid g;
-  if (!make_args(&m, &g, grid, w, b, dims, nw, C, D, H, W, n_freqs)) {
+  if (!make_args(&m, &g, grid, w, b, dims, nw, C, D, H, W, n_freqs, bf16, interp_bf16)) {
     return int(cudaErrorInvalidValue);
   }
   if (n <= 0) return int(cudaSuccess);

@@ -60,6 +60,13 @@
 // forward and the one-kernel forward); they round exactly as the plain
 // PyTorch version does.  Launches allocate nothing and do not synchronise;
 // the card's limits are queried once a card.
+//
+// The 'bf16' mode (the TPU kernels' precision='bf16', the bf16 compute
+// path) is the BF16 instantiation of both routes' kernels: each corner adds
+// trilinear.cuh's 'bf16' term bf16(wxy) * bf16(wz * bf16(g)) (lfgc::
+// grad_term), an exact product, so the float32 sums differ from the plain
+// version's only in their order, as in 'f32'.  g and dG stay float32; the
+// route and the launch are chosen as in 'f32'.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,7 +81,7 @@ constexpr int kSharedThreads = 1024;   // shared route: one block fills an SM's 
 // the shared route's least adds an address on the global route (8N / rows)
 constexpr int64_t kSharedMinAdds = 1024;
 
-template <bool VEC4>
+template <bool VEC4, bool BF16>
 __global__ void __launch_bounds__(kThreads)
 grid_sample_bwd_kernel(const float* __restrict__ g,       // (N, C)
                        const float* __restrict__ coords,  // (N, 3)
@@ -98,20 +105,23 @@ grid_sample_bwd_kernel(const float* __restrict__ g,       // (N, C)
     gv[0] = __ldg(g + i * int64_t(C) + c);
   }
 
-  lfgc::for_each_corner(cell, D, H, W, [&](int64_t r, float w) {
+  lfgc::for_each_corner_split(cell, D, H, W, [&](int64_t r, float wxy, float wz) {
     float* dst = dgrid + r * int64_t(C) + c;
     if (VEC4) {
       atomicAdd(reinterpret_cast<float4*>(dst),
-                make_float4(__fmul_rn(w, gv[0]), __fmul_rn(w, gv[1]),
-                            __fmul_rn(w, gv[2]), __fmul_rn(w, gv[3])));
+                make_float4(lfgc::grad_term<BF16>(wxy, wz, gv[0]),
+                            lfgc::grad_term<BF16>(wxy, wz, gv[1]),
+                            lfgc::grad_term<BF16>(wxy, wz, gv[2]),
+                            lfgc::grad_term<BF16>(wxy, wz, gv[3])));
     } else {
-      atomicAdd(dst, __fmul_rn(w, gv[0]));
+      atomicAdd(dst, lfgc::grad_term<BF16>(wxy, wz, gv[0]));
     }
   });
 }
 
 // The shared route: the block's shared memory holds dG, rows `pitch` floats
 // apart.  `vec4`: the flush may add float4s (C % 4 == 0, dG 16-byte aligned).
+template <bool BF16>
 __global__ void __launch_bounds__(kSharedThreads, 1)
 grid_sample_bwd_shared_kernel(const float* __restrict__ g,       // (N, C)
                               const float* __restrict__ coords,  // (N, 3)
@@ -133,8 +143,8 @@ grid_sample_bwd_shared_kernel(const float* __restrict__ g,       // (N, C)
                                             __ldg(coords + 3 * i + 2), D, H, W);
       for (int c = sub; c < C; c += Lw) {
         const float gv = __ldg(g + i * C + c);
-        lfgc::for_each_corner(cell, D, H, W, [&](int64_t r, float w) {
-          atomicAdd(sum + int(r) * pitch + c, __fmul_rn(w, gv));
+        lfgc::for_each_corner_split(cell, D, H, W, [&](int64_t r, float wxy, float wz) {
+          atomicAdd(sum + int(r) * pitch + c, lfgc::grad_term<BF16>(wxy, wz, gv));
         });
       }
     }
@@ -155,8 +165,8 @@ grid_sample_bwd_shared_kernel(const float* __restrict__ g,       // (N, C)
 }
 
 // The current card's SMs and the shared memory a block may opt into, queried
-// once a card; the first query also lets the shared-route kernel take all of
-// it, so that every shape whose dG fits launches.
+// once a card; the first query also lets the shared-route kernel (both
+// modes) take all of it, so that every shape whose dG fits launches.
 cudaError_t card_limits(int* sms, int* optin) {
   static lfgc::PerCard cache;
   return lfgc::per_card(cache, sms, optin, [](int* s, int* o) {
@@ -166,7 +176,10 @@ cudaError_t card_limits(int* sms, int* optin) {
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     }
-    if (err == cudaSuccess) err = lfgc::allow_smem(grid_sample_bwd_shared_kernel, size_t(*o));
+    if (err == cudaSuccess) {
+      err = lfgc::allow_smem(grid_sample_bwd_shared_kernel<false>, size_t(*o));
+    }
+    if (err == cudaSuccess) err = lfgc::allow_smem(grid_sample_bwd_shared_kernel<true>, size_t(*o));
     return err;
   });
 }
@@ -205,57 +218,84 @@ cudaError_t plan_of(int64_t n, int C, int D, int H, int W, bool vec4, Plan* p) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Plain C entry for ctypes.  Pointers are device pointers; `dgrid` must be
-// zeroed by the caller.  `vec4` asks for float4 loads and atomics and
-// requires C % 4 == 0 with 16-byte aligned g and dgrid (the wrapper checks).
-// The route comes from the shape and n (plan_of).  Returns the first CUDA
-// error of the plan or cudaGetLastError() right after the launch.
-extern "C" int lfgc_grid_sample_bwd_f32(const void* g, const void* coords,
-                                        void* dgrid, int64_t n, int C, int D,
-                                        int H, int W, int vec4, void* stream) {
-  if (n <= 0 || C <= 0) return int(cudaSuccess);
+// The gradient in a mode: the route from plan_of, then its kernel.
+template <bool BF16>
+cudaError_t launch(const void* g, const void* coords, void* dgrid, int64_t n, int C,
+                   int D, int H, int W, int vec4, void* stream) {
+  if (n <= 0 || C <= 0) return cudaSuccess;
   Plan p;
   const cudaError_t err = plan_of(n, C, D, H, W, vec4 != 0, &p);
-  if (err != cudaSuccess) return int(err);
+  if (err != cudaSuccess) return err;
   const float* gp = static_cast<const float*>(g);
   const float* c = static_cast<const float*>(coords);
   float* d = static_cast<float*>(dgrid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.shared) {
-    grid_sample_bwd_shared_kernel<<<p.blocks, kSharedThreads, p.smem, s>>>(
+    grid_sample_bwd_shared_kernel<BF16><<<p.blocks, kSharedThreads, p.smem, s>>>(
         gp, c, d, n, C, D, H, W, p.pitch, vec4);
   } else if (vec4) {
-    grid_sample_bwd_kernel<true><<<p.blocks, kThreads, 0, s>>>(gp, c, d, n, C, D, H, W);
+    grid_sample_bwd_kernel<true, BF16><<<p.blocks, kThreads, 0, s>>>(gp, c, d, n, C, D, H, W);
   } else {
-    grid_sample_bwd_kernel<false><<<p.blocks, kThreads, 0, s>>>(gp, c, d, n, C, D, H, W);
+    grid_sample_bwd_kernel<false, BF16><<<p.blocks, kThreads, 0, s>>>(gp, c, d, n, C, D, H, W);
   }
-  return int(cudaGetLastError());
+  return cudaGetLastError();
 }
 
-// For reports, the gradient's launch for n samples of this shape on the
-// current card: out = [route (1 shared, 0 global), threads a block, blocks
-// an SM, blocks, samples a warp step, channels a lane, shared bytes a block
-// (0 on the global route)].
-extern "C" int lfgc_grid_sample_bwd_plan(int64_t n, int C, int D, int H, int W,
-                                         int vec4, int* out) {
-  if (C <= 0) return int(cudaErrorInvalidValue);
+// The launch report of a mode (see lfgc_grid_sample_bwd_plan).
+template <bool BF16>
+cudaError_t report(int64_t n, int C, int D, int H, int W, int vec4, int* out) {
+  if (C <= 0) return cudaErrorInvalidValue;
   Plan p;
   int per_sm = 0, sms = 0;
   cudaError_t err = plan_of(n, C, D, H, W, vec4 != 0, &p);
   if (err == cudaSuccess) {
-    err = p.shared ? lfgc::occupancy(grid_sample_bwd_shared_kernel, kSharedThreads,
+    err = p.shared ? lfgc::occupancy(grid_sample_bwd_shared_kernel<BF16>, kSharedThreads,
                                      size_t(p.smem), &per_sm, &sms)
-          : vec4 ? lfgc::occupancy(grid_sample_bwd_kernel<true>, kThreads, 0, &per_sm, &sms)
-                 : lfgc::occupancy(grid_sample_bwd_kernel<false>, kThreads, 0, &per_sm, &sms);
+          : vec4 ? lfgc::occupancy(grid_sample_bwd_kernel<true, BF16>, kThreads, 0, &per_sm,
+                                   &sms)
+                 : lfgc::occupancy(grid_sample_bwd_kernel<false, BF16>, kThreads, 0, &per_sm,
+                                   &sms);
   }
-  if (err != cudaSuccess) return int(err);
+  if (err != cudaSuccess) return err;
   const int per = p.shared || !vec4 ? 1 : 4, lanes = C / per < 32 ? C / per : 32;
-  const int report[7] = {p.shared, p.threads, per_sm, p.blocks, 32 / lanes, per,
-                         p.shared ? p.smem : 0};
-  for (int k = 0; k < 7; ++k) out[k] = report[k];
-  return int(cudaSuccess);
+  const int rep[7] = {p.shared, p.threads, per_sm, p.blocks, 32 / lanes, per,
+                      p.shared ? p.smem : 0};
+  for (int k = 0; k < 7; ++k) out[k] = rep[k];
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Plain C entries for ctypes, one a mode ('f32', 'bf16').  Pointers are
+// device pointers; `dgrid` must be zeroed by the caller.  `vec4` asks for
+// float4 loads and atomics and requires C % 4 == 0 with 16-byte aligned g
+// and dgrid (the wrapper checks).  The route comes from the shape and n
+// (plan_of).  Returns the first CUDA error of the plan or cudaGetLastError()
+// right after the launch.
+extern "C" int lfgc_grid_sample_bwd_f32(const void* g, const void* coords,
+                                        void* dgrid, int64_t n, int C, int D,
+                                        int H, int W, int vec4, void* stream) {
+  return int(launch<false>(g, coords, dgrid, n, C, D, H, W, vec4, stream));
+}
+
+extern "C" int lfgc_grid_sample_bwd_bf16(const void* g, const void* coords,
+                                         void* dgrid, int64_t n, int C, int D,
+                                         int H, int W, int vec4, void* stream) {
+  return int(launch<true>(g, coords, dgrid, n, C, D, H, W, vec4, stream));
+}
+
+// For reports, the gradient's launch for n samples of this shape on the
+// current card, one entry a mode: out = [route (1 shared, 0 global), threads
+// a block, blocks an SM, blocks, samples a warp step, channels a lane,
+// shared bytes a block (0 on the global route)].
+extern "C" int lfgc_grid_sample_bwd_plan(int64_t n, int C, int D, int H, int W,
+                                         int vec4, int* out) {
+  return int(report<false>(n, C, D, H, W, vec4, out));
+}
+
+extern "C" int lfgc_grid_sample_bwd_bf16_plan(int64_t n, int C, int D, int H, int W,
+                                              int vec4, int* out) {
+  return int(report<true>(n, C, D, H, W, vec4, out));
 }
 
 extern "C" const char* lfgc_cuda_error_string(int code) {

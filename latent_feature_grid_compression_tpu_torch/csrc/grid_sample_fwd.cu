@@ -49,7 +49,25 @@
 // build_x0_tc computes it, so the one-kernel forward's features equal this
 // kernel's output bit for bit; the plain version differs only in the
 // rounding of the 8-term sum.
+//
+// The 'bf16' mode (the TPU kernels' precision='bf16', the bf16 compute
+// path) is a kernel of its own, grid_sample_fwd_bf16_kernel below: it reads
+// a bf16 channel-minor copy of the grid, which the wrapper makes (the TPU
+// kernel rounds G to bf16 before the MXU, so the rounding point is the
+// same), and computes trilinear.cuh's 'bf16' formula, summing each z plane's
+// 4 corners in float32 and rounding the plane's sum times wz to bf16.  A
+// 16-byte load carries 8 channels, so a lane takes 8 (a C-16 row is two
+// lanes) and half as many lanes load a row as in float32; where C % 8 != 0
+// or a pointer is not 16-byte aligned, guarded scalar loads.  Bound:
+// bytes, as the float32 kernel, with the grid at 2 bytes an element.  It is
+// the simple design (one warp step a sample group, no persistent blocks and
+// no coordinate prefetch); the output stays float32.  Its channels are
+// computed as fused_forward.cu's 'bf16' x0 build computes them
+// (lfgc::fetch_channels), so the two agree bit for bit, and with the plain
+// version too: the sums are taken in the same order, and each product is
+// exact.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -155,6 +173,65 @@ cudaError_t plan_of(int64_t n, int C, bool vec4, Plan* p) {
   return cudaSuccess;
 }
 
+// 'bf16': a sample's C channels on ceil(C / 8) neighbouring lanes, 8 a
+// lane (one 16-byte load a corner where VEC8, else guarded scalar loads),
+// 32 / lanes samples a warp, a warp a step of samples; the block's warps
+// take neighbouring steps.
+template <bool VEC8>
+__global__ void __launch_bounds__(kThreads)
+grid_sample_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ grid,  // (D*H*W, C)
+                            const float* __restrict__ coords,        // (N, 3)
+                            float* __restrict__ out,                 // (N, C)
+                            int64_t n, int C, int D, int H, int W) {
+  const int lanes = (C + 7) / 8 < 32 ? (C + 7) / 8 : 32;
+  const int per_warp = 32 / lanes;
+  const int lane = threadIdx.x & 31, group = lane / lanes, sub = lane - group * lanes;
+  const int64_t s = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t i = s * per_warp + group;
+  if (group >= per_warp || i >= n) return;
+  const lfgc::Cell cell = lfgc::cell_of(__ldg(coords + 3 * i), __ldg(coords + 3 * i + 1),
+                                        __ldg(coords + 3 * i + 2), D, H, W);
+  float* __restrict__ dst = out + i * int64_t(C);
+  for (int c0 = 8 * sub; c0 < C; c0 += 8 * lanes) {
+    float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    lfgc::fetch_channels<true>(cell, D, H, W, [&](int64_t r, float* v) {
+      const __nv_bfloat16* __restrict__ src = grid + r * C + c0;
+      if (VEC8) {
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(p[k]);
+          v[2 * k] = f.x;
+          v[2 * k + 1] = f.y;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = c0 + k < C ? __bfloat162float(src[k]) : 0.0f;
+      }
+    }, acc);
+    if (VEC8) {
+      *reinterpret_cast<float4*>(dst + c0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      *reinterpret_cast<float4*>(dst + c0 + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (c0 + k < C) dst[c0 + k] = acc[k];
+      }
+    }
+  }
+}
+
+// How the 'bf16' fetch launches: samples a warp step and blocks (every step
+// its own warp).
+void bf16_plan_of(int64_t n, int C, int* samples, int* blocks) {
+  const int lanes = (C + 7) / 8 < 32 ? (C + 7) / 8 : 32;
+  *samples = 32 / lanes;
+  const int64_t steps = (n + *samples - 1) / *samples;
+  const int64_t need = (steps + kThreads / 32 - 1) / (kThreads / 32);
+  *blocks = int(need > 0 ? need : 1);
+}
+
 }  // namespace
 
 // Plain C entry for ctypes.  Pointers are device pointers; `vec4` asks for
@@ -191,6 +268,46 @@ extern "C" int lfgc_grid_sample_fwd_plan(int64_t n, int C, int D, int H, int W,
   const cudaError_t err = plan_of(n, C, vec4 != 0, &p);
   if (err != cudaSuccess) return int(err);
   const int report[7] = {p.vec4, kThreads, p.per_sm, p.blocks, p.samples, 4, 0};
+  for (int k = 0; k < 7; ++k) out[k] = report[k];
+  return int(cudaSuccess);
+}
+
+// The 'bf16' fetch: `grid` is the bf16 channel-minor copy, `out` float32.
+// `vec8` asks for 16-byte loads of 8 channels and requires C % 8 == 0 with
+// 16-byte aligned grid and out (the wrapper checks).  Returns
+// cudaGetLastError() right after the launch.
+extern "C" int lfgc_grid_sample_fwd_bf16(const void* grid, const void* coords,
+                                         void* out, int64_t n, int C, int D,
+                                         int H, int W, int vec8, void* stream) {
+  if (n <= 0 || C <= 0) return int(cudaSuccess);
+  int samples = 0, blocks = 0;
+  bf16_plan_of(n, C, &samples, &blocks);
+  const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(grid);
+  const float* c = static_cast<const float*>(coords);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec8) {
+    grid_sample_fwd_bf16_kernel<true><<<blocks, kThreads, 0, s>>>(g, c, o, n, C, D, H, W);
+  } else {
+    grid_sample_fwd_bf16_kernel<false><<<blocks, kThreads, 0, s>>>(g, c, o, n, C, D, H, W);
+  }
+  return int(cudaGetLastError());
+}
+
+// For reports, the 'bf16' fetch's launch: out = [route (1 16-byte lanes, 0
+// scalar), threads a block, blocks an SM, blocks, samples a warp step,
+// channels a lane (8), shared bytes a block (0)].
+extern "C" int lfgc_grid_sample_fwd_bf16_plan(int64_t n, int C, int D, int H, int W,
+                                              int vec8, int* out) {
+  (void)D; (void)H; (void)W;
+  if (C <= 0) return int(cudaErrorInvalidValue);
+  int samples = 0, blocks = 0, per_sm = 0, sms = 0;
+  bf16_plan_of(n, C, &samples, &blocks);
+  const cudaError_t err =
+      vec8 ? lfgc::occupancy(grid_sample_fwd_bf16_kernel<true>, kThreads, 0, &per_sm, &sms)
+           : lfgc::occupancy(grid_sample_fwd_bf16_kernel<false>, kThreads, 0, &per_sm, &sms);
+  if (err != cudaSuccess) return int(err);
+  const int report[7] = {vec8 != 0, kThreads, per_sm, blocks, samples, 8, 0};
   for (int k = 0; k < 7; ++k) out[k] = report[k];
   return int(cudaSuccess);
 }

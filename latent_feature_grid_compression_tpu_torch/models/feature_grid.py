@@ -5,12 +5,16 @@ Forward: decode the (gated) wavelet pyramid -> trilinear feature fetch at the
 input coords (grid_sample align_corners=False semantics) -> concat
 [coords, fourier(coords), features] -> num_layers x (Linear + SnakeAlt) ->
 final Linear; ``train=False`` clamps the output to [-1, 1].  The spec's
-backends choose how, as the JAX ``apply_model`` does: ``interp_backend=
-'fused'`` runs all of it after the decode in one kernel each way
-(``ops/fused_forward.py``); otherwise the fetch kernels, then the MLP as
-PyTorch ops (``mlp_backend='xla'``) or as the fused MLP kernels
-(``'pallas'``, ``ops/mlp_fused.py``).  The evaluation keeps the fetch and
-the plain MLP whatever the backends (:func:`predict_trilinear`).
+backends and compute dtype choose how, as the JAX ``apply_model`` does:
+``interp_backend='fused'`` runs all of it after the decode in one kernel
+each way (``ops/fused_forward.py``, precision 'mixed', or 'bf16' under
+``compute_dtype='bfloat16'``); otherwise the fetch kernels (in 'bf16' under
+bfloat16 compute or ``interp_backend='pallas_bf16'``), then the MLP as
+PyTorch ops (``mlp_backend='xla'``: float32, or the bf16 chain under
+bfloat16 compute) or as the fused MLP kernels (``'pallas'``,
+``ops/mlp_fused.py``, 'bf16' operands).  Parameters, decode and output stay
+float32.  The evaluation keeps the float32 fetch and the plain float32 MLP
+whatever the spec (:func:`predict_trilinear`).
 
 The architecture lives in the frozen :class:`ModelSpec`; the parameters in a
 :class:`FeatureGridModel` (``coeffs``: lowpass (F, g, g, g) then details
@@ -42,13 +46,14 @@ from ..ops.embedding import fourier_embed, fourier_out_dim
 from ..ops.fused_forward import fused_forward
 from ..ops.grid_sample import fetch
 from ..ops.interpolation import channel_minor
-from ..ops.mlp import init_mlp, mlp_apply, snake_alt
+from ..ops.mlp import init_mlp, mlp_apply, mlp_apply_bf16, snake_alt
 from ..ops.mlp_fused import MAX_WIDTH, mlp_fused
 from . import gates as G
 
 # every config value of interp_backend that means "the trilinear fetch": the
-# CUDA kernels on the card, their plain versions on the CPU
-_TRILINEAR = ('auto', 'xla', 'pallas')
+# CUDA kernels on the card, their plain versions on the CPU ('pallas_bf16':
+# in 'bf16' whatever the compute dtype)
+_TRILINEAR = ('auto', 'xla', 'pallas', 'pallas_bf16')
 # the one-kernel forward keeps the JAX package's eligibility rule: the whole
 # padded grid stack VMEM-resident there (grid_size^2 <= 512)
 FUSED_MAX_HW = 512
@@ -78,6 +83,13 @@ class ModelSpec:
     # after the trilinear fetch: 'xla' (the MLP as PyTorch ops) or 'pallas'
     # (the fused MLP kernels, ops/mlp_fused.py, bf16 operands)
     mlp_backend: str = 'xla'
+    # 'float32' or 'bfloat16' (the bf16 compute path: the fetch in 'bf16',
+    # the bf16 MLP chain under mlp_backend 'xla', the one-kernel forward in
+    # 'bf16')
+    compute_dtype: str = 'float32'
+    # the mode of the trilinear fetch and of the one-kernel forward's
+    # interpolation: 'f32' or 'bf16'
+    fetch_precision: str = 'f32'
 
     @property
     def num_levels(self) -> int:
@@ -113,28 +125,30 @@ def make_spec(d_in=3, hidden=32, d_out=1, num_layers=4, n_freqs=2,
     the per-level pruning thresholds (``pruning_threshold_list`` entries in
     coefficient order, ``drop_threshold`` for the rest).
 
-    ``interp_backend`` 'auto', 'xla' and 'pallas' all resolve to
-    'trilinear', the fetch kernels; 'fused' to the one-kernel forward, which
-    needs grid_size^2 <= 512 and every MLP width <= 128 (the JAX package's
-    rule) and raises otherwise, never swapped for another backend.
-    ``mlp_backend`` 'xla' runs the MLP as PyTorch ops, 'pallas' as the fused
-    MLP kernels (every width <= 128, else it raises).  Options whose kernels
-    or modules are not ported yet ('pallas_bf16', bfloat16 compute) raise
-    too, and so does an unknown ``drop_type``."""
+    ``interp_backend`` 'auto', 'xla', 'pallas' and 'pallas_bf16' all
+    resolve to 'trilinear', the fetch kernels ('pallas_bf16' in 'bf16');
+    'fused' to the one-kernel forward, which needs grid_size^2 <= 512 and
+    every MLP width <= 128 (the JAX package's rule) and raises otherwise,
+    never swapped for another backend.  ``mlp_backend`` 'xla' runs the MLP
+    as PyTorch ops, 'pallas' as the fused MLP kernels (every width <= 128,
+    else it raises).  ``compute_dtype`` 'float32' ('f32') or 'bfloat16'
+    ('bf16'), as the JAX package takes it; the spec records it and the
+    fetch's mode, 'bf16' under bfloat16 compute or 'pallas_bf16'.  Any
+    other value of these raises, and so does an unknown ``drop_type``."""
     G.check_drop_type(drop_type)
-    if interp_backend == 'pallas_bf16':
-        raise ValueError("interp_backend='pallas_bf16' is not yet ported "
-                         "(bf16 compute path, ROADMAP Queue 1 item 3)")
     if interp_backend not in _TRILINEAR + ('fused',):
         raise ValueError(f"interp_backend must be one of 'auto', 'xla', "
-                         f"'pallas', 'fused'; got {interp_backend!r}")
+                         f"'pallas', 'pallas_bf16', 'fused'; got {interp_backend!r}")
     if mlp_backend not in ('xla', 'pallas'):
         raise ValueError(f"mlp_backend must be 'xla' or 'pallas'; got {mlp_backend!r}")
     if compute_dtype in ('bf16', 'bfloat16'):
-        raise ValueError("compute_dtype='bfloat16' is not yet ported "
-                         "(bf16 compute path, ROADMAP Queue 1 item 3)")
-    if compute_dtype not in ('f32', 'float32'):
-        raise ValueError(f"compute_dtype must be 'float32'; got {compute_dtype!r}")
+        compute_dtype = 'bfloat16'
+    elif compute_dtype in ('f32', 'float32'):
+        compute_dtype = 'float32'
+    else:
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16'; "
+                         f"got {compute_dtype!r}")
+    bf16_fetch = compute_dtype == 'bfloat16' or interp_backend == 'pallas_bf16'
     if wavelet in ('', 'none'):
         # no-wavelet mode: the single coefficient tensor is the spatial grid
         wavelet = 'none'
@@ -150,7 +164,8 @@ def make_spec(d_in=3, hidden=32, d_out=1, num_layers=4, n_freqs=2,
                      drop_momentum=drop_momentum, thresholds=thresholds,
                      level_shapes=level_shapes,
                      interp_backend='fused' if interp_backend == 'fused' else 'trilinear',
-                     mlp_backend=mlp_backend)
+                     mlp_backend=mlp_backend, compute_dtype=compute_dtype,
+                     fetch_precision='bf16' if bf16_fetch else 'f32')
     widths_fit = max(spec.mlp_in, hidden, d_out) <= MAX_WIDTH
     if interp_backend == 'fused' and not (grid_size ** 2 <= FUSED_MAX_HW and widths_fit):
         raise ValueError(
@@ -292,34 +307,44 @@ def decode_volume(model, *, train_gates: bool = False,
     return decode_pyramid(spec.filter(), coeffs, spec.level_shapes)
 
 
-def _mlp_input(model, grid_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """[coords | fourier(coords) | fetched features]."""
-    feats = fetch(grid_cl, coords)
+def _mlp_input(model, grid_cl: torch.Tensor, coords: torch.Tensor,
+               precision: str = 'f32') -> torch.Tensor:
+    """[coords | fourier(coords) | features fetched in ``precision``]."""
+    feats = fetch(grid_cl, coords, precision)
     return torch.cat([coords, fourier_embed(coords, model.spec.n_freqs), feats], dim=-1)
 
 
 def predict(model, grid_cl: torch.Tensor, coords: torch.Tensor,
             train: bool = False) -> torch.Tensor:
     """Run the head on a decoded channel-minor (D, H, W, C) grid at (N, d_in)
-    coords -> (N, d_out), by the spec's backends; ``train=False`` clamps.
-    'fused' (precision 'mixed') takes precedence; otherwise the fetch, then
-    the fused MLP kernels (precision 'bf16') under ``mlp_backend='pallas'``
-    or the MLP as PyTorch ops."""
+    coords -> (N, d_out), by the spec's backends and compute dtype, as the
+    JAX ``apply_model``; ``train=False`` clamps.  'fused' (precision 'mixed',
+    or 'bf16' under bfloat16 compute) takes precedence; otherwise the fetch
+    in the spec's ``fetch_precision``, then the fused MLP kernels (precision
+    'bf16') under ``mlp_backend='pallas'``, or the MLP as PyTorch ops: the
+    bf16 chain under bfloat16 compute, else float32."""
     spec = model.spec
     ws, bs = list(model.mlp_w), list(model.mlp_b)
+    bf16 = spec.compute_dtype == 'bfloat16'
     if spec.interp_backend == 'fused':
-        out = fused_forward(grid_cl, coords, ws, bs, spec.n_freqs, precision='mixed')
-    elif spec.mlp_backend == 'pallas':
-        out = mlp_fused(ws, bs, _mlp_input(model, grid_cl, coords), precision='bf16')
+        out = fused_forward(grid_cl, coords, ws, bs, spec.n_freqs,
+                            precision='bf16' if bf16 else 'mixed')
     else:
-        out = mlp_apply(ws, bs, _mlp_input(model, grid_cl, coords), snake_alt)
+        x = _mlp_input(model, grid_cl, coords, spec.fetch_precision)
+        if spec.mlp_backend == 'pallas':
+            out = mlp_fused(ws, bs, x, precision='bf16')
+        elif bf16:
+            out = mlp_apply_bf16(ws, bs, x, snake_alt)
+        else:
+            out = mlp_apply(ws, bs, x, snake_alt)
     return out if train else out.clamp(-1.0, 1.0)
 
 
 def predict_trilinear(model, grid_cl: torch.Tensor, coords: torch.Tensor
                       ) -> torch.Tensor:
-    """The evaluation's head whatever the backends, as the JAX evaluation's:
-    the fetch, then the MLP as PyTorch ops, clamped to [-1, 1]."""
+    """The evaluation's head whatever the spec, as the JAX evaluation's: the
+    float32 fetch, then the float32 MLP as PyTorch ops, clamped to
+    [-1, 1]."""
     out = mlp_apply(list(model.mlp_w), list(model.mlp_b),
                     _mlp_input(model, grid_cl, coords), snake_alt)
     return out.clamp(-1.0, 1.0)

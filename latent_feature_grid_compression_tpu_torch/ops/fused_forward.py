@@ -16,15 +16,18 @@ positions; the JAX package stops it).
 
 Precision: ``'mixed'`` (the fetch and the routing into dG in float32, the
 MLP's products on bfloat16 operands, as ``ops/mlp_fused.py``'s ``'bf16'``;
-what the JAX ``apply_model`` uses) or ``'f32'``.  The JAX package's
-``'bf16'`` belongs to the bf16 compute path, not ported yet.
+what the JAX ``apply_model`` uses), ``'bf16'`` (the bf16 compute path: the
+MLP as in 'mixed', the fetch and the routing as the 'bf16' fetch and
+gradient of ``ops/grid_sample.py``, whose formulas the TPU kernel's single
+bf16 passes give) or ``'f32'``.
 
 :func:`fused_forward` is a ``torch.autograd.Function`` differentiable in the
 grid and the MLP parameters: CPU tensors take the plain versions, CUDA
 tensors the kernels or an error; nothing falls back.  ``launches`` and
-``bwd_launches`` count kernel launches and nothing else.  The grid's
-gradient is summed with atomics (not bitwise reproducible on the card, as
-``csrc/grid_sample_bwd.cu``); dW and db in a fixed order.
+``bwd_launches`` count the kernels' launches in 'mixed' and 'f32',
+``bf16_launches`` and ``bf16_bwd_launches`` in 'bf16', and nothing else.
+The grid's gradient is summed with atomics (not bitwise reproducible on the
+card, as ``csrc/grid_sample_bwd.cu``); dW and db in a fixed order.
 """
 
 from __future__ import annotations
@@ -37,45 +40,54 @@ import torch
 from . import _build
 from .embedding import fourier_embed, fourier_out_dim
 from .interpolation import (grid_sample_channel_minor,
-                            grid_sample_channel_minor_backward)
+                            grid_sample_channel_minor_backward,
+                            grid_sample_channel_minor_backward_bf16,
+                            grid_sample_channel_minor_bf16)
 from .mlp_fused import (check_cuda, check_widths, grad_buffers, layer_pointers,
                         mlp_fused_plain, mlp_fused_plain_backward, on_cpu,
                         param_grads)
 
 KERNEL = 'fused_forward'
-PRECISIONS = ('mixed', 'f32')
+PRECISIONS = ('mixed', 'f32', 'bf16')
 
-# kernel launches since the last reset: forward and backward
+# kernel launches since the last reset: forward and backward in 'mixed' and
+# 'f32', and in 'bf16'
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
 _I = ctypes.c_int
-# grid, coords, w[], b[], dims[], nw, out, n, C, D, H, W, n_freqs, bf16, stream
+# grid, coords, w[], b[], dims[], nw, out, n, C, D, H, W, n_freqs, bf16,
+# interp_bf16, stream
 FWD_ARGTYPES = [_P, _P, _PP, _PP, _PI, _I, _P, ctypes.c_int64, _I, _I, _I, _I, _I,
-                _I, _P]
+                _I, _I, _P]
 # grid, coords, w[], b[], dims[], nw, g, dgrid, dparams, partial, n, C, D, H, W,
-# n_freqs, bf16, stream
+# n_freqs, bf16, interp_bf16, stream
 BWD_ARGTYPES = [_P, _P, _PP, _PP, _PI, _I, _P, _P, _P, _P, ctypes.c_int64, _I, _I,
-                _I, _I, _I, _I, _P]
+                _I, _I, _I, _I, _I, _P]
 # n, dims[], nw, bf16
 SLOTS_ARGTYPES = [ctypes.c_int64, _PI, _I, _I]
 
 
-def _mlp_precision(precision: str) -> str:
-    if precision == 'bf16':
-        raise ValueError("fused_forward precision 'bf16' is not yet ported "
-                         "(bf16 compute path, ROADMAP Queue 1 item 3)")
+def _split(precision: str) -> Tuple[str, str]:
+    """(the MLP's precision, the interpolation's), as the TPU kernel's
+    ``_prec_split``: 'mixed' = ('bf16', 'f32')."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}; got {precision!r}")
-    return 'bf16' if precision == 'mixed' else 'f32'
+    mlp = 'f32' if precision == 'f32' else 'bf16'
+    return mlp, 'bf16' if precision == 'bf16' else 'f32'
 
 
-def mlp_input(grid: torch.Tensor, coords: torch.Tensor, n_freqs: int) -> torch.Tensor:
-    """x0 = [coords | fourier(coords) | features] -> (N, 3 + 6 n_freqs + C)."""
-    feats = grid_sample_channel_minor(grid, coords)
+def mlp_input(grid: torch.Tensor, coords: torch.Tensor, n_freqs: int,
+              interp: str = 'f32') -> torch.Tensor:
+    """x0 = [coords | fourier(coords) | features] -> (N, 3 + 6 n_freqs + C),
+    the features fetched in the mode ``interp`` ('f32' or 'bf16')."""
+    feats = (grid_sample_channel_minor_bf16 if interp == 'bf16'
+             else grid_sample_channel_minor)(grid, coords)
     return torch.cat([coords, fourier_embed(coords, n_freqs), feats], dim=-1)
 
 
@@ -84,8 +96,8 @@ def fused_forward_plain(grid: torch.Tensor, coords: torch.Tensor,
                         n_freqs: int, precision: str = 'mixed') -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: channel-minor (D, H, W,
     C) grid, (N, 3) coords -> (N, d_out)."""
-    return mlp_fused_plain(weights, biases, mlp_input(grid, coords, n_freqs),
-                           _mlp_precision(precision))
+    mlp, interp = _split(precision)
+    return mlp_fused_plain(weights, biases, mlp_input(grid, coords, n_freqs, interp), mlp)
 
 
 def fused_forward_plain_backward(grid: torch.Tensor, coords: torch.Tensor,
@@ -96,13 +108,14 @@ def fused_forward_plain_backward(grid: torch.Tensor, coords: torch.Tensor,
                                             List[torch.Tensor]]:
     """Plain PyTorch version of the backward kernel: for the (N, d_out)
     output gradient ``g``, (dgrid (D, H, W, C), [dW_i], [db_i])."""
+    mlp, interp = _split(precision)
     dx, dws, dbs = mlp_fused_plain_backward(
-        weights, biases, mlp_input(grid, coords, n_freqs), g,
-        _mlp_precision(precision))
+        weights, biases, mlp_input(grid, coords, n_freqs, interp), g, mlp)
     D, H, W, _ = grid.shape
     emb = coords.shape[1] + fourier_out_dim(n_freqs, coords.shape[1])
-    dgrid = grid_sample_channel_minor_backward(dx[:, emb:].contiguous(), coords,
-                                               D, H, W)
+    route = (grid_sample_channel_minor_backward_bf16 if interp == 'bf16'
+             else grid_sample_channel_minor_backward)
+    dgrid = route(dx[:, emb:].contiguous(), coords, D, H, W)
     return dgrid, dws, dbs
 
 
@@ -129,8 +142,8 @@ def fused_forward_cuda(grid: torch.Tensor, coords: torch.Tensor,
     """Launch the forward kernel on contiguous float32 tensors on one card
     -> (N, d_out).  No autograd: :func:`fused_forward` is the
     differentiable entry."""
-    global launches
-    bf16 = _mlp_precision(precision) == 'bf16'
+    global launches, bf16_launches
+    mlp, interp = _split(precision)
     dims = _check(grid, coords, weights, biases, n_freqs)
     n = coords.shape[0]
     D, H, W, C = grid.shape
@@ -141,10 +154,13 @@ def fused_forward_cuda(grid: torch.Tensor, coords: torch.Tensor,
     wp, bp, dp = layer_pointers(weights, biases, dims)
     with torch.cuda.device(grid.device):
         err = fn(grid.data_ptr(), coords.data_ptr(), wp, bp, dp, len(weights),
-                 out.data_ptr(), n, C, D, H, W, n_freqs, int(bf16),
-                 torch.cuda.current_stream(grid.device).cuda_stream)
+                 out.data_ptr(), n, C, D, H, W, n_freqs, int(mlp == 'bf16'),
+                 int(interp == 'bf16'), torch.cuda.current_stream(grid.device).cuda_stream)
     _build.raise_on_error(lib, KERNEL, err)
-    launches += 1
+    if precision == 'bf16':
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -155,8 +171,9 @@ def fused_forward_backward_cuda(grid: torch.Tensor, coords: torch.Tensor,
     """Launch the backward kernel (and its fixed-order reduction of the
     per-block dW, db): (dgrid, [dW_i], [db_i]) for the output gradient
     ``g``; dgrid is zeroed here and summed by atomics."""
-    global bwd_launches
-    bf16 = _mlp_precision(precision) == 'bf16'
+    global bwd_launches, bf16_bwd_launches
+    mlp, interp = _split(precision)
+    bf16 = mlp == 'bf16'
     dims = _check(grid, coords, weights, biases, n_freqs, g)
     n = coords.shape[0]
     D, H, W, C = grid.shape
@@ -170,9 +187,12 @@ def fused_forward_backward_cuda(grid: torch.Tensor, coords: torch.Tensor,
             err = fn(grid.data_ptr(), coords.data_ptr(), wp, bp, dp, len(weights),
                      g.data_ptr(), dgrid.data_ptr(), dparams.data_ptr(),
                      partial.data_ptr(), n, C, D, H, W, n_freqs, int(bf16),
-                     torch.cuda.current_stream(grid.device).cuda_stream)
+                     int(interp == 'bf16'), torch.cuda.current_stream(grid.device).cuda_stream)
         _build.raise_on_error(lib, KERNEL, err)
-        bwd_launches += 1
+        if precision == 'bf16':
+            bf16_bwd_launches += 1
+        else:
+            bwd_launches += 1
     dws, dbs = param_grads(dparams, weights, biases)
     return dgrid, dws, dbs
 
@@ -210,9 +230,10 @@ def fused_forward(grid: torch.Tensor, coords: torch.Tensor,
                   n_freqs: int, precision: str = 'mixed') -> torch.Tensor:
     """One-kernel model forward from a channel-minor (D, H, W, C) grid at
     (N, 3) coords in [-1, 1] -> (N, d_out); every MLP width <= 128 (wider
-    raises).  Differentiable in the grid and the MLP parameters.  CPU
-    tensors take the plain versions, CUDA tensors the kernels."""
-    _mlp_precision(precision)
+    raises), in the precision 'mixed', 'bf16' or 'f32'.  Differentiable in
+    the grid and the MLP parameters.  CPU tensors take the plain versions,
+    CUDA tensors the kernels."""
+    _split(precision)
     if grid.dim() != 4:
         raise ValueError(f"expected grid (D, H, W, C); got {tuple(grid.shape)}")
     check_widths(weights, biases, 3 + fourier_out_dim(n_freqs, 3) + grid.shape[3])

@@ -4,6 +4,13 @@
 Linear.  Weights keep ``nn.Linear``'s (out, in) layout; the JAX package keeps
 (in, out), and the transpose happens only in ``convert.py`` and
 ``io/checkpoint.py``.
+
+:func:`mlp_apply_bf16` is the MLP of the bf16 compute path
+(``compute_dtype='bfloat16'`` with ``mlp_backend='xla'``), as the JAX
+``apply_model`` computes it outside any Pallas kernel: weights, biases and
+x cast to bfloat16, each layer's product (cuBLAS on the card, float32 sums
+rounded to bf16), bias add and SnakeAlt in bf16, the result cast to
+float32.
 """
 
 from __future__ import annotations
@@ -49,3 +56,18 @@ def mlp_apply(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
     for w, b in zip(weights[:-1], biases[:-1]):
         x = activation(F.linear(x, w, b))
     return F.linear(x, weights[-1], biases[-1])
+
+
+def mlp_apply_bf16(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+                   x: torch.Tensor, activation=snake_alt) -> torch.Tensor:
+    """:func:`mlp_apply` in bfloat16 -> float32.  The casts are ``.to()`` of
+    the float32 tensors, so gradients reach them in float32.  The product
+    and the bias add round apart, as JAX's ``jnp.dot(x, w) + b`` on bf16
+    arrays does."""
+    bf = torch.bfloat16
+    ws = [w.to(bf) for w in weights]
+    bs = [b.to(bf) for b in biases]
+    x = x.to(bf)
+    for w, b in zip(ws[:-1], bs[:-1]):
+        x = activation(F.linear(x, w) + b)
+    return (F.linear(x, ws[-1]) + bs[-1]).to(torch.float32)

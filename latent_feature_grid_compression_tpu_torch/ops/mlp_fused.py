@@ -171,7 +171,8 @@ def grad_buffers(kernel: str, slots_symbol: str, weights: Sequence[torch.Tensor]
 def _launch_plan(kernel: str, direction: str, dims: Sequence[int], precision: str) -> dict:
     """How the forward (``direction='fwd'``) or backward (``'bwd'``) kernel
     of ``csrc/<kernel>.cu`` launches at these widths and precision ('bf16',
-    or 'mixed' for the one-kernel forward) on this card: samples a tile,
+    or for the one-kernel forward 'mixed' and 'bf16', whose MLP halves are
+    alike) on this card: samples a tile,
     dynamic shared memory a block, blocks an SM, and whether all the weights
     (backward: and the dW/db sums) stay in shared memory.  Raises where the
     widths do not fit."""

@@ -49,7 +49,7 @@ def check_ported(cfg: TrainConfig):
             or cfg.mesh_local_decode:
         raise ValueError("multi-device training is not yet ported "
                          "(ROADMAP Queue 1 item 5)")
-    # bf16, 'pallas_bf16' and unknown drop types raise in make_spec
+    # an unknown compute dtype, backend or drop type raises in make_spec
 
 
 def experiment_dir(cfg: TrainConfig) -> str:

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels (the fetch and its grid
 gradient, the fused MLP forward and backward, the one-kernel model forward
-and backward) against their plain PyTorch versions, the wrappers' checks,
-and the model, evaluation and training paths through them (every gate
-family's train step).
+and backward, each mode of them: the 'bf16' ones of the bf16 compute path
+too) against their plain PyTorch versions, the wrappers' checks, and the
+model, evaluation and training paths through them (every gate family's
+train step, and the bf16 compute path's).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it also runs where JAX is not installed; the
@@ -23,7 +24,8 @@ from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
 from latent_feature_grid_compression_tpu_torch.ops import mlp_fused as mf
 from latent_feature_grid_compression_tpu_torch.ops.embedding import fourier_embed
 from latent_feature_grid_compression_tpu_torch.ops.interpolation import (
-    channel_minor, grid_sample_3d, grid_sample_channel_minor_backward)
+    channel_minor, grid_sample_3d, grid_sample_channel_minor_backward,
+    grid_sample_channel_minor_backward_bf16, grid_sample_channel_minor_bf16)
 
 pytestmark = pytest.mark.cuda
 
@@ -605,3 +607,239 @@ def test_backward_kernels_at_the_variational_gradient_scale(cuda_device, route):
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         assert _rel(a, b, GRAD_FLOOR * scale) <= MLP_TOL['bf16'][1]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 compute path: the 'bf16' modes
+# ---------------------------------------------------------------------------
+
+# the 'bf16' fetch and gradient against their plain versions, relative to
+# max |.|: at least BF16_SHARE of the entries within BF16_TOL, all within
+# BF16_MAX (the plain versions round at the kernels' points and every
+# product is exact: only a float32 summation order differs, by atomics in
+# the gradient, and where that straddles a bf16 rounding boundary one value
+# moves by a bf16 ulp); the gradient against its terms summed in float64
+# (two float32 orders of a grid-4 entry's 4,096 adds differ by ~1e-6)
+BF16_SHARE, BF16_TOL, BF16_MAX = 0.999, 1e-6, 4e-3
+
+
+def _bf16_close(got, want):
+    scale = float(want.abs().max())
+    diff = (got.double() - want.double()).abs()
+    return (float((diff <= BF16_TOL * scale).double().mean()) >= BF16_SHARE
+            and float(diff.max()) <= BF16_MAX * scale)
+
+
+# the flagship, grid 23 (the blocked Pallas kernels' counterpart), C 5 and C
+# 22 (guarded loads: C % 8 != 0), C 8 on grid 4, one channel, C = 40 (5
+# lanes a sample) and C = 264 (a sample's lanes loop); one sample, a partial
+# warp step, a train step's batch + 5 and an evaluation chunk + 3
+@pytest.mark.parametrize('n', [1, 33, 32768 + 5, (1 << 18) + 3])
+@pytest.mark.parametrize('shape', [(16, 15, 15, 15), (16, 23, 23, 23), (5, 15, 15, 15),
+                                   (22, 17, 17, 17), (8, 4, 4, 4), (1, 4, 4, 4),
+                                   (40, 9, 9, 9), (264, 3, 5, 7)])
+def test_bf16_fetch_kernel_matches_plain(cuda_device, shape, n):
+    f, c = _inputs(shape, n, 11)
+    grid = channel_minor(f).to(cuda_device)
+    c = c.to(cuda_device)
+    before = (gs.launches, gs.bf16_launches)
+    with torch.no_grad():
+        out = gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), c)
+    torch.cuda.synchronize()
+    assert (gs.launches, gs.bf16_launches) == (before[0], before[1] + 1)
+    assert out.dtype == torch.float32
+    assert _bf16_close(out, grid_sample_channel_minor_bf16(grid, c))
+    C, D, H, W = shape
+    plan = gs.fwd_plan(n, C, D, H, W, C % 8 == 0, 'bf16')
+    assert plan['route'] == ('bf16x8' if C % 8 == 0 else 'scalar')
+    assert plan['mode'] == 'bf16' and plan['channels_per_lane'] == 8
+    assert plan['samples_per_warp'] == 32 // min(-(-C // 8), 32)
+
+
+def test_bf16_fetch_unaligned_grid_takes_scalar_path(cuda_device):
+    f, c = _inputs((8, 6, 6, 6), 1000, 12)
+    grid = channel_minor(f).to(cuda_device)
+    storage = torch.empty(grid.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
+    shifted = storage[1:].view(grid.shape)
+    shifted.copy_(grid)
+    assert shifted.data_ptr() % 16 != 0
+    with torch.no_grad():
+        out = gs.grid_sample_channel_minor_bf16_cuda(shifted, c.to(cuda_device))
+    assert _bf16_close(out, grid_sample_channel_minor_bf16(grid, c.to(cuda_device)))
+
+
+@pytest.mark.parametrize('C,G,kind', [(16, 15, 'lattice'), (16, 4, 'uniform'),
+                                      (16, 23, 'uniform'), (5, 15, 'uniform'),
+                                      (22, 17, 'lattice'), (16, 'last_shared', 'uniform'),
+                                      (16, 'first_global', 'uniform')])
+def test_bf16_bwd_kernel_matches_plain(cuda_device, C, G, kind):
+    """Both routes of the 'bf16' gradient (chosen as in 'f32')."""
+    n = 32768
+    if isinstance(G, str):
+        route, G = G.split('_')[1], _route_edge(C)[G]
+        assert gs.bwd_plan(n, C, G, G, G, precision='bf16')['route'] == route
+    coords = (_lattice_positions(n, 255, 1) if kind == 'lattice'
+              else torch.rand((n, 3), device=cuda_device) * 2.4 - 1.2)
+    g = torch.randn((n, C), device=cuda_device)
+    before = (gs.bwd_launches, gs.bf16_bwd_launches)
+    out = gs.grid_sample_channel_minor_backward_bf16_cuda(g, coords, G, G, G)
+    torch.cuda.synchronize()
+    assert (gs.bwd_launches, gs.bf16_bwd_launches) == (before[0], before[1] + 1)
+    assert out.dtype == torch.float32
+    want = grid_sample_channel_minor_backward_bf16(g, coords, G, G, G, torch.float64)
+    assert _bf16_close(out, want)
+    assert (gs.bwd_plan(n, C, G, G, G, precision='bf16')['route']
+            == gs.bwd_plan(n, C, G, G, G)['route'])
+
+
+def test_fetch_bf16_never_runs_the_float32_kernels(cuda_device):
+    """fetch(..., 'bf16') forward and backward launch the 'bf16' kernels
+    only, and the grid's gradient stays float32; 'f32' launches no 'bf16'
+    kernel."""
+    grid = torch.randn((15, 15, 15, 16), device=cuda_device, requires_grad=True)
+    c = torch.rand((5000, 3), device=cuda_device) * 2 - 1
+    counts = lambda: (gs.launches, gs.bwd_launches, gs.bf16_launches, gs.bf16_bwd_launches)
+    before = counts()
+    out = gs.fetch(grid, c, 'bf16')
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, counts())) == (0, 0, 1, 1)
+    assert out.dtype == grid.grad.dtype == torch.float32
+    assert _bf16_close(out.detach(), grid_sample_channel_minor_bf16(grid.detach(), c))
+    before = counts()
+    gs.fetch(grid, c, 'f32').sum().backward()
+    assert tuple(b - a for a, b in zip(before, counts())) == (1, 1, 0, 0)
+
+
+def test_bf16_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    f, c = _inputs((4, 5, 5, 5), 10, 13)
+    grid, c = channel_minor(f).to(cuda_device), c.to(cuda_device)
+    before = (gs.bf16_launches, gs.bf16_bwd_launches)
+    with pytest.raises(ValueError, match='bfloat16'):
+        gs.grid_sample_channel_minor_bf16_cuda(grid, c)
+    with pytest.raises(ValueError, match='float32'):
+        gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), c.double())
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), c.cpu())
+    with pytest.raises(ValueError, match='float32'):
+        gs.grid_sample_channel_minor_backward_bf16_cuda(
+            torch.ones((10, 4), device=cuda_device, dtype=torch.bfloat16), c, 5, 5, 5)
+    with pytest.raises(ValueError, match='precision'):
+        gs.fetch(grid, c, 'f16')
+    assert (gs.bf16_launches, gs.bf16_bwd_launches) == before
+
+
+@pytest.mark.parametrize('size', ['1', '17', 'batch'])
+@pytest.mark.parametrize('C,G', [(16, 15), (8, 9), (5, 22)])
+def test_fused_forward_bf16_kernels_match_plain(cuda_device, C, G, size):
+    dims = [3 + 12 + C, 32, 32, 32, 32, 1]
+    n = {'1': 1, '17': 17, 'batch': 32768 + 5}[size]
+    ws, bs = _mlp_params(dims, cuda_device, 4)
+    grid = torch.randn((G, G, G, C), device=cuda_device)
+    coords = torch.rand((n, 3), device=cuda_device) * 2.4 - 1.2   # incl. OOB
+    g = torch.randn((n, 1), device=cuda_device)
+    counts = lambda: (ff.launches, ff.bwd_launches, ff.bf16_launches, ff.bf16_bwd_launches)
+    before = counts()
+    out = ff.fused_forward_cuda(grid, coords, ws, bs, 2, 'bf16')
+    dgrid, dws, dbs = ff.fused_forward_backward_cuda(grid, coords, ws, bs, 2, g, 'bf16')
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, counts())) == (0, 0, 1, 1)
+    fwd_tol, grad_tol = MLP_TOL['bf16']
+    assert _rel(out, ff.fused_forward_plain(grid, coords, ws, bs, 2, 'bf16')) <= fwd_tol
+    rdg, rdws, rdbs = ff.fused_forward_plain_backward(grid, coords, ws, bs, 2, g, 'bf16')
+    for got, want in zip([dgrid] + dws + dbs, [rdg] + rdws + rdbs):
+        assert got.shape == want.shape and _rel(got, want, GRAD_FLOOR) <= grad_tol
+    _, dws2, dbs2 = ff.fused_forward_backward_cuda(grid, coords, ws, bs, 2, g, 'bf16')
+    assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
+
+
+def test_fused_forward_bf16_features_are_the_bf16_fetch_kernels(cuda_device):
+    """In 'bf16' the one-kernel forward's features are the 'bf16' fetch
+    kernel's (the same code, lfgc::fetch_channels), and its MLP the fused
+    MLP kernel's in 'bf16'."""
+    dims = [31, 32, 32, 32, 32, 1]
+    ws, bs = _mlp_params(dims, cuda_device, 5)
+    grid = torch.randn((15, 15, 15, 16), device=cuda_device)
+    coords = torch.rand((20000, 3), device=cuda_device) * 2 - 1
+    x0 = torch.cat([coords, fourier_embed(coords, 2),
+                    gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), coords)],
+                   dim=-1)
+    two = mf.mlp_fused_cuda(ws, bs, x0, 'bf16')
+    one = ff.fused_forward_cuda(grid, coords, ws, bs, 2, 'bf16')
+    assert _rel(one, two) <= MLP_TOL['bf16'][0]
+
+
+BF16_BACKENDS = {'bf16': dict(compute_dtype='bfloat16'),
+                 'bf16_fused': dict(interp_backend='fused', compute_dtype='bfloat16'),
+                 'pallas_bf16': dict(interp_backend='pallas_bf16')}
+
+
+def _bf16_counts():
+    return (gs.launches, gs.bwd_launches, gs.bf16_launches, gs.bf16_bwd_launches,
+            ff.launches, ff.bwd_launches, ff.bf16_launches, ff.bf16_bwd_launches,
+            mf.launches, mf.bwd_launches)
+
+
+# what one train step launches: (f32 fetch, gradient, bf16 fetch, gradient,
+# one-kernel 'mixed' fwd, bwd, 'bf16' fwd, bwd, MLP kernels fwd, bwd)
+BF16_STEP = {'bf16': (0, 0, 1, 1, 0, 0, 0, 0, 0, 0),
+             'bf16_fused': (0, 0, 0, 0, 0, 0, 1, 1, 0, 0),
+             'pallas_bf16': (0, 0, 1, 1, 0, 0, 0, 0, 0, 0)}
+
+
+@pytest.mark.parametrize('backend', sorted(BF16_BACKENDS))
+def test_train_step_on_card_matches_cpu_bf16(cuda_device, backend):
+    """One full step of the bf16 compute path on the card (the 'bf16'
+    kernels, the bf16 chain on cuBLAS) and on the CPU (their plain
+    versions, the chain on the CPU's bf16 products) from the same state and
+    positions: the bf16 products sum in other orders, so a bf16 rounding
+    may flip."""
+    outs = []
+    for dev in (torch.device('cpu'), cuda_device):
+        tr, ph, model, vol = _train_setup(dev, **BF16_BACKENDS[backend])
+        st = tr.init_train_state(model, 0.008, 0.008, train_gates=True)
+        c = tr.PhaseConstants(ph, vol)
+        g = torch.Generator().manual_seed(5)
+        pos = torch.stack([torch.randint(0, 64, (1, ph.batch_n), generator=g)
+                           for _ in range(3)], -1).to(dev)
+        norm, gt = tr.chunk_inputs(c, pos)
+        before = _bf16_counts()
+        loss, _ = tr.train_step(ph, st, c, norm[0], gt[0])
+        counts = tuple(b - a for a, b in zip(before, _bf16_counts()))
+        outs.append((float(loss), st.flat.cpu(), st.m.cpu(), counts))
+    (l0, f0, m0, c0), (l1, f1, m1, c1) = outs
+    assert c0 == (0,) * 10 and c1 == BF16_STEP[backend]
+    assert abs(l0 - l1) <= 1e-2 * abs(l0)
+    assert _rel(m1, m0) <= 5e-2
+    # Adam's first step moves each entry by ~lr in the sign of its gradient;
+    # where the gradient is within its bf16 bound of 0 the sign may differ
+    sure = m0.abs() > 5e-2 * m0.abs().max()
+    np.testing.assert_allclose(f1[sure].numpy(), f0[sure].numpy(), atol=1e-5)
+    assert float((f1 - f0).abs().max()) <= 2 * 0.008 * 1.0001
+
+
+@pytest.mark.parametrize('backend', sorted(BF16_BACKENDS))
+def test_train_steps_on_card_launch_the_bf16_kernels(cuda_device, backend):
+    tr, ph, model, vol = _train_setup(cuda_device, max_pass=6, **BF16_BACKENDS[backend])
+    st = tr.init_train_state(model, 0.008, 0.008, train_gates=True)
+    before = _bf16_counts()
+    losses = []
+    st = tr.solve_phase(ph, st, vol, 16, generator=torch.Generator(
+        device=cuda_device).manual_seed(0), verbose=False, metric_cb=losses.append)
+    assert st.step == 32
+    counts = tuple(b - a for a, b in zip(before, _bf16_counts()))
+    assert counts == tuple(32 * k for k in BF16_STEP[backend])
+    losses = np.concatenate(losses)
+    assert np.isfinite(losses).all() and losses[-8:].mean() < losses[:8].mean()
+
+
+@pytest.mark.parametrize('backend', sorted(BF16_BACKENDS))
+def test_apply_model_on_card_matches_cpu_bf16(cuda_device, backend):
+    spec = fg.make_spec(**FLAGSHIP, **BF16_BACKENDS[backend])
+    model = fg.init_model(spec, torch.Generator().manual_seed(1), device='cpu')
+    _, c = _inputs((1, 1, 1, 1), 5000, 10)
+    with torch.no_grad():
+        ref = fg.apply_model(model, c, train=False)
+        out = fg.apply_model(model.to(cuda_device), c.to(cuda_device), train=False)
+    assert out.dtype == torch.float32
+    assert _rel(out.cpu(), ref) <= MLP_TOL['bf16'][0]

@@ -136,11 +136,16 @@ def test_plain_forward_is_the_fetch_then_the_fused_mlp():
 
 
 def test_unported_precision_and_bad_widths_raise():
+    """'bf16', ported now, runs the plain bf16 one-kernel forward; an
+    unknown precision and widths the kernels do not take raise."""
     feats, coords, ws, bs, _ = _inputs(8, 9, 16, 3, 32)
     tf, tw, tb = _port(feats, ws, bs)
     grid, c = channel_minor(tf), torch.from_numpy(coords)
-    with pytest.raises(ValueError, match='not yet ported'):
-        tff.fused_forward(grid, c, tw, tb, N_FREQS, precision='bf16')
+    out = tff.fused_forward(grid, c, tw, tb, N_FREQS, precision='bf16')
+    assert out.shape == (32, 1) and out.dtype == torch.float32
+    assert torch.equal(out, tff.fused_forward_plain(grid, c, tw, tb, N_FREQS, 'bf16'))
+    with pytest.raises(ValueError, match='precision'):
+        tff.fused_forward(grid, c, tw, tb, N_FREQS, precision='f16')
     with pytest.raises(ValueError, match='take width'):
         tff.fused_forward(grid, c, tw, tb, N_FREQS + 1)
     wide = _inputs(8, 9, 129, 2, 32)

@@ -136,23 +136,28 @@ def test_interp_backends_all_select_the_trilinear_fetch(backend):
             == tfg.make_spec(**FLAGSHIP))
 
 
-@pytest.mark.parametrize('kwargs,backends', [
-    pytest.param(dict(interp_backend='pallas_bf16'), None, id='kwargs0'),
-    pytest.param(dict(interp_backend='fused'), ('fused', 'xla'), id='kwargs1'),
-    pytest.param(dict(mlp_backend='pallas'), ('trilinear', 'pallas'), id='kwargs2'),
-    pytest.param(dict(compute_dtype='bfloat16'), None, id='kwargs3'),
-    pytest.param(dict(drop_type='straight_through'), ('trilinear', 'xla'), id='kwargs4')])
-def test_unported_options_raise(kwargs, backends):
-    """Options not ported yet raise "not yet ported"; the fused forward, the
-    fused MLP and the other gate families, ported since, build a spec that
-    records them."""
-    if backends is None:
-        with pytest.raises(ValueError, match='not yet ported'):
-            tfg.make_spec(**dict(FLAGSHIP, **kwargs))
-    else:
-        spec = tfg.make_spec(**dict(FLAGSHIP, **kwargs))
-        assert (spec.interp_backend, spec.mlp_backend) == backends
-        assert spec != tfg.make_spec(**FLAGSHIP)
+@pytest.mark.parametrize('kwargs,want', [
+    pytest.param(dict(interp_backend='pallas_bf16'), ('trilinear', 'xla', 'float32', 'bf16'),
+                 id='kwargs0'),
+    pytest.param(dict(interp_backend='fused'), ('fused', 'xla', 'float32', 'f32'), id='kwargs1'),
+    pytest.param(dict(mlp_backend='pallas'), ('trilinear', 'pallas', 'float32', 'f32'),
+                 id='kwargs2'),
+    pytest.param(dict(compute_dtype='bfloat16'), ('trilinear', 'xla', 'bfloat16', 'bf16'),
+                 id='kwargs3'),
+    pytest.param(dict(drop_type='straight_through'), ('trilinear', 'xla', 'float32', 'f32'),
+                 id='kwargs4')])
+def test_unported_options_raise(kwargs, want):
+    """Every option of the JAX make_spec is ported now (the fused forward,
+    the fused MLP, the other gate families, 'pallas_bf16' and bfloat16
+    compute): each builds a spec that records it (backends, compute dtype,
+    the fetch's mode); a compute dtype the JAX package rejects still
+    raises."""
+    spec = tfg.make_spec(**dict(FLAGSHIP, **kwargs))
+    assert (spec.interp_backend, spec.mlp_backend, spec.compute_dtype,
+            spec.fetch_precision) == want
+    assert spec != tfg.make_spec(**FLAGSHIP)
+    with pytest.raises(ValueError, match='compute_dtype'):
+        tfg.make_spec(**dict(FLAGSHIP, **dict(kwargs, compute_dtype='float16')))
 
 
 @pytest.mark.parametrize('kwargs', [

@@ -36,7 +36,9 @@ model = init_model(spec, torch.Generator().manual_seed(0), device='cpu')
 with torch.no_grad():
     out = apply_model(model, torch.rand(64, 3) * 2 - 1, train=False)
 assert out.shape == (64, 1) and bool(torch.isfinite(out).all())
-for kw in (dict(mlp_backend='pallas'), dict(interp_backend='fused')):
+for kw in (dict(mlp_backend='pallas'), dict(interp_backend='fused'),
+           dict(compute_dtype='bfloat16'), dict(interp_backend='pallas_bf16'),
+           dict(interp_backend='fused', compute_dtype='bfloat16')):
     m = init_model(make_spec(grid_size=8, grid_features=4, hidden=8, num_layers=2, **kw),
                    torch.Generator().manual_seed(0), device='cpu')
     apply_model(m, torch.rand(64, 3) * 2 - 1).sum().backward()
@@ -119,8 +121,17 @@ def test_bwd_kernel_entry_matches_wrapper_signature():
     _check_entry(gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_f32', gs._ARGTYPES)
 
 
+@pytest.mark.parametrize('kernel,entry', [(gs.KERNEL, 'lfgc_grid_sample_fwd_bf16'),
+                                          (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_bf16')])
+def test_bf16_kernel_entries_match_wrapper_signature(kernel, entry):
+    """The 'bf16' modes' entries take the 'f32' entries' arguments."""
+    _check_entry(kernel, entry, gs._ARGTYPES)
+
+
 @pytest.mark.parametrize('kernel,entry', [(gs.KERNEL, 'lfgc_grid_sample_fwd_plan'),
-                                          (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_plan')])
+                                          (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_plan'),
+                                          (gs.KERNEL, 'lfgc_grid_sample_fwd_bf16_plan'),
+                                          (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_bf16_plan')])
 def test_grid_sample_plan_entries_match_wrapper_signature(kernel, entry):
     assert len(gs.PLAN_ARGTYPES) == 7
     _check_entry(kernel, entry, gs.PLAN_ARGTYPES)
@@ -143,7 +154,32 @@ def test_grid_sample_plan_reads_the_entrys_report(monkeypatch, plan, routes, rep
     monkeypatch.setattr(_build, 'entry', lambda name, symbol, argtypes: (None, fn))
     got = plan(32768, 16, 15, 15, 15)
     assert calls == [(32768, 16, 15, 15, 15, 1)]
-    assert got == {**dict(zip(gs.PLAN_FIELDS, report)), 'route': routes[report[0]]}
+    assert got == {**dict(zip(gs.PLAN_FIELDS, report)), 'route': routes[report[0]],
+                   'mode': 'f32'}
+
+
+# what each source of a 'bf16' mode must show: the shared header's
+# plane-by-plane routines (trilinear.cuh), through which the fetch, the
+# gradient and the one-kernel forward round alike
+BF16_SOURCE_MARKS = {
+    'trilinear.cuh': ('for_each_plane(', 'fetch_channels(', 'grad_term(',
+                      '__float2bfloat16_rn'),
+    'grid_sample_fwd.cu': ('grid_sample_fwd_bf16_kernel(', 'lfgc::fetch_channels<true>(',
+                           'const __nv_bfloat16* __restrict__ grid'),
+    'grid_sample_bwd.cu': ('grid_sample_bwd_kernel<true, BF16>', 'lfgc::grad_term<BF16>(',
+                           'grid_sample_bwd_shared_kernel<BF16>'),
+    'fused_forward.cu': ('fetch_channels<IBF16>(', 'grad_term<IBF16>(', 'if (g.bf16) {'),
+}
+
+
+@pytest.mark.parametrize('source', sorted(BF16_SOURCE_MARKS))
+def test_bf16_modes_share_the_trilinear_routines(source):
+    """No nvcc here: check statically that every 'bf16' mode computes its
+    weights and sums through the routines of trilinear.cuh."""
+    with open(os.path.join(PORT, 'csrc', source)) as f:
+        src = f.read()
+    for mark in BF16_SOURCE_MARKS[source]:
+        assert mark in src, mark
 
 
 # what each kernel source must show: the fetch sized by occupancy and
@@ -155,7 +191,7 @@ KERNEL_SOURCE_MARKS = {
                         'const int64_t next = i + stride;'),
     'grid_sample_bwd': ('#include "launch.cuh"', '__launch_bounds__(kSharedThreads, 1)',
                         'extern __shared__', 'kSharedMinAdds',
-                        'atomicAdd(sum + int(r) * pitch + c, __fmul_rn(w, gv));',
+                        'atomicAdd(sum + int(r) * pitch + c, lfgc::grad_term<BF16>(wxy, wz, gv));',
                         '  __syncthreads();\n\n  const int Q = vec4 ? C / 4 : C;',
                         'lfgc::allow_smem(grid_sample_bwd_shared_kernel'),
 }
