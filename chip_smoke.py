@@ -51,17 +51,17 @@ backward).  Phases, each printing one JSON line, in order:
                  library = the default route (fetch kernel, fourier_embed,
                  torch.cat, mlp_apply), forward and forward + backward
   7. kernel_bf16  the 'bf16' modes against their plain versions: the fetch
-                 (on its bf16 grid copy) and its gradient at the flagship on a
-                 chunk of the 255^3 lattice and on one train step's trainer
-                 positions, at grid 23 (the blocked Pallas kernels'
-                 counterpart), C 5, C 22 on 17^3, and the gradient on both
-                 routes; at least 99.9% of entries within 1e-6 and all within
-                 4e-3 of max |.| (the fetch is expected bit for bit); the
-                 one-kernel 'bf16' forward and backward at the flagship
-                 within 1e-2 of max |.|; kernel, plain, library (F.grid_sample
-                 on a bf16 input and grid, and its autograd backward; the
-                 default bf16 route for the one-kernel pair), bound and the
-                 grid copy's cast times, and the launch plans
+                 (from the float32 grid, which it rounds itself) and its
+                 gradient at the flagship on a chunk of the 255^3 lattice
+                 and on one train step's trainer positions, at grid 23 (the
+                 blocked Pallas kernels' counterpart), C 5, C 22 on 17^3,
+                 and the gradient on both routes; the fetch bit for bit, the
+                 gradient with at least 99.9% of entries within 1e-6 and all
+                 within 4e-3 of max |.|; the one-kernel 'bf16' forward and
+                 backward at the flagship within 1e-2 of max |.|; kernel,
+                 plain, library (F.grid_sample on a bf16 input and grid, and
+                 its autograd backward; the default bf16 route for the
+                 one-kernel pair) and bound times, and the launch plans
   8. checkpoint  infer_torch.py --reconstruct checkpoint over the 255^3
                  mhd_like volume: 64 kernel launches, field in [-1, 1],
                  on-device PSNR = float64 host PSNR to 1e-3 dB, kernel field
@@ -200,16 +200,16 @@ GRAD_FLOOR = 1.0
 # the one-kernel forward in 'f32' against the fetch kernel + embedding + MLP
 # kernel route: the same arithmetic but torch's sin/cos for the embedding
 ROUTE_TOL = 1e-6
-# the 'bf16' fetch and gradient against their plain versions, relative to
-# max |.|: (share of entries, tolerance), and a bound on every entry.  The
-# plain versions round at the kernels' points and each product is exact, so
-# only the float32 order of a sum differs (none for the fetch, atomics for
-# the gradient); where a sum straddles a bf16 rounding boundary the rounded
-# value moves by one bf16 ulp (2^-8 of itself).  The gradient is held
-# against the plain version's terms summed in float64: two float32 orders
-# of the 4,096 adds an entry of a grid-4 gradient takes differ by up to
-# 1.3e-6 of max |dG| (measured on an H100), the plain version's own
-# rounding as much as the kernel's
+# the 'bf16' gradient against its plain version, relative to max |.|:
+# (share of entries, tolerance), and a bound on every entry.  The plain
+# versions round at the kernels' points and each product is exact, so only
+# the float32 order of a sum differs (none for the fetch, which is held bit
+# for bit; atomics for the gradient); where a sum straddles a bf16 rounding
+# boundary the rounded value moves by one bf16 ulp (2^-8 of itself).  The
+# gradient is held against the plain version's terms summed in float64: two
+# float32 orders of the 4,096 adds an entry of a grid-4 gradient takes
+# differ by up to 1.3e-6 of max |dG| (measured on an H100), the plain
+# version's own rounding as much as the kernel's
 BF16_SHARE, BF16_TOL, BF16_MAX = 0.999, 1e-6, 4e-3
 PSNR_BACKEND_DB = 1.0  # a kernel backend's train-3 PSNR against the default's
 MLP_WIDTHS = ([128, 128, 128, 128, 4], [19, 24, 24, 3])
@@ -292,12 +292,12 @@ def time_ms(fn, reps=25, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def fetch_bound_ms(n, C, D, H, W, grid_bytes=4):
-    """Least time for one fetch: the bytes it must move (coords read, output
-    written, grid read once at ``grid_bytes`` an element: 2 for the 'bf16'
-    mode's copy) and its float32 operations (8 corners x C FMAs, plus the
-    pixel map and weights), whichever takes longer."""
-    nbytes = 4 * n * (3 + C) + grid_bytes * D * H * W * C
+def fetch_bound_ms(n, C, D, H, W):
+    """Least time for one fetch, in either mode: the bytes it must move
+    (coords read, output written, the float32 grid read once) and its
+    float32 operations (8 corners x C FMAs, plus the pixel map and
+    weights), whichever takes longer."""
+    nbytes = 4 * n * (3 + C) + 4 * D * H * W * C
     ops = n * (2 * 8 * C + 40)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
@@ -699,7 +699,7 @@ def fused_row(phase, case, grid, coords, ws, bs, nf, g, precision):
         ref = ff.fused_forward_plain(grid, coords, ws, bs, nf, precision)
         rdg, rdws, rdbs = ff.fused_forward_plain_backward(grid, coords, ws, bs, nf, g, precision)
         _, dws2, dbs2 = ff.fused_forward_backward_cuda(grid, coords, ws, bs, nf, g, precision)
-        feats = (gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), coords)
+        feats = (gs.grid_sample_channel_minor_bf16_cuda(grid, coords)
                  if precision == 'bf16' else gs.grid_sample_channel_minor_cuda(grid, coords))
         route = mf.mlp_fused_cuda(ws, bs, torch.cat(
             [coords, fourier_embed(coords, nf), feats], dim=-1),
@@ -823,8 +823,7 @@ def phase_kernel_bf16(model, grid_cl):
             feats = torch.randn((C, G, G, G), device='cuda', generator=gen)
             coords = coords_of(kind, n)
             grid = channel_minor(feats)
-            grid16 = grid.to(torch.bfloat16)
-            out = gs.grid_sample_channel_minor_bf16_cuda(grid16, coords)
+            out = gs.grid_sample_channel_minor_bf16_cuda(grid, coords)
             plain = grid_sample_channel_minor_bf16(grid, coords)
             feats16, coords16 = feats.to(torch.bfloat16)[None], coords.to(torch.bfloat16)
 
@@ -833,19 +832,18 @@ def phase_kernel_bf16(model, grid_cl):
                                      padding_mode='zeros', align_corners=False)
             torch.cuda.synchronize()
             case = f'bf16 fetch C={C}, G={G}, {kind} coords'
-            check_bf16(out, plain, case)
+            check(torch.equal(out, plain), f'{case}: not its plain version bit for bit')
             share, worst, equal = bf16_close(out, plain)
-            bound, bound_by = fetch_bound_ms(n, C, G, G, G, grid_bytes=2)
+            bound, bound_by = fetch_bound_ms(n, C, G, G, G)
             row = {'phase': 'kernel_bf16', 'name': gs.BF16_KERNEL, 'C': C, 'grid': G,
                    'n': n, 'coords': kind, 'max_abs_err': (out - plain).abs().max().item(),
                    'max_rel_err': worst, 'share_within_tol': share, 'share_equal': equal,
                    'kernel_ms': time_ms(
-                       lambda: gs.grid_sample_channel_minor_bf16_cuda(grid16, coords)),
-                   'cast_ms': time_ms(lambda: grid.to(torch.bfloat16)),
+                       lambda: gs.grid_sample_channel_minor_bf16_cuda(grid, coords)),
                    'plain_ms': time_ms(lambda: grid_sample_channel_minor_bf16(grid, coords)),
                    'library_ms': time_ms(library),
                    'bound_ms': bound, 'bound_by': bound_by,
-                   'plan': gs.fwd_plan(n, C, G, G, G, gs._vec8(C, grid16, out), 'bf16')}
+                   'plan': gs.fwd_plan(n, C, G, G, G, gs._vec4(C, grid, out), 'bf16')}
             emit(row)
             rows.append(row)
     for C, G, kind, n in bwd_cases:
@@ -1090,10 +1088,11 @@ def phase_queries(model, suffix=''):
     return counts
 
 
-# kernels by the names the profiler gives them (the gradient's two modes are
-# instantiations of its kernels, both under 'grid_sample_bwd'; the one-kernel
-# pair's 'mixed' and 'bf16' run the same kernels)
-PROFILED_KERNELS = ('grid_sample_fwd_kernel', 'grid_sample_fwd_bf16_kernel',
+# kernels by the names the profiler gives them (the fetch's and the
+# gradient's two modes are instantiations of their kernels, under
+# 'grid_sample_fwd_kernel' and 'grid_sample_bwd'; the one-kernel pair's
+# 'mixed' and 'bf16' run the same kernels)
+PROFILED_KERNELS = ('grid_sample_fwd_kernel',
                     'grid_sample_bwd', 'mlp_fwd_kernel', 'mlp_bwd_kernel',
                     'fused_fwd_kernel', 'fused_bwd_kernel', 'reduce_slots_kernel')
 
@@ -1137,7 +1136,8 @@ def flagship_steps(suffix, steps, warmup=5, config=FLAGSHIP_CONFIG):
 def profile_train_steps(suffix='', steps=50, config=FLAGSHIP_CONFIG):
     """Device busy and idle share of ``steps`` flagship phase-1 steps of the
     family of ``config`` under the backend ``suffix`` of BACKENDS, host
-    clock around work that ends in a synchronise."""
+    clock around work that ends in a synchronise; each of PROFILED_KERNELS'
+    device time and launches a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step = flagship_steps(suffix, steps, config=config)
@@ -1164,6 +1164,8 @@ def profile_train_steps(suffix='', steps=50, config=FLAGSHIP_CONFIG):
             'kernel_launches_per_step': sum(r[2] for r in rows) / steps,
             'kernel_ms': {name: sum(r[0] for r in rows if name in r[1])
                           for name in PROFILED_KERNELS},
+            'kernel_calls_per_step': {name: sum(r[2] for r in rows if name in r[1]) / steps
+                                      for name in PROFILED_KERNELS},
             'top_kernels': [{'ms': ms, 'name': k[:80], 'calls': n}
                             for ms, k, n in rows[:10]]}
 
@@ -1267,6 +1269,10 @@ def phase_train(tmp, vol_path, suffix='', default=None, family=None):
     prof = None
     if family is None or family == 'dynamic_variational':
         prof = profile_train_steps(suffix, config=config)
+    if suffix == '_bf16':
+        # the 'bf16' fetch reads the float32 grid: one kernel a step, no cast
+        calls = prof['kernel_calls_per_step']['grid_sample_fwd_kernel']
+        check(calls == 1.0, f'{path}: the fetch kernel ran {calls} times a profiled step')
 
     def rates(i):
         return {ph: i[f'train_phase{ph}_samples_per_sec'] for ph in (1, 2)}
@@ -1461,7 +1467,7 @@ def main(argv=None):
                      'pallas_kernels.py:158', path_counts, 'train_bf16',
                      max_abs_err=max(r['max_abs_err'] for r in bf16_fetch),
                      max_abs_err_relative=max(r['max_rel_err'] for r in bf16_fetch),
-                     **numbers(bf16_trainer), cast_ms=bf16_trainer['cast_ms'],
+                     **numbers(bf16_trainer),
                      library='F.grid_sample on a bf16 input and grid',
                      shape={'n': bf16_trainer['n'], 'C': 16, 'grid': 15, 'coords': 'trainer',
                             'precision': 'bf16'}, plan=bf16_trainer['plan'],

@@ -61,6 +61,20 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// Each of v[0..K) rounded as bf16_round rounds it, two at a time: one packed
+// conversion (cvt.rn.bf16x2.f32) a pair, half the conversions of K
+// bf16_round calls (a fetch rounds 8 * C grid values a sample).
+template <int K>
+__device__ __forceinline__ void bf16_round_all(float* v) {
+#pragma unroll
+  for (int k = 0; k + 1 < K; k += 2) {
+    const float2 r = __bfloat1622float2(__floats2bfloat162_rn(v[k], v[k + 1]));
+    v[k] = r.x;
+    v[k + 1] = r.y;
+  }
+  if (K % 2) v[K - 1] = bf16_round(v[K - 1]);
+}
+
 // Visits the in-range corners of `c` plane by plane, lower z first: for each
 // in-range plane, plane(wz, xy), where xy(f) calls f(row, wxy) for the
 // plane's in-range corners in the order y, x (upper corner last on each
@@ -133,11 +147,15 @@ __device__ __forceinline__ void fetch_channels(const Cell& c, int D, int H, int 
       const float w = bf16_round(wxy);
       float v[K];
       load(row, v);
+      bf16_round_all<K>(v);
 #pragma unroll
-      for (int k = 0; k < K; ++k) s[k] = fmaf(w, bf16_round(v[k]), s[k]);
+      for (int k = 0; k < K; ++k) s[k] = fmaf(w, v[k], s[k]);
     });
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc[k] = __fadd_rn(acc[k], bf16_round(__fmul_rn(wz, s[k])));
+    for (int k = 0; k < K; ++k) s[k] = __fmul_rn(wz, s[k]);
+    bf16_round_all<K>(s);
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = __fadd_rn(acc[k], s[k]);
   });
 }
 

@@ -11,10 +11,11 @@ and ``_bwd_kernel_blocked``).  Their plain versions are
 
 Two modes, as the Pallas kernels' ``precision``: ``'f32'`` and ``'bf16'``
 (the bf16 compute path: ``compute_dtype='bfloat16'`` or
-``interp_backend='pallas_bf16'``), each its own C entries.  The 'bf16'
-forward reads a bf16 copy of the grid that :func:`fetch` makes (the TPU
-kernel rounds the grid to bf16 there too); the gradient takes and gives
-float32, rounding where the TPU kernel rounds.  Their plain versions are
+``interp_backend='pallas_bf16'``), each its own C entries of the same
+kernels.  Both take and give float32: the 'bf16' forward reads the float32
+grid and rounds each value to bf16 as it loads it (where the TPU kernel
+rounds the grid), so no bf16 copy is made, and the gradient rounds where
+the TPU kernel rounds.  Their plain versions are
 ``grid_sample_channel_minor_bf16`` and its ``_backward_bf16``.
 
 :func:`fetch` is what the model, the trainer and the evaluation call: a
@@ -23,11 +24,11 @@ versions for CPU tensors and launch the kernels (or raise) for CUDA tensors.
 Nothing falls back, and a mode never runs as the other.  The gradient
 reaches the grid only: the trainer never differentiates with respect to the
 sample positions (the JAX package stops their gradient), and it is float32
-in both modes.  ``launches`` and ``bwd_launches`` count the 'f32' kernels'
-launches, ``bf16_launches`` and ``bf16_bwd_launches`` the 'bf16' ones (and
-nothing else), so a run can show which kernels its path went through.  The
-backward kernel adds with atomics, so on the card its result is not bitwise
-reproducible from run to run.
+in both modes.  ``launches`` and ``bwd_launches`` count the kernels'
+launches in 'f32', ``bf16_launches`` and ``bf16_bwd_launches`` those in
+'bf16' (and nothing else), so a run can show which kernels its path went
+through.  The backward kernel adds with atomics, so on the card its result
+is not bitwise reproducible from run to run.
 
 :func:`fwd_plan` and :func:`bwd_plan` report how the kernels launch for a
 shape on the current card: the forward's lanes (float4 or scalar), the
@@ -51,7 +52,7 @@ from .interpolation import (channel_minor, grid_sample_channel_minor,
 
 KERNEL = 'grid_sample_fwd'
 BWD_KERNEL = 'grid_sample_bwd'
-# the 'bf16' mode's kernels (in the same sources), by the names of their counts
+# the kernels in the 'bf16' mode, by the names of their counts
 BF16_KERNEL = 'grid_sample_fwd_bf16'
 BF16_BWD_KERNEL = 'grid_sample_bwd_bf16'
 PRECISIONS = ('f32', 'bf16')
@@ -85,15 +86,13 @@ def _launch(name: str, entry: str, a: torch.Tensor, coords: torch.Tensor,
     _build.raise_on_error(lib, name, err)
 
 
-def _check(tensors, coords: torch.Tensor, bf16=()):
-    """CUDA, contiguous, on one card; float32, or bfloat16 for the names in
-    ``bf16`` (the 'bf16' forward's grid copy)."""
+def _check(tensors, coords: torch.Tensor):
+    """CUDA, float32, contiguous, on one card."""
     for name, t in list(tensors.items()) + [('coords', coords)]:
-        want = torch.bfloat16 if name in bf16 else torch.float32
         if t.device.type != 'cuda':
             raise ValueError(f"{name} must be a CUDA tensor; got {t.device}")
-        if t.dtype != want:
-            raise ValueError(f"{name} must be {str(want)[6:]}; got {t.dtype}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32; got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in tensors.items():
@@ -105,22 +104,14 @@ def _vec4(C: int, *tensors: torch.Tensor) -> bool:
     return C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _vec8(C: int, *tensors: torch.Tensor) -> bool:
-    """16-byte loads of 8 bf16 channels (and two float4 stores of them)."""
-    return C % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
-
-
 def _check_precision(precision: str):
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}; got {precision!r}")
 
 
-def grid_sample_channel_minor_cuda(grid: torch.Tensor, coords: torch.Tensor
-                                   ) -> torch.Tensor:
-    """Launch the forward kernel on a channel-minor (D, H, W, C) float32 grid
-    and (N, 3) coordinates, both contiguous on one card -> (N, C).  No
-    autograd: :func:`fetch` is the differentiable entry."""
-    global launches
+def _forward_cuda(grid: torch.Tensor, coords: torch.Tensor, precision: str
+                  ) -> torch.Tensor:
+    global launches, bf16_launches
     if grid.dim() != 4 or coords.dim() != 2 or coords.shape[1] != 3:
         raise ValueError(f"expected grid (D, H, W, C) and coords (N, 3); got "
                          f"{tuple(grid.shape)} and {tuple(coords.shape)}")
@@ -130,32 +121,30 @@ def grid_sample_channel_minor_cuda(grid: torch.Tensor, coords: torch.Tensor
     out = torch.empty((n, C), device=grid.device, dtype=torch.float32)
     if n == 0:
         return out
-    _launch(KERNEL, 'lfgc_grid_sample_fwd_f32', grid, coords, out, n, C, D, H, W,
-            _vec4(C, grid, out))
-    launches += 1
+    _launch(KERNEL, f'lfgc_grid_sample_fwd_{precision}', grid, coords, out, n, C,
+            D, H, W, _vec4(C, grid, out))
+    if precision == 'bf16':
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
-def grid_sample_channel_minor_bf16_cuda(grid16: torch.Tensor, coords: torch.Tensor
+def grid_sample_channel_minor_cuda(grid: torch.Tensor, coords: torch.Tensor
+                                   ) -> torch.Tensor:
+    """Launch the forward kernel on a channel-minor (D, H, W, C) float32 grid
+    and (N, 3) coordinates, both contiguous on one card -> (N, C).  No
+    autograd: :func:`fetch` is the differentiable entry."""
+    return _forward_cuda(grid, coords, 'f32')
+
+
+def grid_sample_channel_minor_bf16_cuda(grid: torch.Tensor, coords: torch.Tensor
                                         ) -> torch.Tensor:
-    """Launch the 'bf16' forward kernel on the bf16 copy of a channel-minor
-    (D, H, W, C) grid and float32 (N, 3) coordinates, both contiguous on
-    one card -> float32 (N, C).  No autograd: :func:`fetch` is the
-    differentiable entry (and makes the copy)."""
-    global bf16_launches
-    if grid16.dim() != 4 or coords.dim() != 2 or coords.shape[1] != 3:
-        raise ValueError(f"expected grid (D, H, W, C) and coords (N, 3); got "
-                         f"{tuple(grid16.shape)} and {tuple(coords.shape)}")
-    _check({'grid': grid16}, coords, bf16=('grid',))
-    D, H, W, C = grid16.shape
-    n = coords.shape[0]
-    out = torch.empty((n, C), device=grid16.device, dtype=torch.float32)
-    if n == 0:
-        return out
-    _launch(KERNEL, 'lfgc_grid_sample_fwd_bf16', grid16, coords, out, n, C, D, H, W,
-            _vec8(C, grid16, out))
-    bf16_launches += 1
-    return out
+    """Launch the forward kernel in 'bf16' on a channel-minor (D, H, W, C)
+    float32 grid (rounded to bf16 in the kernel) and float32 (N, 3)
+    coordinates, both contiguous on one card -> float32 (N, C).  No
+    autograd: :func:`fetch` is the differentiable entry."""
+    return _forward_cuda(grid, coords, 'bf16')
 
 
 def _backward_cuda(g: torch.Tensor, coords: torch.Tensor, D: int, H: int, W: int,
@@ -211,18 +200,14 @@ def fwd_plan(n: int, C: int, D: int, H: int, W: int, vec4: bool = True,
              precision: str = 'f32') -> dict:
     """How the forward kernel of the mode ``precision`` launches for n
     samples from a (D, H, W, C) grid on the current card: route 'float4'
-    (4 channels a lane; ``vec4``, which the wrapper takes where C % 4 == 0
-    and the pointers are aligned) or 'scalar' in 'f32', 'bf16x8' (8 bf16
-    channels a lane in one 16-byte load; ``vec4`` then stands for the
-    wrapper's C % 8 == 0 and aligned) or 'scalar' in 'bf16'; threads a
-    block, blocks an SM, blocks, samples a warp step, channels a lane,
-    shared bytes a block (0), and the mode."""
+    (float4 loads; ``vec4``, which the wrapper takes where C % 4 == 0 and
+    the pointers are aligned) or 'scalar' (guarded scalar loads), in either
+    mode; threads a block, blocks an SM, blocks, samples a warp step,
+    channels a lane, shared bytes a block (0), and the mode."""
     _check_precision(precision)
-    if precision == 'bf16':
-        return _plan(KERNEL, 'lfgc_grid_sample_fwd_bf16_plan', ('scalar', 'bf16x8'),
-                     n, C, D, H, W, vec4, precision)
-    return _plan(KERNEL, 'lfgc_grid_sample_fwd_plan', ('scalar', 'float4'),
-                 n, C, D, H, W, vec4, precision)
+    entry = ('lfgc_grid_sample_fwd_bf16_plan' if precision == 'bf16'
+             else 'lfgc_grid_sample_fwd_plan')
+    return _plan(KERNEL, entry, ('scalar', 'float4'), n, C, D, H, W, vec4, precision)
 
 
 def bwd_plan(n: int, C: int, D: int, H: int, W: int, vec4: bool = True,
@@ -256,9 +241,7 @@ class _Fetch(torch.autograd.Function):
             return grid_sample_channel_minor_cuda(grid, coords)
         if cpu:
             return grid_sample_channel_minor_bf16(grid, coords)
-        if grid.dtype != torch.float32:
-            raise ValueError(f"grid must be float32; got {grid.dtype}")
-        return grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), coords)
+        return grid_sample_channel_minor_bf16_cuda(grid, coords)
 
     @staticmethod
     def backward(ctx, g):

@@ -129,9 +129,9 @@ def test_plain_bf16_fetch_against_the_xla_gather_on_a_bf16_grid(C, G):
 
 
 def test_plain_bf16_fetch_takes_the_bf16_copy_alike():
-    """The forward reads the wrapper's bf16 copy of the grid on the card; the
-    plain version gives the same bits from the copy as from the float32
-    grid, since it rounds the grid at the same point."""
+    """The plain version gives the same bits from a bf16 copy of the grid
+    as from the float32 grid, since it rounds the grid first; the kernel
+    rounds each float32 value of the grid as it loads it."""
     feats, coords, _ = _fetch_inputs(16, 15, 500, 1)
     grid, c = channel_minor(torch.from_numpy(feats)), torch.from_numpy(coords)
     assert torch.equal(grid_sample_channel_minor_bf16(grid, c),
@@ -183,7 +183,7 @@ def test_bf16_cuda_wrappers_refuse_cpu_tensors():
     grid, c = channel_minor(torch.from_numpy(feats)), torch.from_numpy(coords)
     before = (gs.bf16_launches, gs.bf16_bwd_launches)
     with pytest.raises(ValueError, match='CUDA tensor'):
-        gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), c)
+        gs.grid_sample_channel_minor_bf16_cuda(grid, c)
     with pytest.raises(ValueError, match='CUDA tensor'):
         gs.grid_sample_channel_minor_backward_bf16_cuda(torch.from_numpy(g), c, 6, 6, 6)
     assert (gs.bf16_launches, gs.bf16_bwd_launches) == before

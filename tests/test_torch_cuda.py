@@ -256,11 +256,13 @@ def _train_setup(device, res=64, drop_type='smallify', max_pass=60, cfg_kw=None,
     return tr, ph, model, vol
 
 
-def test_train_step_on_card_matches_cpu(cuda_device):
-    """One full step (forward, both kernels, autograd, Adam, tracker) from
-    the same state and positions on the card and on the CPU."""
+def _train_step_pair(device):
+    """One full float32 step (forward, both kernels, autograd, Adam,
+    tracker) from the same state and positions on the CPU and on
+    ``device``: (loss, flat parameters, Adam's first moment, tracker) of
+    each."""
     outs = []
-    for dev in (torch.device('cpu'), cuda_device):
+    for dev in (torch.device('cpu'), device):
         tr, ph, model, vol = _train_setup(dev)
         st = tr.init_train_state(model, 0.008, 0.008, train_gates=True)
         c = tr.PhaseConstants(ph, vol)
@@ -269,12 +271,30 @@ def test_train_step_on_card_matches_cpu(cuda_device):
                            for _ in range(3)], -1).to(dev)
         norm, gt = tr.chunk_inputs(c, pos)
         loss, _ = tr.train_step(ph, st, c, norm[0], gt[0])
-        outs.append((float(loss), st.flat.cpu(), st.ema_var.cpu()))
-    (l0, f0, e0), (l1, f1, e1) = outs
+        outs.append((float(loss), st.flat.cpu(), st.m.cpu(), st.ema_var.cpu()))
+    return outs
+
+
+# Adam's first step moves each entry by lr * g / (|g| + eps), eps = 1e-8:
+# ~lr in the sign of g, but where |g| is within a few orders of eps the
+# step depends on g's last bits, which the gradient kernel's atomics move.
+# On an H100 the largest step differences sit at entries whose |m0| is
+# below 3e-6 of max |m0| (python tests/test_torch_cuda.py --repeat N prints
+# them); the step is held to 1e-5 above ADAM_SURE_SHARE of max |m0|
+ADAM_SURE_SHARE = 1e-4
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One full step from the same state and positions on the card and on
+    the CPU: the loss and the first moment to 1e-5 (the gradient kernel's
+    atomics sum in another order), the Adam step to 1e-5 where the
+    gradient is well clear of eps, every step within 2 lr."""
+    (l0, f0, m0, e0), (l1, f1, m1, e1) = _train_step_pair(cuda_device)
     assert abs(l0 - l1) <= 1e-5 * abs(l0)
-    # Adam's first step moves each entry by ~lr: a gradient that differs in
-    # its last bits (atomics) moves the update far less than that
-    np.testing.assert_allclose(f1.numpy(), f0.numpy(), atol=1e-5)
+    assert _rel(m1, m0) <= 1e-5
+    sure = m0.abs() > ADAM_SURE_SHARE * m0.abs().max()
+    np.testing.assert_allclose(f1[sure].numpy(), f0[sure].numpy(), atol=1e-5)
+    assert float((f1 - f0).abs().max()) <= 2 * 0.008 * 1.0001
     np.testing.assert_array_equal(e1.numpy(), e0.numpy())
 
 
@@ -631,35 +651,65 @@ def _bf16_close(got, want):
 
 
 # the flagship, grid 23 (the blocked Pallas kernels' counterpart), C 5 and C
-# 22 (guarded loads: C % 8 != 0), C 8 on grid 4, one channel, C = 40 (5
-# lanes a sample) and C = 264 (a sample's lanes loop); one sample, a partial
-# warp step, a train step's batch + 5 and an evaluation chunk + 3
+# 22 (guarded scalar loads: C % 4 != 0), C 8 on grid 4, one channel, C = 40
+# (10 float4 lanes a sample) and C = 264 (a sample's lanes loop); one
+# sample, a partial warp step, a train step's batch + 5 and an evaluation
+# chunk + 3
+BF16_FETCH_SHAPES = [(16, 15, 15, 15), (16, 23, 23, 23), (5, 15, 15, 15), (22, 17, 17, 17),
+                     (8, 4, 4, 4), (1, 4, 4, 4), (40, 9, 9, 9), (264, 3, 5, 7)]
+
+
 @pytest.mark.parametrize('n', [1, 33, 32768 + 5, (1 << 18) + 3])
-@pytest.mark.parametrize('shape', [(16, 15, 15, 15), (16, 23, 23, 23), (5, 15, 15, 15),
-                                   (22, 17, 17, 17), (8, 4, 4, 4), (1, 4, 4, 4),
-                                   (40, 9, 9, 9), (264, 3, 5, 7)])
+@pytest.mark.parametrize('shape', BF16_FETCH_SHAPES)
 def test_bf16_fetch_kernel_matches_plain(cuda_device, shape, n):
     f, c = _inputs(shape, n, 11)
     grid = channel_minor(f).to(cuda_device)
     c = c.to(cuda_device)
     before = (gs.launches, gs.bf16_launches)
     with torch.no_grad():
-        out = gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), c)
+        out = gs.grid_sample_channel_minor_bf16_cuda(grid, c)
     torch.cuda.synchronize()
     assert (gs.launches, gs.bf16_launches) == (before[0], before[1] + 1)
     assert out.dtype == torch.float32
     assert _bf16_close(out, grid_sample_channel_minor_bf16(grid, c))
     C, D, H, W = shape
-    plan = gs.fwd_plan(n, C, D, H, W, C % 8 == 0, 'bf16')
-    assert plan['route'] == ('bf16x8' if C % 8 == 0 else 'scalar')
-    assert plan['mode'] == 'bf16' and plan['channels_per_lane'] == 8
-    assert plan['samples_per_warp'] == 32 // min(-(-C // 8), 32)
+    plan = gs.fwd_plan(n, C, D, H, W, C % 4 == 0, 'bf16')
+    assert plan['route'] == ('float4' if C % 4 == 0 else 'scalar')
+    assert plan['mode'] == 'bf16'
+    # 8 channels a lane where the samples fill the card several times over:
+    # at the flagship, a lattice chunk's but not a train step's
+    assert plan['channels_per_lane'] in (4, 8)
+    if shape == (16, 15, 15, 15) and n > 33:
+        assert plan['channels_per_lane'] == (8 if n > (1 << 18) else 4)
+    assert plan['samples_per_warp'] == 32 // min(-(-C // plan['channels_per_lane']), 32)
+
+
+@pytest.mark.parametrize('shape', BF16_FETCH_SHAPES)
+def test_bf16_fetch_launches_one_kernel_bit_for_bit(cuda_device, shape):
+    """fetch(..., 'bf16') from the float32 grid launches the fetch kernel
+    and no other kernel (no copy of the grid), and equals the plain version
+    bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    f, c = _inputs(shape, 32768 + 5, 14)
+    grid, c = channel_minor(f).to(cuda_device), c.to(cuda_device)
+    with torch.no_grad():
+        gs.fetch(grid, c, 'bf16')   # builds and loads the kernel
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = gs.fetch(grid, c, 'bf16')
+            torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert 'grid_sample_fwd_kernel' in kernels[0][0]
+    assert torch.equal(out, grid_sample_channel_minor_bf16(grid, c))
 
 
 def test_bf16_fetch_unaligned_grid_takes_scalar_path(cuda_device):
     f, c = _inputs((8, 6, 6, 6), 1000, 12)
     grid = channel_minor(f).to(cuda_device)
-    storage = torch.empty(grid.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
+    storage = torch.empty(grid.numel() + 1, device=cuda_device)
     shifted = storage[1:].view(grid.shape)
     shifted.copy_(grid)
     assert shifted.data_ptr() % 16 != 0
@@ -715,12 +765,12 @@ def test_bf16_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     f, c = _inputs((4, 5, 5, 5), 10, 13)
     grid, c = channel_minor(f).to(cuda_device), c.to(cuda_device)
     before = (gs.bf16_launches, gs.bf16_bwd_launches)
-    with pytest.raises(ValueError, match='bfloat16'):
-        gs.grid_sample_channel_minor_bf16_cuda(grid, c)
     with pytest.raises(ValueError, match='float32'):
-        gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), c.double())
+        gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), c)
+    with pytest.raises(ValueError, match='float32'):
+        gs.grid_sample_channel_minor_bf16_cuda(grid, c.double())
     with pytest.raises(ValueError, match='CUDA tensor'):
-        gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), c.cpu())
+        gs.grid_sample_channel_minor_bf16_cuda(grid, c.cpu())
     with pytest.raises(ValueError, match='float32'):
         gs.grid_sample_channel_minor_backward_bf16_cuda(
             torch.ones((10, 4), device=cuda_device, dtype=torch.bfloat16), c, 5, 5, 5)
@@ -762,7 +812,7 @@ def test_fused_forward_bf16_features_are_the_bf16_fetch_kernels(cuda_device):
     grid = torch.randn((15, 15, 15, 16), device=cuda_device)
     coords = torch.rand((20000, 3), device=cuda_device) * 2 - 1
     x0 = torch.cat([coords, fourier_embed(coords, 2),
-                    gs.grid_sample_channel_minor_bf16_cuda(grid.to(torch.bfloat16), coords)],
+                    gs.grid_sample_channel_minor_bf16_cuda(grid, coords)],
                    dim=-1)
     two = mf.mlp_fused_cuda(ws, bs, x0, 'bf16')
     one = ff.fused_forward_cuda(grid, coords, ws, bs, 2, 'bf16')
@@ -843,3 +893,32 @@ def test_apply_model_on_card_matches_cpu_bf16(cuda_device, backend):
         out = fg.apply_model(model.to(cuda_device), c.to(cuda_device), train=False)
     assert out.dtype == torch.float32
     assert _rel(out.cpu(), ref) <= MLP_TOL['bf16'][0]
+
+
+def _adam_step_report(repeat):
+    """Repeat the float32 train step on the card and on the CPU and print,
+    for each pair, one JSON line: the first moment's error relative to max
+    |m0|; the entries whose Adam step is more than 1e-5 off, with their
+    largest |m0| over max |m0|; the five largest step differences, each
+    with its |m0| over max |m0|."""
+    import json
+    for k in range(repeat):
+        (_, f0, m0, _), (_, f1, m1, _) = _train_step_pair(torch.device('cuda'))
+        diff = (f1 - f0).abs()
+        off = diff > 1e-5
+        top = float(m0.abs().max())
+        worst = diff.topk(5).indices
+        print(json.dumps({'pair': k, 'entries': f0.numel(), 'm_rel_err': _rel(m1, m0),
+                          'steps_off_1e-5': int(off.sum()),
+                          'off_max_m0_share': (float(m0[off].abs().max()) / top
+                                               if off.any() else None),
+                          'largest_step_diffs': [[float(diff[i]), float(m0[i].abs()) / top]
+                                                 for i in worst]}), flush=True)
+
+
+if __name__ == '__main__':
+    import argparse
+    ap = argparse.ArgumentParser(description='Repeat the card-against-CPU train '
+                                 'step and report where its Adam steps differ.')
+    ap.add_argument('--repeat', type=int, default=10)
+    _adam_step_report(ap.parse_args().repeat)

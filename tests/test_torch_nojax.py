@@ -137,13 +137,21 @@ def test_grid_sample_plan_entries_match_wrapper_signature(kernel, entry):
     _check_entry(kernel, entry, gs.PLAN_ARGTYPES)
 
 
-@pytest.mark.parametrize('plan,routes,report', [
-    (gs.fwd_plan, ('scalar', 'float4'), [1, 256, 4, 512, 8, 4, 0]),
-    (gs.bwd_plan, ('global', 'shared'), [1, 1024, 1, 132, 2, 1, 4096]),
-    (gs.bwd_plan, ('global', 'shared'), [0, 256, 8, 512, 8, 4, 0])])
-def test_grid_sample_plan_reads_the_entrys_report(monkeypatch, plan, routes, report):
-    """No card here: a stand-in entry fills the report, and the wrapper
-    names its fields and the route."""
+@pytest.mark.parametrize('plan,routes,report,precision,entry', [
+    (gs.fwd_plan, ('scalar', 'float4'), [1, 256, 4, 512, 8, 4, 0], 'f32',
+     'lfgc_grid_sample_fwd_plan'),
+    (gs.bwd_plan, ('global', 'shared'), [1, 1024, 1, 132, 2, 1, 4096], 'f32',
+     'lfgc_grid_sample_bwd_plan'),
+    (gs.bwd_plan, ('global', 'shared'), [0, 256, 8, 512, 8, 4, 0], 'f32',
+     'lfgc_grid_sample_bwd_plan'),
+    (gs.fwd_plan, ('scalar', 'float4'), [1, 256, 4, 528, 8, 4, 0], 'bf16',
+     'lfgc_grid_sample_fwd_bf16_plan'),
+    (gs.fwd_plan, ('scalar', 'float4'), [0, 256, 4, 528, 32, 8, 0], 'bf16',
+     'lfgc_grid_sample_fwd_bf16_plan')])
+def test_grid_sample_plan_reads_the_entrys_report(monkeypatch, plan, routes, report,
+                                                   precision, entry):
+    """No card here: a stand-in entry of the mode fills the report, and the
+    wrapper names its fields, the route and the mode."""
     calls = []
 
     def fn(*args):
@@ -151,11 +159,16 @@ def test_grid_sample_plan_reads_the_entrys_report(monkeypatch, plan, routes, rep
         for k, v in enumerate(report):
             args[6][k] = v
         return 0
-    monkeypatch.setattr(_build, 'entry', lambda name, symbol, argtypes: (None, fn))
-    got = plan(32768, 16, 15, 15, 15)
-    assert calls == [(32768, 16, 15, 15, 15, 1)]
+    symbols = []
+
+    def stand_in(name, symbol, argtypes):
+        symbols.append(symbol)
+        return None, fn
+    monkeypatch.setattr(_build, 'entry', stand_in)
+    got = plan(32768, 16, 15, 15, 15, precision=precision)
+    assert calls == [(32768, 16, 15, 15, 15, 1)] and symbols == [entry]
     assert got == {**dict(zip(gs.PLAN_FIELDS, report)), 'route': routes[report[0]],
-                   'mode': 'f32'}
+                   'mode': precision}
 
 
 # what each source of a 'bf16' mode must show: the shared header's
@@ -164,8 +177,10 @@ def test_grid_sample_plan_reads_the_entrys_report(monkeypatch, plan, routes, rep
 BF16_SOURCE_MARKS = {
     'trilinear.cuh': ('for_each_plane(', 'fetch_channels(', 'grad_term(',
                       '__float2bfloat16_rn'),
-    'grid_sample_fwd.cu': ('grid_sample_fwd_bf16_kernel(', 'lfgc::fetch_channels<true>(',
-                           'const __nv_bfloat16* __restrict__ grid'),
+    'grid_sample_fwd.cu': ('template <bool VEC4, bool BF16, int K>\n__global__ void '
+                           '__launch_bounds__(kThreads)\ngrid_sample_fwd_kernel(',
+                           'lfgc::fetch_channels<BF16, K>(',
+                           'launch(grid, coords, out, n, C, D, H, W, vec4 != 0, true, stream)'),
     'grid_sample_bwd.cu': ('grid_sample_bwd_kernel<true, BF16>', 'lfgc::grad_term<BF16>(',
                            'grid_sample_bwd_shared_kernel<BF16>'),
     'fused_forward.cu': ('fetch_channels<IBF16>(', 'grad_term<IBF16>(', 'if (g.bf16) {'),
@@ -182,12 +197,24 @@ def test_bf16_modes_share_the_trilinear_routines(source):
         assert mark in src, mark
 
 
+def test_bf16_fetch_reads_the_float32_grid():
+    """The 'bf16' fetch is a mode of the fetch kernel that rounds the
+    float32 grid as it loads it: no bf16 grid in the source, no bf16 copy
+    of the grid in the wrapper."""
+    with open(os.path.join(PORT, 'csrc', 'grid_sample_fwd.cu')) as f:
+        src = f.read()
+    assert '__nv_bfloat16' not in src and 'grid_sample_fwd_bf16_kernel' not in src
+    with open(os.path.join(PORT, 'ops', 'grid_sample.py')) as f:
+        assert 'torch.bfloat16' not in f.read()
+
+
 # what each kernel source must show: the fetch sized by occupancy and
 # loading float4 lanes; the gradient's shared route summing dG in the
 # block's shared memory between two barriers, at one block an SM
 KERNEL_SOURCE_MARKS = {
-    'grid_sample_fwd': ('#include "launch.cuh"', 'lfgc::occupancy(grid_sample_fwd_kernel<true>',
-                        'for (int c = 4 * sub; c < C; c += 4 * Lw)',
+    'grid_sample_fwd': ('#include "launch.cuh"',
+                        'lfgc::occupancy(kernel_of(vec4, bf16, channels)',
+                        'for (int c = K * sub; c < C; c += K * Lw)',
                         'const int64_t next = i + stride;'),
     'grid_sample_bwd': ('#include "launch.cuh"', '__launch_bounds__(kSharedThreads, 1)',
                         'extern __shared__', 'kSharedMinAdds',
