@@ -89,7 +89,22 @@ backward).  Phases, each printing one JSON line, in order:
                  --interp_backend fused (the one-kernel 'bf16' pair): each
                  bf16 kernel once a step and the float32 fetch once an
                  evaluation chunk, PSNR within 1 dB of train's
- 12. train_families  train_torch.py on each other gate family's published
+ 12. resume      mid-training resume on the flagship: the phase-1 state and
+                 both generators of 2 chunks of 50 steps saved by
+                 solve_phase and loaded back bit for bit (also for
+                 mhd_p_dynamic_variational.txt, whose noise has a generator
+                 of its own), one more chunk from the loaded and the live
+                 state drawing the same positions and noise bit for bit,
+                 losses within 1e-5 (atomics); save and load ms; train's
+                 experiment resumed at phase 2 (no step: the fetch once an
+                 evaluation chunk, no gradient; PSNR, zeros and ratio equal
+                 train's) and at phase 1 (no phase-1 step, phase 2 rerun from
+                 the same generators: PSNR within 0.05 dB, zeros equal);
+                 train_torch.py --max_pass 1 --profile_dir (the trace of
+                 phase 1's second chunk names the fetch and gradient
+                 kernels); the TensorBoard writer the machine has, and with
+                 one, train-3 phase-1 samples/s without and with it
+ 13. train_families  train_torch.py on each other gate family's published
                  config, cut to max_pass = 3, default backend: train_
                  straight_through (mhd_p_masked_st.txt with --drop_type
                  straight_through), train_masked_straight_through,
@@ -100,21 +115,22 @@ backward).  Phases, each printing one JSON line, in order:
                  PSNR finite, the container restores; PSNR, ratio, zeros and
                  samples/s a phase; the dynamic family also the profile of 50
                  steps
- 13. step_rates  the flagship step time of each backend (the bf16 paths
+ 14. step_rates  the flagship step time of each backend (the bf16 paths
                  too) without the profiler, 5 rounds of 100 steps, the
                  backends in turns
- 14. kernels     one line {"kernels": [...]} for every ported kernel
+ 15. kernels     one line {"kernels": [...]} for every ported kernel
 
 Every count of launches is set to 0 just before a path is driven and read
 just after it.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
 
-``--only`` takes a comma-separated list of phases 2-13 (build, kernel,
+``--only`` takes a comma-separated list of phases 2-14 (build, kernel,
 kernel_bwd, kernel_mlp, kernel_fused, kernel_bf16, checkpoint, binary,
-queries, queries_bf16, train, train_bf16, train_families, step_rates) and
-runs the device phase and those, in the order above, with the same checks
-(train_bf16 without train compares no PSNR); the kernels line and the ok line need every phase, so a
+queries, queries_bf16, train, train_bf16, resume, train_families,
+step_rates) and runs the device phase and those, in the order above, with
+the same checks (train_bf16 without train compares no PSNR; resume runs
+train's default run first, whose experiment it resumes); the kernels line and the ok line need every phase, so a
 partial run prints neither (a quick loop on one kernel, never the smoke).
 """
 
@@ -141,9 +157,11 @@ from latent_feature_grid_compression_tpu_torch.data.volume import VolumeMeta, lo
 from latent_feature_grid_compression_tpu_torch.device import disable_tf32
 from latent_feature_grid_compression_tpu_torch.eval.reconstruct import (
     CHUNK, eval_stats_on_device, field_from_net, lattice_chunk)
-from latent_feature_grid_compression_tpu_torch.config import load_config
+from latent_feature_grid_compression_tpu_torch.config import load_config, write_dict
 from latent_feature_grid_compression_tpu_torch.io.checkpoint import save_checkpoint
 from latent_feature_grid_compression_tpu_torch.io.container import restore_model
+from latent_feature_grid_compression_tpu_torch.io.train_state_io import (
+    TENSOR_FIELDS, atomic_save_train_state, load_train_state)
 from latent_feature_grid_compression_tpu_torch.models.gates import is_dynamic
 from latent_feature_grid_compression_tpu_torch.models.feature_grid import (
     FeatureGridModel, apply_model, decode_volume, init_model, make_spec)
@@ -212,6 +230,15 @@ ROUTE_TOL = 1e-6
 # version's own rounding as much as the kernel's
 BF16_SHARE, BF16_TOL, BF16_MAX = 0.999, 1e-6, 4e-3
 PSNR_BACKEND_DB = 1.0  # a kernel backend's train-3 PSNR against the default's
+# the resume phase: steps a chunk of the state round trip (short, so that
+# the two continued runs drift apart only by a chunk of atomics); a loss of
+# the continued chunk against the live run's, relative (one train step on
+# the card against the CPU holds its loss to this, tests/test_torch_cuda.py);
+# train-3 resumed at phase 1 against train's own PSNR (the atomics of phase
+# 2's gradient are the only difference)
+RESUME_CHUNK = 50
+ATOMICS_TOL = 1e-5
+PSNR_RESUME_DB = 0.05
 MLP_WIDTHS = ([128, 128, 128, 128, 4], [19, 24, 24, 3])
 # backends of the paths: make_spec options and train_torch.py flags
 BACKENDS = {'': ({}, []),
@@ -1196,12 +1223,13 @@ def phase_step_rates(rounds=5, steps=100):
     return row
 
 
-def phase_train(tmp, vol_path, suffix='', default=None, family=None):
+def phase_train(tmp, vol_path, suffix='', default=None, family=None, keep=False):
     """The training path under the backend ``suffix`` of BACKENDS through its
     CLI, from counts at 0 to the export; ``default``: the info of the
     default backend's run, whose PSNR a kernel backend's must be within
     PSNR_BACKEND_DB of.  ``family``: a gate family of FAMILIES, trained from
-    its config under the default backend in place of the flagship."""
+    its config under the default backend in place of the flagship.
+    ``keep``: leave the experiment directory for the resume phase."""
     import train_torch
     path = 'train' + suffix if family is None else 'train_' + family
     config, flags = ((FLAGSHIP_CONFIG, BACKENDS[suffix][1]) if family is None else
@@ -1265,7 +1293,8 @@ def phase_train(tmp, vol_path, suffix='', default=None, family=None):
     for name in ('info.txt', 'config.txt', 'model.npz', 'binary_model_file',
                  'binary_model_file_mask.bnr', 'vol.vti', 'gt.vti'):
         check(name in files, f'{path} did not write {name}')
-    shutil.rmtree(exp)
+    if not keep:
+        shutil.rmtree(exp)
     prof = None
     if family is None or family == 'dynamic_variational':
         prof = profile_train_steps(suffix, config=config)
@@ -1297,6 +1326,229 @@ def phase_train(tmp, vol_path, suffix='', default=None, family=None):
     return info, counts
 
 
+class _Killed(Exception):
+    """Ends a solve_phase run after a chosen chunk (a stand-in for a kill)."""
+
+
+def run_chunks(ph, st, vol, gens, n_chunks, **kw):
+    """``n_chunks`` chunks of RESUME_CHUNK steps of ``solve_phase`` on ``st``
+    in place, its metric callback ending the phase there: (their losses,
+    the positions and the noise each chunk drew)."""
+    losses, drawn_pos, drawn_noise = [], [], []
+    draw_pos, draw_noise = tr.draw_positions, tr.draw_noise
+
+    def cb(x):
+        losses.append(x)
+        if len(losses) == n_chunks:
+            raise _Killed
+
+    def recording(draw, sink):
+        def call(*a, **k):
+            sink.append(draw(*a, **k))
+            return sink[-1]
+        return call
+    tr.draw_positions = recording(draw_pos, drawn_pos)
+    tr.draw_noise = recording(draw_noise, drawn_noise)
+    try:
+        tr.solve_phase(ph, st, vol, RESUME_CHUNK, generator=gens[0], noise_generator=gens[1],
+                       verbose=False, metric_cb=cb, **kw)
+    except _Killed:
+        pass
+    else:
+        raise RuntimeError('chip_smoke check failed: the phase ended before the chunks ran')
+    finally:
+        tr.draw_positions, tr.draw_noise = draw_pos, draw_noise
+    return np.concatenate(losses), drawn_pos, drawn_noise
+
+
+def same_draws(a, b):
+    """Two lists of draws (tensors, lists of tensors or None) bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if a is None or b is None:
+        return a is b
+    return len(a) == len(b) and all(same_draws(x, y) for x, y in zip(a, b))
+
+
+def state_round_trip(config, vol_dev, tmp):
+    """A flagship-width phase-1 state of ``config``'s family after 2 chunks,
+    saved by solve_phase with both CUDA generators, loaded back; then one
+    chunk from the loaded and from the live state and generators."""
+    cfg = load_config(config)
+    spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type,
+                            drop_momentum=cfg.drop_momentum,
+                            drop_threshold=cfg.drop_threshold))
+    gen = torch.Generator().manual_seed(SEED)
+    model = init_model(spec, gen, device='cuda')
+    variance = None
+    if is_dynamic(spec.drop_type):
+        variance = tuple([t.cuda() for t in ts] for ts in init_variance_model(gen))
+    ph = tr.make_phase_spec(cfg, spec, VolumeMeta(tuple(vol_dev.shape)), phase=1)
+
+    def fresh():
+        return tr.init_train_state(model, cfg.lr, cfg.lr, train_gates=True,
+                                   variance=variance, weight_dkl=cfg.lambda_drop_loss)
+
+    def generators(seed):
+        return tuple(torch.Generator(device='cuda').manual_seed(seed + i) for i in range(2))
+    live, live_gens = fresh(), generators(SEED)
+    path = os.path.join(tmp, 'train_state.npz')
+    run_chunks(ph, live, vol_dev, live_gens, 2, state_save_path=path, save_every_s=0.0)
+    check(live.step == 2 * RESUME_CHUNK, f'{live.step} steps in 2 chunks')
+    # one more save of the same state, timed alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    atomic_save_train_state(os.path.join(tmp, 'timed.npz'), live, live_gens)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    loaded_gens = generators(SEED + 100)
+    template = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_train_state(path, template, loaded_gens)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(loaded.step == live.step, 'loaded step')
+    for name in TENSOR_FIELDS:
+        a, b = getattr(loaded, name), getattr(live, name)
+        check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+              f'{name} did not load bit for bit')
+    for a, b in zip(loaded_gens, live_gens):
+        check(torch.equal(a.get_state(), b.get_state()), 'a generator did not load')
+    runs = [run_chunks(ph, st, vol_dev, g, 1)
+            for st, g in ((live, live_gens), (loaded, loaded_gens))]
+    (l_live, p_live, n_live), (l_loaded, p_loaded, n_loaded) = runs
+    check(same_draws(p_live, p_loaded) and same_draws(n_live, n_loaded),
+          'the loaded state drew other positions or noise')
+    rel_diff = np.abs(l_loaded - l_live) / np.abs(l_live)
+    check(float(rel_diff.max()) <= ATOMICS_TOL,
+          f'continued losses differ by {float(rel_diff.max())} of themselves')
+    return {'config': os.path.relpath(config, REPO), 'chunk': RESUME_CHUNK,
+            'saved_at_step': 2 * RESUME_CHUNK, 'save_ms': save_ms, 'load_ms': load_ms,
+            'file_bytes': os.path.getsize(path), 'trainables': live.flat.numel(),
+            'noise_drawn': bool(n_live),
+            'continued_first_loss_equal': bool(l_live[0] == l_loaded[0]),
+            'continued_max_rel_loss_diff': float(rel_diff.max())}
+
+
+def writer_kind():
+    """The TensorBoard writer train/run.py::_make_writer finds, or None."""
+    try:
+        import tensorboardX  # noqa: F401
+        return 'tensorboardX'
+    except ImportError:
+        pass
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        return 'torch'
+    except ImportError:
+        return None
+
+
+def train_cli(tmp, vol_path, expname, *flags, max_pass=TRAIN_MAX_PASS):
+    """train_torch.py on the flagship config from the smoke's directory:
+    (info, launch counts, seconds)."""
+    import train_torch
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = train_torch.main(['--config', FLAGSHIP_CONFIG, '--data', vol_path,
+                                 '--max_pass', str(max_pass), '--basedir', '/',
+                                 '--expname', expname, *flags])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(os.path.join(tmp, expname))
+    return info, counts, seconds
+
+
+def phase_resume(tmp, vol_path, default):
+    """Mid-training resume, the profiler trace and the writer (the train
+    phase's default run, ``default``, left its experiment in ``tmp``)."""
+    from latent_feature_grid_compression_tpu_torch.train import run as run_mod
+    n_chunks = math.ceil(VolumeMeta((VOLUME_N,) * 3).n_voxels / CHUNK)
+    row = {'phase': 'resume'}
+    vol_dev = torch.from_numpy(load_volume(vol_path)).cuda()
+    row['state_round_trip'] = [state_round_trip(config, vol_dev, tmp) for config in
+                               (FLAGSHIP_CONFIG, os.path.join(CONFIGS, FAMILIES[
+                                   'dynamic_variational'][0]))]
+    del vol_dev
+
+    exp = os.path.join(tmp, 'train')
+    keys = ('psnr', 'num_zeros', 'compression_ratio')
+    write_dict({'phase': 2}, 'resume_meta.txt', exp)
+    info, counts, seconds = train_cli(tmp, vol_path, 'resume_phase2', '--resume', exp)
+    check(counts == only({gs.KERNEL: n_chunks}) and info['train_phase2_steps'] == 0,
+          f'the resume at phase 2 took {info["train_phase2_steps"]} steps, launched {counts}')
+    check(all(info[k] == default[k] for k in keys),
+          f'resumed at phase 2: {[info[k] for k in keys]}, train: '
+          f'{[default[k] for k in keys]}')
+    row['phase2'] = {'seconds': seconds, 'launches': counts,
+                     **{k: info[k] for k in keys}}
+
+    write_dict({'phase': 1}, 'resume_meta.txt', exp)
+    info, counts, seconds = train_cli(tmp, vol_path, 'resume_phase1', '--resume', exp)
+    steps2 = default['train_phase2_steps']
+    check(info['train_phase1_steps'] == 0 and info['train_phase2_steps'] == steps2
+          and counts == only({gs.KERNEL: steps2 + n_chunks, gs.BWD_KERNEL: steps2}),
+          f'the resume at phase 1 took {info["train_phase1_steps"]} + '
+          f'{info["train_phase2_steps"]} steps, launched {counts}')
+    check(abs(info['psnr'] - default['psnr']) <= PSNR_RESUME_DB
+          and info['num_zeros'] == default['num_zeros'],
+          f"resumed at phase 1: PSNR {info['psnr']}, zeros {info['num_zeros']}; train: "
+          f"{default['psnr']}, {default['num_zeros']}")
+    row['phase1'] = {'seconds': seconds, 'launches': counts,
+                     **{k: info[k] for k in keys},
+                     'psnr_minus_train': info['psnr'] - default['psnr'],
+                     **{f'phase2_{k}_minus_train': info[f'train_phase2_{k}'] -
+                        default[f'train_phase2_{k}']
+                        for k in ('first_loss', 'last_loss', 'last_volume_loss')}}
+    shutil.rmtree(exp)
+
+    prof_dir = os.path.join(tmp, 'profile_trace')
+    run_chunk = load_config(FLAGSHIP_CONFIG).steps_per_chunk
+    info, _, seconds = train_cli(tmp, vol_path, 'profile', '--profile_dir', prof_dir,
+                                 max_pass=1)
+    traces = [f for f in os.listdir(prof_dir) if f.endswith('.pt.trace.json')]
+    check(len(traces) == 1 and info['train_phase1_steps'] > run_chunk,
+          f'{traces} traces of {info["train_phase1_steps"]} phase-1 steps')
+    trace_path = os.path.join(prof_dir, traces[0])
+    with open(trace_path) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    named = {k: sum(k in n for n in kernels)
+             for k in ('grid_sample_fwd_kernel', 'grid_sample_bwd')}
+    check(all(named.values()), f'the trace names {named} of {len(kernels)} kernels')
+    row['profile'] = {'phase1_steps': info['train_phase1_steps'],
+                      'traced_steps': min(run_chunk, info['train_phase1_steps'] - run_chunk),
+                      'trace_bytes': os.path.getsize(trace_path), 'events': len(events),
+                      'kernel_events': len(kernels), 'named_kernel_events': named,
+                      'train_cli_s': seconds}
+    shutil.rmtree(prof_dir)
+
+    row['writer'] = writer_kind()
+    if row['writer'] is not None:
+        rates = {}
+        make_writer = run_mod._make_writer
+        for label in ('without', 'with'):
+            if label == 'without':
+                run_mod._make_writer = lambda cfg: None
+            try:
+                info, _, _ = train_cli(tmp, vol_path, 'writer_' + label)
+            finally:
+                run_mod._make_writer = make_writer
+            rates[label] = info['train_phase1_samples_per_sec']
+        row['writer_phase1_samples_per_sec'] = rates
+        row['writer_train_default_phase1_samples_per_sec'] = \
+            default['train_phase1_samples_per_sec']
+    emit(row)
+    return row
+
+
 def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
     """One entry of the kernels line: launches on the main path of the
     kernel and on every path, the numbers at the main path's inputs."""
@@ -1313,7 +1565,7 @@ def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
 
 PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'kernel_bf16',
           'checkpoint', 'binary', 'queries', 'queries_bf16', 'train', 'train_bf16',
-          'train_families', 'step_rates')
+          'resume', 'train_families', 'step_rates')
 
 
 def parse_args(argv):
@@ -1358,7 +1610,7 @@ def main(argv=None):
     try:
         vol_path = os.path.join(tmp, 'mhd_like.npy')
         if want('checkpoint') or want('train') or want('train_bf16') or \
-                want('train_families'):
+                want('resume') or want('train_families'):
             np.save(vol_path, synth_volume(VOLUME_N, seed=1, octaves=6))
         if want('checkpoint'):
             _, model, path_counts['decompress'] = phase_checkpoint(tmp, vol_path)
@@ -1370,8 +1622,9 @@ def main(argv=None):
                 for suffix in suffixes:
                     path_counts['queries' + suffix] = phase_queries(model, suffix)
         default = None
+        if want('train') or want('resume'):
+            default, path_counts['train'] = phase_train(tmp, vol_path, keep=want('resume'))
         if want('train'):
-            default, path_counts['train'] = phase_train(tmp, vol_path)
             for suffix in ('_mlp_pallas', '_fused'):
                 _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
                                                                default)
@@ -1379,6 +1632,8 @@ def main(argv=None):
             for suffix in BF16_BACKENDS:
                 _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
                                                                default)
+        if want('resume'):
+            phase_resume(tmp, vol_path, default)
         if want('train_families'):
             for family in FAMILIES:
                 _, path_counts['train_' + family] = phase_train(tmp, vol_path,

@@ -8,13 +8,17 @@ separate ``SmallifyAux(ema, ema_var)``; the port keeps ``nn.Linear``'s
 (out, in) and holds the gates and the tracker in the model.  The dynamic
 family's variance model is a dict of (in, out) weights and biases there, a
 (weights, biases) pair in (out, in) here.  This is one of the two places the
-transpose happens (``io/checkpoint.py`` is the other).  The caller passes
-the JAX fields as numpy arrays, so this module imports nothing of JAX.
+transpose happens (``io/checkpoint.py`` is the other).  A JAX ``TrainState``
+crosses too (``train_state_from_jax``): its Adam moments are one vector in
+``ravel_pytree``'s order of (params, variance model), the port's in its
+``FlatLayout``'s.  The caller passes the JAX fields as numpy arrays, so this
+module imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,3 +82,87 @@ def variance_to_jax(variance):
     keeps them."""
     ws, bs = variance
     return {'w': tuple(a.T.copy() for a in _np(ws)), 'b': tuple(_np(bs))}
+
+
+def tensors_from_jax(names: Sequence[str], coeffs, mlp_w, mlp_b,
+                     gates: Optional[Dict[str, Sequence[np.ndarray]]] = None,
+                     variance: Optional[dict] = None) -> List[np.ndarray]:
+    """The JAX arrays of the groups ``names`` (a ``FlatLayout``'s: coeffs,
+    mlp_w, mlp_b, gate fields, var_w, var_b) in the port's flat order and
+    layout: MLP and variance weights as (out, in)."""
+    groups = {'coeffs': coeffs, 'mlp_w': [np.asarray(w).T for w in mlp_w],
+              'mlp_b': mlp_b, **(gates or {})}
+    if variance is not None:
+        groups.update(var_w=[np.asarray(w).T for w in variance['w']], var_b=variance['b'])
+    return [np.asarray(a, dtype=np.float32) for name in names for a in groups[name]]
+
+
+def _unravel_jax(flat: np.ndarray, coeffs, mlp_w, mlp_b, gates, variance):
+    """A vector in ``ravel_pytree``'s order of (ModelParams, variance dict)
+    split into arrays shaped as the given ones: coeffs, mlp_w, mlp_b, the
+    gate container's fields in their declared order, then the variance
+    model's 'b' before its 'w' (a dict's keys are sorted)."""
+    gate_fields = [f for f in G.FIELDS[:4] if gates and gates.get(f) is not None]
+    like = {'coeffs': coeffs, 'mlp_w': mlp_w, 'mlp_b': mlp_b,
+            **{f: gates[f] for f in gate_fields}}
+    order = ['coeffs', 'mlp_w', 'mlp_b', *gate_fields]
+    if variance is not None:
+        like.update(var_b=variance['b'], var_w=variance['w'])
+        order += ['var_b', 'var_w']
+    out, k = {}, 0
+    for name in order:
+        out[name] = []
+        for a in like[name]:
+            n = int(np.prod(np.shape(a)))
+            out[name].append(np.asarray(flat[k:k + n]).reshape(np.shape(a)))
+            k += n
+    if k != np.size(flat):
+        raise ValueError(f"the moments hold {np.size(flat)} values, the parameters {k}")
+    return (out['coeffs'], out['mlp_w'], out['mlp_b'], {f: out[f] for f in gate_fields},
+            {'w': out['var_w'], 'b': out['var_b']} if variance is not None else None)
+
+
+def train_state_from_jax(template, *, params, m, v, step, lr, shadow_lr, last_loss,
+                         no_gain, stop, weight_dkl, var_params=None, gate_aux=None):
+    """A JAX ``TrainState``'s fields, as numpy, as the port's ``TrainState``
+    on ``template``'s layout and device (``template``: the port's state of
+    the same phase, e.g. ``init_train_state`` of ``params_from_jax``).
+
+    params: (coeffs, mlp_w, mlp_b, gates) with gates a dict of the gate
+    container's fields or None; var_params: {'w': ..., 'b': ...} or None;
+    m, v: the flat moments over (params, var_params); gate_aux: smallify's
+    (ema, ema_var) or None.  The groups the port's phase does not train (the
+    gates and the variance model in phase 2) are left out.  JAX's stop flag
+    also holds the budget stop; set, it becomes the port's stop at the
+    state's step, so the phase takes no step either way."""
+    coeffs, mlp_w, mlp_b, gates = params
+    names = template.layout.names
+    dev = template.flat.device
+
+    def flat_of(parts):
+        return torch.from_numpy(np.concatenate(
+            [a.ravel() for a in tensors_from_jax(names, *parts)])).to(dev)
+
+    def scalar(value, like):
+        return torch.as_tensor(np.array(value)).to(device=dev, dtype=like.dtype)
+
+    fields = dict(
+        flat=flat_of((coeffs, mlp_w, mlp_b, gates, var_params)),
+        m=flat_of(_unravel_jax(m, coeffs, mlp_w, mlp_b, gates, var_params)),
+        v=flat_of(_unravel_jax(v, coeffs, mlp_w, mlp_b, gates, var_params)),
+        step=int(step), lr=scalar(lr, template.lr),
+        shadow_lr=scalar(shadow_lr, template.shadow_lr),
+        last_loss=scalar(last_loss, template.last_loss),
+        no_gain=scalar(no_gain, template.no_gain), stop=scalar(stop, template.stop),
+        stop_step=scalar(int(step) if bool(stop) else 0, template.stop_step),
+        weight_dkl=scalar(weight_dkl, template.weight_dkl))
+    if fields['flat'].shape != template.flat.shape:
+        raise ValueError(f"the JAX state holds {fields['flat'].numel()} trainables, "
+                         f"the port's layout {template.flat.numel()}")
+    if template.ema is not None:
+        ema, ema_var = gate_aux
+        fields.update(ema=torch.from_numpy(np.concatenate(
+                          [np.asarray(e, np.float32).ravel() for e in ema])).to(dev),
+                      ema_var=torch.from_numpy(np.concatenate(
+                          [np.asarray(e, np.float32).ravel() for e in ema_var])).to(dev))
+    return dataclasses.replace(template, **fields)

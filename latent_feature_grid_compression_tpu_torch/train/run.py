@@ -10,6 +10,16 @@ training(cfg) -> info dict:
   evaluation, compression accounting, ``model.npz``, the packed binary
   container and the info/config artifacts.
 
+The experiment directory doubles as the resume location, as in the JAX
+package: ``resume_meta.txt`` names the phase in progress (1, 2, then
+``done``), ``train_state_phase{1,2}.npz`` hold each phase's state and
+generators (saved at most every minute and at the phase's end), and
+``bake.npz`` the frozen masks and the zero count.  ``cfg.resume`` points a
+run at such a directory; ``cfg.profile_dir`` takes a profiler trace of
+phase 1's second chunk; the TensorBoard writer (tensorboardX, else
+``torch.utils.tensorboard``, else none) logs into ``cfg.Tensorboard_log_dir``
+or ``runs/<expname>``.
+
 Runs on ``device='cuda'`` unless the caller passes ``'cpu'``.  Options whose
 paths are not ported raise "not yet ported" and name the ROADMAP item.
 """
@@ -23,12 +33,13 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import TrainConfig, write_dict
+from ..config import TrainConfig, dict_from_file, write_dict
 from ..data.volume import VolumeMeta, load_volume
 from ..device import resolve_device
 from ..eval.reconstruct import tiled_net_out
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.container import store_model_parameters
+from ..io.train_state_io import load_train_state
 from ..models import gates as G
 from ..models.feature_grid import (FeatureGridModel, init_model, make_spec,
                                    num_net_params, remove_drop_layers,
@@ -40,11 +51,6 @@ from .trainer import (StepTimer, init_train_state, make_phase_spec, solve_phase,
 
 def check_ported(cfg: TrainConfig):
     """Raise on every option whose path the port does not have yet."""
-    if cfg.resume:
-        raise ValueError("resume is not yet ported (train-state checkpoints, "
-                         "ROADMAP Queue 1 item 6)")
-    if cfg.profile_dir:
-        raise ValueError("profile_dir is not yet ported (ROADMAP Queue 1 item 6)")
     if cfg.mesh_data * cfg.mesh_space > 1 or cfg.mesh_shard_params \
             or cfg.mesh_local_decode:
         raise ValueError("multi-device training is not yet ported "
@@ -57,14 +63,35 @@ def experiment_dir(cfg: TrainConfig) -> str:
     return os.path.abspath(os.getcwd()) + cfg.basedir + cfg.expname + '/'
 
 
+def _make_writer(cfg: TrainConfig):
+    """A TensorBoard ``SummaryWriter`` (tensorboardX's, else PyTorch's; None
+    when neither package is installed) into ``cfg.Tensorboard_log_dir``,
+    with the config written beside it, else into ``runs/<expname>`` under
+    the working directory."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return None
+    if cfg.Tensorboard_log_dir:
+        writer = SummaryWriter(cfg.Tensorboard_log_dir)
+        write_dict(cfg.to_dict(), 'config.txt', cfg.Tensorboard_log_dir)
+    else:
+        writer = SummaryWriter('runs/' + cfg.expname)
+    return writer
+
+
 def evaluate_model_training(model: FeatureGridModel, meta: VolumeMeta,
                             volume_np: np.ndarray, zeros: float, cfg: TrainConfig,
-                            verbose: bool = True, write_vols: bool = True,
+                            writer=None, verbose: bool = True, write_vols: bool = True,
                             volume_dev: Optional[torch.Tensor] = None,
                             device: str | torch.device = 'cuda') -> dict:
     """Final evaluation and the artifacts: ``info.txt``, ``config.txt``,
     ``model.npz``, ``binary_model_file`` + ``_mask.bnr`` and, with
-    ``write_vols``, ``vol.vti`` and ``gt.vti``."""
+    ``write_vols``, ``vol.vti`` and ``gt.vti``; the evaluation's scalars
+    to ``writer`` when given."""
     experiment_path = experiment_dir(cfg)
     os.makedirs(experiment_path, exist_ok=True)
 
@@ -91,6 +118,11 @@ def evaluate_model_training(model: FeatureGridModel, meta: VolumeMeta,
         'rmse': rmse,
         'compr_rmse': compr_rmse,
     }
+    if writer is not None:
+        for tag, value in (('compression_ratio', compression_ratio), ('zeroes', zeros),
+                           ('psnr', psnr), ('mse', mse), ('rmse', rmse),
+                           ('compr_rmse', compr_rmse)):
+            writer.add_scalar(tag, value)
 
     ckpt_path = os.path.join(experiment_path, 'model.npz')
     save_checkpoint(ckpt_path, model)
@@ -110,6 +142,39 @@ def _phase_generator(seed: int, phase: int, device: torch.device,
     (``stream`` ()), or the gate noise's (``stream`` (1,))."""
     return torch.Generator(device=device).manual_seed(
         int(np.random.SeedSequence([seed, phase, *stream]).generate_state(1)[0]))
+
+
+def _resume_point(cfg: TrainConfig, verbose: bool) -> Tuple[int, str]:
+    """(the phase to resume, the directory to resume from); (0, '') without
+    ``cfg.resume``.  ``cfg.resume`` is an experiment directory or a file in
+    it; a run that finished raises."""
+    if not cfg.resume:
+        return 0, ''
+    resume_dir = cfg.resume if os.path.isdir(cfg.resume) else os.path.dirname(cfg.resume)
+    phase = dict_from_file(os.path.join(resume_dir, 'resume_meta.txt'))['phase']
+    if phase == 'done':
+        raise ValueError(f"{resume_dir} finished training (resume_meta phase=done); "
+                         f"use --checkpoint_path for a warm start instead")
+    if verbose:
+        print(f"Resuming phase {phase} from {resume_dir}")
+    return int(phase), resume_dir
+
+
+def _save_bake(experiment_path: str, masks, zeros: float):
+    """The frozen masks and the zero count of the bake, with the JAX
+    package's keys (``zeros``, ``mask_{i}``)."""
+    arrs = {} if masks is None else {f'mask_{i}': m.cpu().numpy()
+                                     for i, m in enumerate(masks)}
+    np.savez(os.path.join(experiment_path, 'bake.npz'), zeros=np.float64(zeros), **arrs)
+
+
+def _load_bake(resume_dir: str, device: torch.device):
+    with np.load(os.path.join(resume_dir, 'bake.npz'), allow_pickle=False) as z:
+        zeros = float(z['zeros'])
+        n = sum(1 for k in z.files if k.startswith('mask_'))
+        masks = ([torch.from_numpy(z[f'mask_{i}']).to(device=device, dtype=torch.float32)
+                  for i in range(n)] if n else None)
+    return masks, zeros
 
 
 def training(cfg: TrainConfig, verbose: bool = True,
@@ -155,10 +220,20 @@ def training(cfg: TrainConfig, verbose: bool = True,
 
     experiment_path = experiment_dir(cfg)
     os.makedirs(experiment_path, exist_ok=True)
+    resume_phase, resume_dir = _resume_point(cfg, verbose)
     timers, phase_stats = [], {}
+    writer = _make_writer(cfg)
 
-    def run_phase(phase, state, masks, gate_noise=None):
+    def run_phase(phase, state, masks, gate_noise=None, profile_dir=''):
         ph = make_phase_spec(cfg, spec, meta, phase=phase)
+        generators = (_phase_generator(cfg.seed, phase, dev),
+                      _phase_generator(cfg.seed, phase, dev, (1,)))
+        save_path = os.path.join(experiment_path, f'train_state_phase{phase}.npz')
+        if resume_phase == phase:
+            state = load_train_state(
+                os.path.join(resume_dir, f'train_state_phase{phase}.npz'), state,
+                generators)
+        write_dict({'phase': phase}, 'resume_meta.txt', experiment_path)
         timers.append(StepTimer(ph.batch_n))
         losses, vol_losses = [], []
         start = state.step
@@ -167,12 +242,11 @@ def training(cfg: TrainConfig, verbose: bool = True,
         t0 = time.perf_counter()
         # solve_phase ends in a device read: the wall time is the card's
         state = solve_phase(ph, state, volume, cfg.steps_per_chunk, masks,
-                            generator=_phase_generator(cfg.seed, phase, dev),
-                            positions=positions[phase - 1],
-                            noise_generator=_phase_generator(cfg.seed, phase, dev, (1,)),
-                            gate_noise=gate_noise, verbose=verbose,
-                            timer=timers[-1], metric_cb=losses.append,
-                            volume_cb=vol_losses.append)
+                            generator=generators[0], positions=positions[phase - 1],
+                            noise_generator=generators[1], gate_noise=gate_noise,
+                            verbose=verbose, timer=timers[-1], metric_cb=losses.append,
+                            volume_cb=vol_losses.append, writer=writer,
+                            state_save_path=save_path, profile_dir=profile_dir)
         seconds = time.perf_counter() - t0
         steps = state.step - start
         phase_stats.update({
@@ -184,33 +258,45 @@ def training(cfg: TrainConfig, verbose: bool = True,
             phase_stats[f'phase{phase}_last_{name}'] = float(values[-1]) if steps else None
         return state
 
-    # --- phase 1: gated training -----------------------------------------
-    state = init_train_state(model, lr=cfg.lr, shadow_lr=cfg.lr,
-                             train_gates=bool(spec.drop_type), variance=variance,
-                             weight_dkl=cfg.lambda_drop_loss)
-    state = run_phase(1, state, None, gate_noise)
-    model = state_to_model(state, model)
+    try:
+        # --- phase 1: gated training -------------------------------------
+        state = init_train_state(model, lr=cfg.lr, shadow_lr=cfg.lr,
+                                 train_gates=bool(spec.drop_type), variance=variance,
+                                 weight_dkl=cfg.lambda_drop_loss)
+        if resume_phase < 2:
+            state = run_phase(1, state, None, gate_noise, cfg.profile_dir)
+            model = state_to_model(state, model)
+            # --- bake the gates into the grid ----------------------------
+            model, masks, zeros = save_dropvalues_on_grid(model)
+        else:
+            # phase 2 takes only the shapes of the model's tensors from
+            # here (its state comes from the file), and the pruning drops
+            # the gates
+            masks, zeros = _load_bake(resume_dir, dev)
+        # (also when resumed, so that this run's directory resumes alone)
+        _save_bake(experiment_path, masks, zeros)
 
-    # --- bake the gates into the grid ------------------------------------
-    model, masks, zeros = save_dropvalues_on_grid(model)
+        # --- phase 2: finetune at lr/10 under the frozen masks -------------
+        # (without the variance model: its gradient there is 0, so is its
+        # update)
+        state2 = init_train_state(model, lr=cfg.lr / 10.0,
+                                  shadow_lr=float(state.shadow_lr), train_gates=False)
+        # the plateau state carries over (the reference reuses its strategy)
+        state2.last_loss, state2.no_gain = state.last_loss, state.no_gain
+        state2 = run_phase(2, state2, masks)
+        model = state_to_model(state2, model)
 
-    # --- phase 2: finetune at lr/10 under the frozen masks -----------------
-    # (without the variance model: its gradient there is 0, so is its update)
-    state2 = init_train_state(model, lr=cfg.lr / 10.0,
-                              shadow_lr=float(state.shadow_lr), train_gates=False)
-    # the plateau state carries over (the reference reuses its strategy)
-    state2.last_loss, state2.no_gain = state.last_loss, state.no_gain
-    state2 = run_phase(2, state2, masks)
-    model = state_to_model(state2, model)
-
-    # --- hard prune + evaluate ---------------------------------------------
-    model = remove_drop_layers(model, masks)
-    info = evaluate_model_training(model, meta, volume_np, zeros, cfg,
-                                   verbose=verbose, write_vols=write_vols,
-                                   volume_dev=volume, device=dev)
+        # --- hard prune + evaluate -----------------------------------------
+        model = remove_drop_layers(model, masks)
+        info = evaluate_model_training(model, meta, volume_np, zeros, cfg, writer=writer,
+                                       verbose=verbose, write_vols=write_vols,
+                                       volume_dev=volume, device=dev)
+    finally:
+        if writer is not None:
+            writer.close()
     info.update({'train_' + k: v
                  for k, v in StepTimer.merge(timers).stats().items()})
     info.update({'train_' + k: v for k, v in phase_stats.items()})
     write_dict(info, 'info.txt', experiment_path)
+    write_dict({'phase': 'done'}, 'resume_meta.txt', experiment_path)
     return info
-

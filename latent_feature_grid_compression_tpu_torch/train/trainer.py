@@ -36,9 +36,12 @@ generator of its own, or from an iterator of per-level lists.
 Reference quirk kept: in phase 2 the lr strategy's decays reach only the
 shadow lr (the reference's strategy still points at the phase-1 optimizer),
 so phase 2 trains at a constant lr/10 while the plateau logic runs on the
-shadow lr.  Not ported yet: resume and mid-phase state saves, the
-profiler trace and the TensorBoard writer (ROADMAP Queue 1 item 6) and
-multi-device (item 5).
+shadow lr.
+
+Around the chunks, as the JAX trainer: throttled saves of the state and
+its generators for a mid-training resume, a profiler trace of the second
+chunk, and the TensorBoard scalars and histograms on a worker thread.  Not
+ported yet: multi-device (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import contextlib
 import dataclasses
 import math
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -54,13 +58,18 @@ import torch
 
 from ..config import TrainConfig
 from ..data.volume import VolumeMeta
+from ..io.train_state_io import atomic_save_train_state
 from ..models import gates as G
 from ..models.feature_grid import (FeatureGridModel, ModelSpec, Params, apply_model,
                                    coeff_shapes)
 from ..models.variance import apply_variance_model
+from ..utils.profiling import trace
 from . import losses as L
 
 _F32 = np.float32
+# the least seconds between two mid-phase saves of the state (a save copies
+# the whole state to the host), as the JAX trainer
+SAVE_EVERY_S = 60.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,10 +335,16 @@ def draw_positions(c: PhaseConstants, n_steps: int, N: int,
 
 def loss_and_grad(ph: PhaseSpec, layout: FlatLayout, flat: torch.Tensor,
                   norm: torch.Tensor, gt: torch.Tensor, masks=None, noise=None,
-                  weight_dkl: Optional[torch.Tensor] = None):
+                  weight_dkl: Optional[torch.Tensor] = None,
+                  terms: Optional[dict] = None):
     """(loss, volume loss, gradient of the loss with respect to ``flat``).
     ``noise``: this step's per-level gate noise (straight-through,
-    variational); ``weight_dkl``: this step's KL weight (variational)."""
+    variational); ``weight_dkl``: this step's KL weight (variational).
+    ``terms``: a dict that receives the loss's other terms under the JAX
+    trainer's metric names (``Log_Likelyhood_loss``, ``DKL_loss``,
+    ``Weight_loss`` for the variational families in phase 1, else
+    ``drop_loss``), as detached tensors (or 0.0 where the term is absent):
+    no launch is added."""
     x = flat.detach().requires_grad_(True)
     p, variance = layout.views(x)
     train_gates = bool(ph.drop_type)
@@ -344,35 +359,43 @@ def loss_and_grad(ph: PhaseSpec, layout: FlatLayout, flat: torch.Tensor,
         else:
             log_sigma = torch.full_like(pred, ph.variational_sigma)
         gates = G.Gates(log_thetas=[x[s['log_thetas']]], log_var=[x[s['log_var']]])
-        loss, _, vol_loss, _, _ = L.variational_loss(
+        loss, ll, vol_loss, dkl, wsum = L.variational_loss(
             coeffs, gates, pred, gt, log_sigma, weight_dkl, ph.lambda_weight_loss,
             batch_scale=ph.n_voxels / ph.batch_n, data_scale=ph.n_voxels / pred.shape[0])
+        named = {'Log_Likelyhood_loss': ll, 'DKL_loss': dkl, 'Weight_loss': wsum}
     else:
         vol_loss = torch.mean((pred - gt) ** 2)
         loss = vol_loss
+        drop_loss = 0.0
         if train_gates:
             name = G.trainable_fields(ph.drop_type)[0]
-            loss = loss + L.smallify_family_loss(
+            drop_loss = L.smallify_family_loss(
                 ph.drop_type, coeffs, G.Gates(**{name: [x[s[name]]]}),
                 ph.lambda_drop_loss, ph.lambda_weight_loss)
+            loss = loss + drop_loss
+        named = {'drop_loss': drop_loss}
+    if terms is not None:
+        terms.update({k: v.detach() if torch.is_tensor(v) else float(v)
+                      for k, v in named.items()})
     g, = torch.autograd.grad(loss, x)
     return loss.detach(), vol_loss.detach(), g
 
 
 def train_step(ph: PhaseSpec, st: TrainState, c: PhaseConstants,
                norm: torch.Tensor, gt: torch.Tensor, masks=None,
-               guard: bool = False, noise=None):
+               guard: bool = False, noise=None, terms: Optional[dict] = None):
     """One step in place on ``st``; returns (loss, volume loss) on the
     device.  ``guard``: the stop flag may be set, so every update is taken
     only where it is not (a stopped step changes nothing).  ``noise``: the
-    step's per-level gate noise."""
+    step's per-level gate noise.  ``terms``: receives the loss's other
+    terms (``loss_and_grad``)."""
     t = st.step + 1
     weight_dkl = None
     if ph.variational:
         # the KL weight is ramped before the loss that uses it
         weight_dkl = L.ramp_weight_dkl(st.weight_dkl, ph.weight_dkl_multiplier)
     loss, vol_loss, g = loss_and_grad(ph, st.layout, st.flat, norm, gt, masks, noise,
-                                      weight_dkl)
+                                      weight_dkl, terms)
     flat, m, v = adam_update(st.flat, g, st.m, st.v, st.lr, c.bc1[t - 1],
                              c.bc2[t - 1])
     ema = ema_var = None
@@ -465,6 +488,33 @@ class StepTimer:
         }
 
 
+def phase_done(ph: PhaseSpec, state: TrainState) -> bool:
+    """Whether ``state`` has finished its phase: the pass budget spent (known
+    to the host from the step) or the plateau stop (one device read).  A
+    fresh state has not."""
+    if state.step == 0:
+        return False
+    if state.step >= ph.t_max or ph.budget_stop(state.step, ph.passes(state.step)[0]):
+        return True
+    return bool(state.stop)
+
+
+def _emit_scalars(writer, start: int, losses, vol_losses, terms):
+    """Each step's losses under the JAX trainer's tags, at its step number."""
+    for i, (loss, vol_loss, named) in enumerate(zip(losses, vol_losses, terms)):
+        it = start + i + 1
+        writer.add_scalar('loss', loss, it)
+        writer.add_scalar('volume_loss', vol_loss, it)
+        for tag, value in named.items():
+            writer.add_scalar(tag, value, it)
+
+
+def _emit_histograms(writer, rates: List[torch.Tensor], step: int):
+    """The variational drop rates of each level."""
+    for lvl, r in enumerate(rates):
+        writer.add_histogram(f'droprates_layer_{lvl}', r.cpu().numpy().ravel(), step)
+
+
 def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 steps_per_chunk: int, masks=None, *,
                 generator: Optional[torch.Generator] = None,
@@ -473,9 +523,12 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 gate_noise: Optional[Iterator] = None,
                 verbose: bool = True, timer: Optional[StepTimer] = None,
                 metric_cb: Optional[Callable[[np.ndarray], None]] = None,
-                volume_cb: Optional[Callable[[np.ndarray], None]] = None
+                volume_cb: Optional[Callable[[np.ndarray], None]] = None,
+                writer=None, state_save_path: str = '',
+                save_every_s: float = SAVE_EVERY_S, profile_dir: str = ''
                 ) -> TrainState:
-    """Run one phase until its pass budget is spent or the plateau stop.
+    """Run one phase until its pass budget is spent or the plateau stop; a
+    state that has finished its phase (``phase_done``) takes no step.
 
     volume:           the (X, Y, Z) ground truth on the training device.
     generator:        draws the positions (a ``torch.Generator`` on that
@@ -486,7 +539,20 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                       ``gate_noise`` yields a list of per-level tensors, one
                       list per step.
     metric_cb:        called after every chunk with the losses of its steps;
-    volume_cb:        likewise with their volume losses (MSE)."""
+    volume_cb:        likewise with their volume losses (MSE).
+    writer:           a TensorBoard ``SummaryWriter``: each step's losses
+                      (read in the chunk's one device read) and, for the
+                      variational families, the drop-rate histograms (at
+                      most every 30 s, and at the stop), written on a worker
+                      thread.
+    state_save_path:  the state and both generators saved there
+                      (``io/train_state_io.py``, atomically) after a chunk
+                      when ``save_every_s`` have passed since the last save,
+                      and at the end of the phase; a chunk draws its
+                      positions and noise before it runs, so a save holds
+                      the generators where the next chunk starts.
+    profile_dir:      a ``torch.profiler`` trace of the second chunk (the
+                      first builds the kernels) written there."""
     if positions is None and generator is None:
         raise ValueError("solve_phase needs a generator or a positions iterator")
     if (G.noise_kind(ph.drop_type) and gate_noise is None
@@ -495,59 +561,93 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                          f"or a gate-noise iterator")
     c = PhaseConstants(ph, volume)
     N = ph.batch_n
-    first = True
-    stopped = False
-    while state.step < ph.t_max and not stopped:
-        n = min(steps_per_chunk, ph.t_max - state.step)
-        if positions is None:
-            pos = draw_positions(c, n, N, generator)
-        else:
-            pos = torch.from_numpy(np.stack([np.asarray(next(positions))
-                                             for _ in range(n)])).to(volume.device)
-        noise = None
-        if G.noise_kind(ph.drop_type) and gate_noise is None:
-            noise = draw_noise(ph, n, noise_generator, volume.device)
-        elif G.noise_kind(ph.drop_type):
-            steps = [next(gate_noise) for _ in range(n)]
-            noise = [torch.from_numpy(np.stack([np.asarray(s[lvl], dtype=np.float32)
-                                                for s in steps])).to(volume.device)
-                     for lvl in range(len(steps[0]))]
-        start = state.step
-        tchunk = timer.chunk(n, first=first) if timer is not None \
-            else contextlib.nullcontext()
-        with tchunk:
-            norm_all, gt_all = chunk_inputs(c, pos)
-            losses, vol_losses = [], []
-            guard = False
-            for i in range(n):
-                loss, vol_loss = train_step(ph, state, c, norm_all[i], gt_all[i],
-                                            masks, guard,
-                                            None if noise is None else [a[i] for a in noise])
-                losses.append(loss)
-                vol_losses.append(vol_loss)
-                cur, boundary = ph.passes(state.step)
-                # after a boundary the plateau stop may have come
-                guard = guard or (boundary and ph.use_smallify_decay)
-                if ph.budget_stop(state.step, cur):
-                    stopped = True
-                    break
-            # the one device read of the chunk
-            read = torch.stack([state.stop.to(torch.float32),
-                                state.stop_step.to(torch.float32),
-                                *losses, *vol_losses]).tolist()
-        first = False
-        if read[0]:
-            # the steps launched after the plateau stop were idle
-            stopped = True
-            state.step = int(read[1])
-        k = state.step - start
-        losses, vol_losses = read[2:2 + k], read[2 + len(losses):][:k]
-        if metric_cb is not None:
-            metric_cb(np.asarray(losses))
-        if volume_cb is not None:
-            volume_cb(np.asarray(vol_losses))
-        if verbose and k:
-            vp = _F32(state.step) * _F32(N) * _F32(1.0 / float(ph.n_voxels))
-            print(f"Pass [{vp:.4f} / {ph.max_pass:.1f}]: volume loss: "
-                  f"{vol_losses[-1]:.4f}, complete_loss: {losses[-1]:.4f}")
+    generators = (generator, noise_generator)
+    stopped = phase_done(ph, state)
+    last_save, last_hist = time.monotonic(), -math.inf
+    chunk = 0
+    # the writer's worker (an executor starts its thread at the first submit)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        futures = []
+        while state.step < ph.t_max and not stopped:
+            n = min(steps_per_chunk, ph.t_max - state.step)
+            if positions is None:
+                pos = draw_positions(c, n, N, generator)
+            else:
+                pos = torch.from_numpy(np.stack([np.asarray(next(positions))
+                                                 for _ in range(n)])).to(volume.device)
+            noise = None
+            if G.noise_kind(ph.drop_type) and gate_noise is None:
+                noise = draw_noise(ph, n, noise_generator, volume.device)
+            elif G.noise_kind(ph.drop_type):
+                steps = [next(gate_noise) for _ in range(n)]
+                noise = [torch.from_numpy(np.stack([np.asarray(s[lvl], dtype=np.float32)
+                                                    for s in steps])).to(volume.device)
+                         for lvl in range(len(steps[0]))]
+            start = state.step
+            tchunk = timer.chunk(n, first=chunk == 0) if timer is not None \
+                else contextlib.nullcontext()
+            with trace(profile_dir if chunk == 1 else '', volume.device), tchunk:
+                norm_all, gt_all = chunk_inputs(c, pos)
+                losses, vol_losses, terms = [], [], []
+                guard = False
+                for i in range(n):
+                    named = {} if writer is not None else None
+                    loss, vol_loss = train_step(ph, state, c, norm_all[i], gt_all[i],
+                                                masks, guard,
+                                                None if noise is None else [a[i] for a in noise],
+                                                named)
+                    losses.append(loss)
+                    vol_losses.append(vol_loss)
+                    terms.append(named)
+                    cur, boundary = ph.passes(state.step)
+                    # after a boundary the plateau stop may have come
+                    guard = guard or (boundary and ph.use_smallify_decay)
+                    if ph.budget_stop(state.step, cur):
+                        stopped = True
+                        break
+                # the one device read of the chunk
+                extra = [v for named in terms if named for v in named.values()
+                         if torch.is_tensor(v)]
+                read = torch.stack([state.stop.to(torch.float32),
+                                    state.stop_step.to(torch.float32),
+                                    *losses, *vol_losses, *extra]).tolist()
+            chunk += 1
+            if read[0]:
+                # the steps launched after the plateau stop were idle
+                stopped = True
+                state.step = int(read[1])
+            k = state.step - start
+            losses, vol_losses = read[2:2 + k], read[2 + len(losses):][:k]
+            if (state_save_path and not stopped
+                    and time.monotonic() - last_save >= save_every_s):
+                atomic_save_train_state(state_save_path, state, generators)
+                last_save = time.monotonic()
+            if writer is not None:
+                values = iter(read[2 + 2 * len(terms):])
+                terms = [{tag: next(values) if torch.is_tensor(v) else v
+                          for tag, v in named.items()} for named in terms][:k]
+                futures.append(pool.submit(_emit_scalars, writer, start, losses,
+                                           vol_losses, terms))
+                if ph.variational and (stopped or time.monotonic() - last_hist > 30.0):
+                    p, _ = state.layout.views(state.flat.detach())
+                    rates = [G.variational_dropout_rates(p, lvl)
+                             for lvl in range(len(p.log_thetas))]
+                    futures.append(pool.submit(_emit_histograms, writer, rates,
+                                               state.step))
+                    last_hist = time.monotonic()
+                # a failed write raises here, at the latest after the phase
+                while futures and futures[0].done():
+                    futures.pop(0).result()
+            if metric_cb is not None:
+                metric_cb(np.asarray(losses))
+            if volume_cb is not None:
+                volume_cb(np.asarray(vol_losses))
+            if verbose and k:
+                vp = _F32(state.step) * _F32(N) * _F32(1.0 / float(ph.n_voxels))
+                print(f"Pass [{vp:.4f} / {ph.max_pass:.1f}]: volume loss: "
+                      f"{vol_losses[-1]:.4f}, complete_loss: {losses[-1]:.4f}")
+        for f in futures:
+            f.result()
+    if state_save_path:
+        atomic_save_train_state(state_save_path, state, generators)
     return state

@@ -313,6 +313,77 @@ def test_train_steps_on_card_launch_both_kernels(cuda_device):
     assert np.isfinite(losses).all() and losses[-20:].mean() < 0.5 * losses[:20].mean()
 
 
+class _Killed(Exception):
+    pass
+
+
+def _run_chunks(tr, ph, st, vol, gens, n_chunks, drawn, **kw):
+    """Run ``n_chunks`` chunks of 8 steps of the phase on ``st`` in place
+    (a metric callback that raises ends the phase there); returns their
+    losses, and appends each chunk's drawn positions to ``drawn``."""
+    losses = []
+
+    def cb(x):
+        losses.append(x)
+        if len(losses) == n_chunks:
+            raise _Killed
+    draw = tr.draw_positions
+
+    def recording(*a, **k):
+        drawn.append(draw(*a, **k))
+        return drawn[-1]
+    tr.draw_positions = recording
+    try:
+        with pytest.raises(_Killed):
+            tr.solve_phase(ph, st, vol, 8, generator=gens[0], noise_generator=gens[1],
+                           verbose=False, metric_cb=cb, **kw)
+    finally:
+        tr.draw_positions = draw
+    return np.concatenate(losses)
+
+
+@pytest.mark.parametrize('drop_type', ['smallify', 'straight_through'])
+def test_train_state_round_trip_on_card(cuda_device, drop_type, tmp_path):
+    """A flagship-width phase-1 state on the card after 2 chunks, saved by
+    solve_phase with both CUDA generators (Philox seed and offset): loaded
+    back bit for bit.  One more chunk from the loaded state and generators
+    and from the live ones: the positions (and the gate noise's
+    generator) bit for bit, the losses within the gradient kernel's
+    atomics (test_train_step_on_card_matches_cpu's 1e-5)."""
+    from latent_feature_grid_compression_tpu_torch.io.train_state_io import (
+        TENSOR_FIELDS, load_train_state)
+    tr, ph, model, vol = _train_setup(cuda_device, drop_type=drop_type, max_pass=6)
+
+    def fresh():
+        return tr.init_train_state(model, 0.008, 0.008, train_gates=True)
+
+    def gens(seed):
+        return tuple(torch.Generator(device=cuda_device).manual_seed(seed + i)
+                     for i in range(2))
+    live, live_gens = fresh(), gens(1)
+    path = str(tmp_path / 'state.npz')
+    _run_chunks(tr, ph, live, vol, live_gens, 2, [], state_save_path=path,
+                save_every_s=0.0)
+    assert live.step == 16
+    loaded_gens = gens(7)
+    loaded = load_train_state(path, fresh(), loaded_gens)
+    assert loaded.step == live.step
+    for name in TENSOR_FIELDS:
+        a, b = getattr(loaded, name), getattr(live, name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+    for a, b in zip(loaded_gens, live_gens):
+        assert torch.equal(a.get_state(), b.get_state())
+    drawn = ([], [])
+    losses = []
+    for st, g, d in ((live, live_gens, drawn[0]), (loaded, loaded_gens, drawn[1])):
+        losses.append(_run_chunks(tr, ph, st, vol, g, 1, d))
+    assert len(drawn[0]) == len(drawn[1]) == 1 and torch.equal(drawn[0][0], drawn[1][0])
+    for a, b in zip(loaded_gens, live_gens):
+        assert torch.equal(a.get_state(), b.get_state())
+    assert losses[0][0] == losses[1][0]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5, atol=0)
+
+
 def test_apply_model_on_card_matches_cpu(cuda_device):
     spec = fg.make_spec(**FLAGSHIP)
     model = fg.init_model(spec, torch.Generator().manual_seed(1), device='cpu')

@@ -25,7 +25,8 @@ from latent_feature_grid_compression_tpu.ops import mlp_pallas as jmp
 from latent_feature_grid_compression_tpu.train import losses as jL
 from latent_feature_grid_compression_tpu.train import trainer as jtr
 from latent_feature_grid_compression_tpu_torch import config as tconfig
-from latent_feature_grid_compression_tpu_torch.convert import variance_from_jax
+from latent_feature_grid_compression_tpu_torch.convert import (tensors_from_jax,
+                                                               variance_from_jax)
 from latent_feature_grid_compression_tpu_torch.data.volume import VolumeMeta as TMeta
 from latent_feature_grid_compression_tpu_torch.models import feature_grid as tfg
 from latent_feature_grid_compression_tpu_torch.models import gates as tG
@@ -94,16 +95,18 @@ def _setup(seed, shape, phase, backend='xla', **cfg_kw):
 def _jax_tensors(jparams_like, drop_type='smallify', var_like=None):
     """coeffs, mlp_w ((out, in) like the port), mlp_b, the family's gate
     tensors and the variance model's weights (out, in) and biases, as
-    numpy, in the port's flat order."""
-    out = ([np.asarray(c) for c in jparams_like.coeffs]
-           + [np.asarray(w).T for w in jparams_like.mlp_w]
-           + [np.asarray(b) for b in jparams_like.mlp_b])
+    numpy, in the port's flat order (``convert.tensors_from_jax``)."""
+    names = ['coeffs', 'mlp_w', 'mlp_b']
+    gates = None
     if jparams_like.gates is not None:
-        for name in tG.trainable_fields(drop_type):
-            out += [np.asarray(a) for a in getattr(jparams_like.gates, name)]
+        names += tG.trainable_fields(drop_type)
+        gates = {f: [np.asarray(a) for a in getattr(jparams_like.gates, f)]
+                 for f in tG.trainable_fields(drop_type)}
     if var_like is not None:
-        out += [np.asarray(w).T for w in var_like['w']] + [np.asarray(b) for b in var_like['b']]
-    return out
+        names += ['var_w', 'var_b']
+    return tensors_from_jax(names, [np.asarray(c) for c in jparams_like.coeffs],
+                            [np.asarray(w) for w in jparams_like.mlp_w],
+                            [np.asarray(b) for b in jparams_like.mlp_b], gates, var_like)
 
 
 def _port_tensors(layout, flat):
@@ -410,8 +413,7 @@ def test_decode_copies_its_operators_once():
     assert info.misses == misses > 0 and info.hits >= misses
 
 
-@pytest.mark.parametrize('field,value', [('resume', 'exp'), ('profile_dir', 'p'),
-                                         ('mesh_data', 2), ('mesh_space', 2)])
+@pytest.mark.parametrize('field,value', [('mesh_data', 2), ('mesh_space', 2)])
 def test_unported_training_options_raise(field, value):
     with pytest.raises(ValueError, match='not yet ported'):
         trun.training(tconfig.TrainConfig(**{field: value}), device='cpu')
