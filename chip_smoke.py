@@ -115,23 +115,48 @@ backward).  Phases, each printing one JSON line, in order:
                  PSNR finite, the container restores; PSNR, ratio, zeros and
                  samples/s a phase; the dynamic family also the profile of 50
                  steps
- 14. step_rates  the flagship step time of each backend (the bf16 paths
+ 14. mesh        multi-device training, 2 ranks through python -m
+                 torch.distributed.run (this script as each rank's worker,
+                 driving train_torch.py): NCCL with a card a rank, else gloo
+                 with both ranks on the one card, asked for by name (the
+                 port's refusal without gloo, recorded; what NCCL does
+                 with both ranks on card 0, --only nccl_probe, is not run
+                 by default).
+                 mesh_dp: 20 flagship steps of one global position stream
+                 on one rank and on 2 ranks (each its contiguous half):
+                 losses within 1e-5, parameters within 1e-5 where the
+                 gradient is clear of Adam's eps, the ranks bit for bit
+                 equal.  mesh_dp2: train-3 at --mesh_data 2: the fetch and
+                 gradient kernels once a step on each rank (rank 0 the
+                 fetch also once an evaluation chunk), PSNR within 1 dB of
+                 train's, the container restores.  mesh_windows: on the
+                 256^3 synth_volume (255 does not divide 2), each rank's
+                 window of the grid (15, 15, W', 16): fetch and gradient
+                 kernels against their plain versions, the windowed forward
+                 against the full one.  mesh_space2_zero_local: train-3 at
+                 --mesh_space 2 --mesh_shard_params 1 --mesh_local_decode 1
+                 --interp_backend xla on that volume.  Each run: samples/s
+                 per rank and summed, ms a step, a profiled 50 steps' share
+                 in collectives, the bytes comm_volume_per_step predicts
+                 against the bytes the step moves
+ 15. step_rates  the flagship step time of each backend (the bf16 paths
                  too) without the profiler, 5 rounds of 100 steps, the
                  backends in turns
- 15. kernels     one line {"kernels": [...]} for every ported kernel
+ 16. kernels     one line {"kernels": [...]} for every ported kernel
 
 Every count of launches is set to 0 just before a path is driven and read
 just after it.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
 
-``--only`` takes a comma-separated list of phases 2-14 (build, kernel,
+``--only`` takes a comma-separated list of phases 2-15 (build, kernel,
 kernel_bwd, kernel_mlp, kernel_fused, kernel_bf16, checkpoint, binary,
-queries, queries_bf16, train, train_bf16, resume, train_families,
+queries, queries_bf16, train, train_bf16, resume, train_families, mesh,
 step_rates) and runs the device phase and those, in the order above, with
-the same checks (train_bf16 without train compares no PSNR; resume runs
-train's default run first, whose experiment it resumes); the kernels line and the ok line need every phase, so a
-partial run prints neither (a quick loop on one kernel, never the smoke).
+the same checks (train_bf16 and mesh without train compare no PSNR;
+resume runs train's default run first, whose experiment it resumes); the
+kernels line and the ok line need every phase, so a partial run prints
+neither (a quick loop on one kernel, never the smoke).
 """
 
 from __future__ import annotations
@@ -142,6 +167,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1549,6 +1575,407 @@ def phase_resume(tmp, vol_path, default):
     return row
 
 
+# ---------------------------------------------------------------------------
+# mesh: multi-device training, two ranks through torch.distributed.run
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_DP_STEPS = 20
+# the space-2 run's volume: 255 does not divide 2, and the batch 32,768
+# divides only powers of two
+MESH_SPACE_N = 256
+PSNR_MESH_DB = 1.0     # the data-2 run's train-3 PSNR against train's
+WINDOW_TOL = 2e-5      # the windowed forward against the full one (the JAX test's)
+MESH_PROFILE_STEPS = 50
+# where Adam's step depends on a gradient's last bits (|g| within a few
+# orders of eps), the atomics move it: the data-parallel run's parameters are
+# held to ATOMICS_TOL where the first moment is above this share of its max
+# (tests/test_torch_cuda.py::test_train_step_on_card_matches_cpu)
+ADAM_SURE_SHARE = 1e-4
+
+
+def mesh_backend():
+    """NCCL with a card a rank; on fewer cards gloo, asked for by name, with
+    the ranks sharing the card (NCCL refuses two ranks on one card)."""
+    return 'nccl' if torch.cuda.device_count() >= MESH_RANKS else 'gloo'
+
+
+def mesh_launch(tmp, kind, *argv, backend=None, timeout=300, may_fail=False):
+    """This script's mesh worker ``kind`` on MESH_RANKS ranks through
+    torch.distributed.run, from ``tmp``: (each rank's result, None for a
+    rank that wrote none, seconds).  ``backend`` None: :func:`mesh_backend`;
+    a failed launch raises unless ``may_fail``."""
+    out = os.path.join(tmp, 'mesh_' + kind)
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', str(MESH_RANKS), os.path.abspath(__file__),
+           '--mesh-worker', kind, '--mesh-out', out,
+           '--mesh-backend', backend or mesh_backend(), *argv]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    # a session of its own, so that a launch past its time limit is ended
+    # with every rank it started
+    proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out_text, err_text = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f'chip_smoke check failed: mesh worker {kind} ran past '
+                           f'{timeout} s')
+    seconds = time.perf_counter() - t0
+    if proc.returncode and not may_fail:
+        print(out_text[-6000:], err_text[-12000:], sep='\n', file=sys.stderr)
+        raise RuntimeError(f'chip_smoke check failed: mesh worker {kind} exited '
+                           f'{proc.returncode}')
+    results = [torch.load(os.path.join(out, f'rank{r}.pt'), weights_only=False)
+               if os.path.exists(os.path.join(out, f'rank{r}.pt')) else None
+               for r in range(MESH_RANKS)]
+    return results, seconds
+
+
+def dp_inputs(vol_path):
+    """The flagship phase-1 state (smallify, seeded model), the volume on the
+    card and MESH_DP_STEPS steps of one global position stream (on the
+    host, from a seed)."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type, drop_momentum=cfg.drop_momentum,
+                            drop_threshold=cfg.drop_threshold))
+    model = init_model(spec, torch.Generator().manual_seed(SEED), device='cuda')
+    vol = torch.from_numpy(load_volume(vol_path)).cuda()
+    ph = tr.make_phase_spec(cfg, spec, VolumeMeta(tuple(vol.shape)), phase=1)
+    st = tr.init_train_state(model, cfg.lr, cfg.lr, train_gates=True,
+                             weight_dkl=cfg.lambda_drop_loss)
+    g = torch.Generator().manual_seed(SEED + 9)
+    pos = torch.stack([torch.randint(0, VOLUME_N, (MESH_DP_STEPS, TRAIN_BATCH), generator=g,
+                                     dtype=torch.int32) for _ in range(3)], -1)
+    return ph, st, vol, pos
+
+
+def dp_steps(ph, st, vol, pos, sc=None):
+    """The trainer's step over the stream (a rank's share of it under
+    ``sc``): the losses and the final flat vector and first moment."""
+    c = tr.PhaseConstants(ph, vol)
+    norm, gt = tr.chunk_inputs(c, pos.cuda())
+    losses = torch.stack([tr.train_step(ph, st, c, norm[k], gt[k], terms={}, sc=sc)[0]
+                          for k in range(len(pos))])
+    return {'losses': losses.cpu(), 'flat': st.flat.cpu(), 'm': st.m.cpu()}
+
+
+def mesh_profile(cfg, dev, steps=MESH_PROFILE_STEPS, warmup=5):
+    """``steps`` phase-1 steps of ``cfg``'s mesh run on this rank under
+    torch.profiler (a fresh model; the work does not depend on the values):
+    ms a step, the host and device time inside the mesh's collectives, and
+    the bytes the ring model gives the step's collective calls (their
+    count and sizes, not a measurement of what the backend moves) against
+    comm_volume_per_step's prediction."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
+    spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type, drop_momentum=cfg.drop_momentum,
+                            drop_threshold=cfg.drop_threshold),
+                     interp_backend=cfg.interp_backend)
+    mesh = pm.make_mesh(cfg.mesh_data, cfg.mesh_space, device=dev)
+    vol_np = load_volume(cfg.data)
+    use_space = cfg.mesh_space > 1 and vol_np.shape[0] % cfg.mesh_space == 0
+    ph = tr.make_phase_spec(cfg, spec, VolumeMeta(vol_np.shape), phase=1)
+    st = tr.init_train_state(init_model(spec, torch.Generator().manual_seed(SEED), device=dev),
+                             cfg.lr, cfg.lr, train_gates=True, weight_dkl=cfg.lambda_drop_loss)
+    n_params = st.flat.numel()
+    st, c, N, kw = tr.shard_phase(ph, st, pm.shard_volume(mesh, vol_np, use_space), mesh,
+                                  use_space, bool(cfg.mesh_shard_params),
+                                  bool(cfg.mesh_local_decode))
+    g = torch.Generator(device=dev).manual_seed(SEED + mesh.rank)
+    norm, gt = tr.chunk_inputs(c, tr.draw_positions(c, steps + warmup, N, g))
+    for i in range(warmup):
+        tr.train_step(ph, st, c, norm[i], gt[i], terms={}, **kw)
+    torch.cuda.synchronize()
+    pm.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(warmup, warmup + steps):
+            tr.train_step(ph, st, c, norm[i], gt[i], terms={}, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    called = dict(pm.counts)
+    events = prof.key_averages()
+    host_ms = sum(e.cpu_time_total for e in events if e.key.startswith('mesh::')) / 1e3
+    nccl_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA and 'nccl' in e.key.lower()) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    predicted = pm.comm_volume_per_step(n_params, cfg.mesh_data, cfg.mesh_space,
+                                        bool(cfg.mesh_shard_params))
+    return {'steps': steps, 'samples_per_rank_step': N, 'wall_ms': wall_ms,
+            'ms_per_step': wall_ms / steps,
+            'collective_host_ms_per_step': host_ms / steps,
+            'collective_host_share': host_ms / wall_ms,
+            'nccl_device_ms_per_step': nccl_ms / steps,
+            'device_busy_share': busy_ms / wall_ms,
+            'collective_calls_per_step': {k: v / steps for k, v in called.items()
+                                          if k != 'modelled_bytes'},
+            'n_params': n_params, 'bytes_predicted_per_step': predicted,
+            'bytes_modelled_from_calls_per_step': called['modelled_bytes'] / steps}
+
+
+def mesh_worker(kind, out, backend, argv):
+    """One rank of a mesh run (under torch.distributed.run): 'train'
+    (train_torch.py with ``argv``, then the profile), 'dp_train' (the
+    data-parallel exactness steps on ``argv``'s --data volume first) or
+    'nccl_probe' (NCCL with every rank on card 0); writes the rank's result
+    into ``out``."""
+    import torch.distributed as dist
+    from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
+    from latent_feature_grid_compression_tpu_torch.parallel.distributed import (
+        initialize_distributed, rank_device)
+    disable_tf32()
+    if kind == 'nccl_probe':
+        torch.cuda.set_device(0)
+        result = {}
+        try:
+            dist.init_process_group('nccl', device_id=torch.device('cuda', 0))
+            t = torch.ones(4, device='cuda')
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            result['all_reduce'] = t.tolist()
+        except Exception as e:   # what NCCL does is what this kind records
+            result['error'] = repr(e)[:600]
+        torch.save(result, os.path.join(out, f"rank{os.environ['RANK']}.pt"))
+        return 0
+    initialize_distributed(backend=backend, device='cuda')
+    dev = rank_device('cuda', backend)
+    rank = dist.get_rank()
+    try:
+        import train_torch
+        from latent_feature_grid_compression_tpu_torch.config import config_from_args
+        cfg = config_from_args(argv)
+        result = {}
+        if kind == 'dp_train':
+            ph, st, vol, pos = dp_inputs(cfg.data)
+            mesh = pm.make_mesh(MESH_RANKS, 1, device=dev)
+            half = pos.shape[1] // MESH_RANKS
+            result['dp'] = dp_steps(ph, st, vol, pos[:, rank * half:(rank + 1) * half],
+                                    pm.make_shard_ctx(mesh, use_space=False))
+            del st, vol
+        reset_counts()
+        pm.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = train_torch.main(argv + ['--dist_backend', backend])
+        torch.cuda.synchronize()
+        result.update({'info': info, 'seconds': time.perf_counter() - t0,
+                       'launches': read_counts(), 'collectives': dict(pm.counts),
+                       'device': str(dev), 'backend': backend})
+        result['profile'] = mesh_profile(cfg, dev)
+        torch.save(result, os.path.join(out, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+@torch.no_grad()
+def mesh_windows():
+    """The space-2 run's tile-local decode on the card before it runs: each
+    rank's window of the flagship grid over the 256^3 volume, the fetch and
+    gradient kernels against their plain versions on the windowed (15, 15,
+    W', 16) grid at the rank's trainer positions (fetch within KERNEL_TOL,
+    gradient within BWD_KERNEL_TOL of max |dG|), and the windowed forward
+    against the full forward at those positions (WINDOW_TOL of max |.|)."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type), interp_backend='xla')
+    meta = VolumeMeta((MESH_SPACE_N,) * 3)
+    ph = tr.make_phase_spec(cfg, spec, meta, phase=1)
+    starts, length = tr.x_windows(ph, 2)
+    model = init_model(spec, torch.Generator().manual_seed(SEED), device='cuda')
+    vol = torch.zeros((MESH_SPACE_N // 2, MESH_SPACE_N, MESH_SPACE_N), device='cuda')
+    g = torch.Generator(device='cuda').manual_seed(SEED + 3)
+    rows = []
+    for s, start in enumerate(starts):
+        c = tr.PhaseConstants(ph, vol, s * MESH_SPACE_N // 2)
+        norm, _ = tr.chunk_inputs(c, tr.draw_positions(c, 1, TRAIN_BATCH // 2, g))
+        norm = norm[0]
+        grid = channel_minor(decode_volume(model, x_window=(start, length)))
+        D, H, W, C = grid.shape
+        c0 = ((norm[:, 0] + 1.0) * spec.grid_size - 2.0 * start) / length - 1.0
+        coords = torch.cat([c0[:, None], norm[:, 1:]], dim=1).contiguous()
+        out = gs.grid_sample_channel_minor_cuda(grid, coords)
+        plain = grid_sample_channel_minor(grid, coords)
+        fetch_err = (out - plain).abs().max().item()
+        check(fetch_err <= KERNEL_TOL, f'windowed fetch off by {fetch_err}')
+        dout = torch.randn(out.shape, device='cuda', generator=g)
+        dgrid = gs.grid_sample_channel_minor_backward_cuda(dout, coords, D, H, W)
+        dplain = grid_sample_channel_minor_backward(dout, coords, D, H, W)
+        grad_err = rel(dgrid, dplain)
+        check(grad_err <= BWD_KERNEL_TOL, f'windowed gradient off by {grad_err} of max |dG|')
+        win = apply_model(model, norm, x_window=(start, length))
+        full = apply_model(model, norm)
+        win_err = rel(win, full)
+        check(win_err <= WINDOW_TOL, f'windowed forward off the full one by {win_err}')
+        n = coords.shape[0]
+        row = {'space_index': s, 'window': [start, length], 'grid': [D, H, W, C], 'n': n,
+               'fetch_max_abs_err': fetch_err, 'grad_max_abs_err_relative': grad_err,
+               'windowed_vs_full_forward_relative': win_err,
+               'fetch_ms': time_ms(lambda: gs.grid_sample_channel_minor_cuda(grid, coords)),
+               'fetch_plain_ms': time_ms(lambda: grid_sample_channel_minor(grid, coords)),
+               'grad_ms': time_ms(lambda: gs.grid_sample_channel_minor_backward_cuda(
+                   dout, coords, D, H, W)),
+               'grad_plain_ms': time_ms(lambda: grid_sample_channel_minor_backward(
+                   dout, coords, D, H, W))}
+        row['fetch_bound_ms'], row['fetch_bound_by'] = fetch_bound_ms(n, C, D, H, W)
+        row['grad_bound_ms'], row['grad_bound_by'] = grad_bound_ms(n, C, D, H, W)
+        rows.append(row)
+    emit({'phase': 'mesh_windows', 'volume': list(meta.resolution),
+          'volume_note': 'synth_volume(256, seed=1, octaves=6): 255 does not divide 2',
+          'rows': rows})
+    return rows
+
+
+def mesh_train_row(name, tmp, vol_path, results, seconds, flags, default=None):
+    """Checks of a train-3 mesh run's ranks and its row: each rank launched
+    the fetch and gradient kernels once a step (rank 0 the fetch also once
+    an evaluation chunk, and nothing else), every rank returns the same
+    evaluation, the loss fell, PSNR finite (within PSNR_MESH_DB of train's
+    when given), the exported container restores."""
+    info0 = results[0]['info']
+    meta = VolumeMeta(tuple(info0['volume_size']))
+    n_chunks = math.ceil(meta.n_voxels / CHUNK)
+    steps = info0['train_phase1_steps'] + info0['train_phase2_steps']
+    check(steps > 0, f'{name} took no step')
+    for rank, r in enumerate(results):
+        info = r['info']
+        check(info['train_phase1_steps'] + info['train_phase2_steps'] == steps,
+              f'{name}: rank {rank} took another number of steps')
+        check(info['psnr'] == info0['psnr'], f'{name}: rank {rank} returned another PSNR')
+        want = only({gs.KERNEL: steps + (n_chunks if rank == 0 else 0),
+                     gs.BWD_KERNEL: steps})
+        check(r['launches'] == want, f"{name}: rank {rank} launched {r['launches']}, "
+                                     f'expected {want}')
+    check(info0['train_phase1_last_loss'] < info0['train_phase1_first_loss'],
+          f'{name}: phase 1 loss did not fall')
+    check(math.isfinite(info0['psnr']), f"{name}: non-finite PSNR {info0['psnr']}")
+    gap = None if default is None else info0['psnr'] - default['psnr']
+    if gap is not None:
+        check(abs(gap) <= PSNR_MESH_DB, f"{name} PSNR {info0['psnr']} vs train "
+                                        f"{default['psnr']}")
+    exp = os.path.join(tmp, name)
+    _, restored = restore_model(os.path.join(exp, 'binary_model_file'), wavelet='db2',
+                                device='cuda')
+    psnr_binary = eval_stats_on_device(restored, meta,
+                                       torch.from_numpy(load_volume(vol_path)).cuda())[0]
+    check(math.isfinite(psnr_binary), f'{name}: non-finite PSNR of the exported container')
+    shutil.rmtree(exp)
+    per_rank = [r['info']['train_steps_per_sec'] * r['profile']['samples_per_rank_step']
+                for r in results]
+    row = {'phase': name, 'flags': flags, 'ranks': MESH_RANKS,
+           'backend': results[0]['backend'], 'devices': [r['device'] for r in results],
+           'ranks_share_a_card': len({r['device'] for r in results}) < MESH_RANKS,
+           'collectives': 'torch.distributed on CUDA tensors (no host staging)',
+           'volume': list(meta.resolution), 'max_pass': TRAIN_MAX_PASS, 'batch': TRAIN_BATCH,
+           'steps': steps, 'launches_by_rank': [r['launches'] for r in results],
+           'collective_calls': [r['collectives'] for r in results],
+           'torchrun_s': seconds, 'train_cli_s_by_rank': [r['seconds'] for r in results],
+           'samples_per_sec_by_rank': per_rank, 'samples_per_sec_summed': sum(per_rank),
+           'ms_per_step_by_rank': [r['info']['train_ms_per_step'] for r in results],
+           'phases': {ph: {k: info0[f'train_phase{ph}_{k}'] for k in
+                           ('steps', 'seconds', 'samples_per_sec', 'first_loss', 'last_loss')}
+                      for ph in (1, 2)},
+           'psnr': info0['psnr'], 'default_psnr': None if default is None else default['psnr'],
+           'psnr_gap_db': gap, 'psnr_binary_restored': psnr_binary,
+           'compression_ratio': info0['compression_ratio'], 'num_zeros': info0['num_zeros'],
+           'profile_by_rank': [r['profile'] for r in results]}
+    emit(row)
+    return row
+
+
+def phase_mesh(tmp, vol_path, default=None):
+    """Multi-device training on this machine's cards: MESH_RANKS ranks
+    through torch.distributed.run (NCCL with a card a rank, else gloo with
+    the ranks on one card, which the port refuses without gloo by name).
+    The data-parallel step against one rank on the same global stream, and
+    train-3 at data 2 on the flagship, in one launch; the windowed kernels
+    and forward, then train-3 at space 2 with the state sharded and tile-local
+    decode on a 256^3 volume.  Returns rank 0's launch counts of the data-2
+    run (the mesh path)."""
+    from latent_feature_grid_compression_tpu_torch.parallel.distributed import rank_device
+    cards, backend = torch.cuda.device_count(), mesh_backend()
+    refused = None
+    if cards < MESH_RANKS:
+        # the port refuses more ranks than cards unless gloo is named ...
+        env = {k: os.environ.get(k) for k in ('LOCAL_RANK', 'LOCAL_WORLD_SIZE')}
+        os.environ.update(LOCAL_RANK='1', LOCAL_WORLD_SIZE=str(MESH_RANKS))
+        try:
+            rank_device('cuda', None, verbose=False)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+            torch.cuda.set_device(0)
+        check(refused is not None, 'two ranks on one card were not refused without gloo')
+    emit({'phase': 'mesh_backend', 'cards': cards, 'ranks': MESH_RANKS, 'backend': backend,
+          'ranks_share_a_card': cards < MESH_RANKS,
+          'port_refuses_without_gloo': refused})
+
+    # 1. data-parallel exactness, then 2. train-3 at data 2 on the flagship,
+    # in one launch
+    ph, st, vol, pos = dp_inputs(vol_path)
+    single = dp_steps(ph, st, vol, pos)
+    del st, vol
+    common = ['--config', FLAGSHIP_CONFIG, '--max_pass', str(TRAIN_MAX_PASS), '--basedir', '/']
+    flags = ['--mesh_data', str(MESH_RANKS)]
+    train_ranks, seconds = mesh_launch(tmp, 'dp_train', *common, '--data', vol_path,
+                                          '--expname', 'mesh_dp2', *flags)
+    ranks = [r['dp'] for r in train_ranks]
+    loss_err = max(rel(r['losses'], single['losses']) for r in ranks)
+    check(loss_err <= ATOMICS_TOL, f'data-parallel losses off one rank by {loss_err}')
+    m0 = single['m'].abs()
+    sure = m0 > ADAM_SURE_SHARE * m0.max()
+    flat_err = max((r['flat'] - single['flat'])[sure].abs().max().item() for r in ranks)
+    flat_max = max((r['flat'] - single['flat']).abs().max().item() for r in ranks)
+    lr = load_config(FLAGSHIP_CONFIG).lr
+    check(flat_err <= ATOMICS_TOL, f'data-parallel parameters off by {flat_err}')
+    check(flat_max <= 2 * lr * MESH_DP_STEPS, f'a data-parallel parameter off by {flat_max}')
+    check(all(torch.equal(r['flat'], ranks[0]['flat']) and torch.equal(r['m'], ranks[0]['m'])
+              for r in ranks), 'the ranks ended with different parameters')
+    emit({'phase': 'mesh_dp', 'steps': MESH_DP_STEPS, 'batch': TRAIN_BATCH,
+          'ranks': MESH_RANKS, 'backend': backend,
+          'loss_max_rel_err': loss_err, 'flat_max_abs_err_where_sure': flat_err,
+          'flat_max_abs_err': flat_max, 'ranks_bitwise_equal': True,
+          'losses_single': single['losses'].tolist(),
+          'losses_ranks': ranks[0]['losses'].tolist()})
+
+    mesh_train_row('mesh_dp2', tmp, vol_path, train_ranks, seconds, flags, default)
+    counts = {k: train_ranks[0]['launches'][k] for k in (gs.KERNEL, gs.BWD_KERNEL)}
+
+    # 3. the windows, then train-3 at space 2, ZeRO and tile-local decode
+    windows = mesh_windows()
+    vol256 = os.path.join(tmp, 'synth256.npy')
+    np.save(vol256, synth_volume(MESH_SPACE_N, seed=1, octaves=6))
+    flags = ['--mesh_space', str(MESH_RANKS), '--mesh_shard_params', '1',
+             '--mesh_local_decode', '1', '--interp_backend', 'xla']
+    ranks, seconds = mesh_launch(tmp, 'train', *common, '--data', vol256,
+                                    '--expname', 'mesh_space2_zero_local', *flags)
+    mesh_train_row('mesh_space2_zero_local', tmp, vol256, ranks, seconds, flags)
+    os.remove(vol256)
+    return counts, windows
+
+
+def phase_nccl_probe(tmp):
+    """On request only (``--only nccl_probe``): what NCCL does with
+    MESH_RANKS ranks on card 0, the reason ranks that share a card run
+    gloo."""
+    probe, seconds = mesh_launch(tmp, 'nccl_probe', backend='nccl', timeout=120,
+                                 may_fail=True)
+    emit({'phase': 'nccl_probe', 'ranks': MESH_RANKS, 'card': 0, 'seconds': seconds,
+          'results': probe})
+
+
 def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
     """One entry of the kernels line: launches on the main path of the
     kernel and on every path, the numbers at the main path's inputs."""
@@ -1558,27 +1985,39 @@ def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
     if also:
         out['also_replaces'] = f'latent_feature_grid_compression_tpu/ops/{also}'
     out['launches'] = path_counts[main_path][name]
-    out['launches_by_path'] = {p: c[name] for p, c in path_counts.items()}
+    out['launches_by_path'] = {p: c[name] for p, c in path_counts.items() if name in c}
     out.update(extra)
     return out
 
 
 PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'kernel_bf16',
           'checkpoint', 'binary', 'queries', 'queries_bf16', 'train', 'train_bf16',
-          'resume', 'train_families', 'step_rates')
+          'resume', 'train_families', 'mesh', 'step_rates')
+# run only when --only names them
+ON_REQUEST = ('nccl_probe',)
 
 
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--only', default=None,
                     help='comma-separated phases to run after the device phase '
-                         f'({", ".join(PHASES)}); prints no kernels or ok line')
-    args = ap.parse_args(argv)
+                         f'({", ".join(PHASES)}; also {", ".join(ON_REQUEST)}, run only '
+                         f'when named); prints no kernels or ok line')
+    # a rank of the mesh phase (torch.distributed.run starts this script
+    # with these; the arguments after them are train_torch.py's)
+    ap.add_argument('--mesh-worker', default=None, help=argparse.SUPPRESS)
+    ap.add_argument('--mesh-out', default=None, help=argparse.SUPPRESS)
+    ap.add_argument('--mesh-backend', default=None, help=argparse.SUPPRESS)
+    args, rest = ap.parse_known_args(argv)
+    if rest and args.mesh_worker is None:
+        ap.error(f'unrecognized arguments: {" ".join(rest)}')
+    args.rest = rest
     if args.only is not None:
         args.only = set(args.only.split(','))
-        unknown = args.only - set(PHASES)
+        unknown = args.only - set(PHASES + ON_REQUEST)
         if unknown:
-            ap.error(f'unknown phases {sorted(unknown)}; choose from {", ".join(PHASES)}')
+            ap.error(f'unknown phases {sorted(unknown)}; choose from '
+                     f'{", ".join(PHASES + ON_REQUEST)}')
     return args
 
 
@@ -1587,6 +2026,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
+    if args.mesh_worker is not None:
+        return mesh_worker(args.mesh_worker, args.mesh_out, args.mesh_backend, args.rest)
 
     def want(phase):
         return args.only is None or phase in args.only
@@ -1610,7 +2051,7 @@ def main(argv=None):
     try:
         vol_path = os.path.join(tmp, 'mhd_like.npy')
         if want('checkpoint') or want('train') or want('train_bf16') or \
-                want('resume') or want('train_families'):
+                want('resume') or want('train_families') or want('mesh'):
             np.save(vol_path, synth_volume(VOLUME_N, seed=1, octaves=6))
         if want('checkpoint'):
             _, model, path_counts['decompress'] = phase_checkpoint(tmp, vol_path)
@@ -1638,6 +2079,10 @@ def main(argv=None):
             for family in FAMILIES:
                 _, path_counts['train_' + family] = phase_train(tmp, vol_path,
                                                                 family=family)
+        if want('mesh'):
+            path_counts['mesh'], windows = phase_mesh(tmp, vol_path, default)
+        if args.only is not None and 'nccl_probe' in args.only:
+            phase_nccl_probe(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want('step_rates'):
@@ -1677,7 +2122,11 @@ def main(argv=None):
                      shape={'n': flagship['n'], 'C': 16, 'grid': 15, 'coords': 'lattice'},
                      plan=flagship['plan'],
                      trainer={**numbers(trainer), 'n': trainer['n'], 'plan': trainer['plan']},
-                     trainer_c22_grid17={**numbers(trainer_c22), 'n': trainer_c22['n']}),
+                     trainer_c22_grid17={**numbers(trainer_c22), 'n': trainer_c22['n']},
+                     mesh_window=[{k: w[k] for k in ('space_index', 'window', 'grid', 'n',
+                                                     'fetch_ms', 'fetch_plain_ms',
+                                                     'fetch_bound_ms', 'fetch_max_abs_err')}
+                                  for w in windows]),
         kernel_entry(gs.BWD_KERNEL, 'grid_sample_bwd.cu', 'pallas_kernels.py:142',
                      'pallas_kernels.py:182', path_counts, 'train',
                      max_abs_err=max(r['max_abs_err'] for r in bwd_rows),
@@ -1687,7 +2136,12 @@ def main(argv=None):
                      shape={'n': flagship_bwd['n'], 'C': 16, 'grid': 15,
                             'coords': 'trainer'}, plan=flagship_bwd['plan'],
                      trainer_c22_grid17={**numbers(bwd_c22), 'n': bwd_c22['n'],
-                                         'plan': bwd_c22['plan']}),
+                                         'plan': bwd_c22['plan']},
+                     mesh_window=[{k: w[k] for k in ('space_index', 'window', 'grid', 'n',
+                                                     'grad_ms', 'grad_plain_ms',
+                                                     'grad_bound_ms',
+                                                     'grad_max_abs_err_relative')}
+                                  for w in windows]),
         kernel_entry('mlp_fused_fwd', 'mlp_fused.cu', 'mlp_pallas.py:103', None,
                      path_counts, 'train_mlp_pallas',
                      max_abs_err=max(r['max_abs_err'] for r in mlp_rows),

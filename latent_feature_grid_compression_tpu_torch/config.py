@@ -4,8 +4,7 @@ The PyTorch port's own copy of the JAX package's ``config.py``: the same
 fields and defaults, the type-inferring ``dict_from_file`` parser, and the
 precedence CLI > config file > defaults.  Files written by either package's
 trainer load here unchanged; unknown keys (run artifacts such as ``psnr``)
-are ignored.  Some fields select paths the port has not ported yet; the
-trainer raises on them (``train/run.py``).
+are ignored.
 """
 
 from __future__ import annotations
@@ -65,7 +64,9 @@ class TrainConfig:
     mesh_shard_params: int = 0      # 1: shard model/optimizer state over
                                     # 'space' (ZeRO-style grid-tile sharding)
     mesh_local_decode: int = 0      # 1: each device decodes only its grid
-                                    # x-tile (+halo)
+                                    # x-tile (+halo); needs mesh_space > 1
+                                    # dividing the volume's X and the
+                                    # float32 'xla' path
     compute_dtype: str = 'float32'  # 'bfloat16': the bf16 compute path
                                     # (the fetch in 'bf16', the bf16 MLP
                                     # chain, the one-kernel forward in 'bf16')

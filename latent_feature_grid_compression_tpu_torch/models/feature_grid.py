@@ -286,14 +286,19 @@ def init_model(spec: ModelSpec, generator: torch.Generator,
 
 def decode_volume(model, *, train_gates: bool = False,
                   masks: Optional[Sequence[torch.Tensor]] = None,
-                  noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                  noise: Optional[Sequence[torch.Tensor]] = None,
+                  x_window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(Gated) inverse DWT -> (F, G, G, G) spatial feature grid.
 
     Gating: ``train_gates`` applies the spec's gates (phase 1), with
     ``noise`` the per-level noise of the stochastic families; otherwise
     ``masks``, frozen binary keep-masks (one per coefficient tensor, without
     the feature axis), are multiplied in (phase 2); with neither the
-    coefficients are decoded as they are."""
+    coefficients are decoded as they are.
+
+    x_window: (start, length), or None: decode only that window of the
+    grid's last axis, the one sample coordinate 0 indexes (the tile-local
+    decode of the space-sharded trainer, ``ops/dwt.py::decode_pyramid``)."""
     spec = model.spec
     coeffs = list(model.coeffs)
     if train_gates and spec.drop_type:
@@ -303,14 +308,19 @@ def decode_volume(model, *, train_gates: bool = False,
     elif masks is not None:
         coeffs = [c * m[None] for c, m in zip(coeffs, masks)]
     if spec.num_levels == 0:
-        return coeffs[0]
-    return decode_pyramid(spec.filter(), coeffs, spec.level_shapes)
+        if x_window is None:
+            return coeffs[0]
+        start, length = x_window
+        return coeffs[0][..., start:start + length]
+    return decode_pyramid(spec.filter(), coeffs, spec.level_shapes, last_window=x_window)
 
 
 def _mlp_input(model, grid_cl: torch.Tensor, coords: torch.Tensor,
-               precision: str = 'f32') -> torch.Tensor:
-    """[coords | fourier(coords) | features fetched in ``precision``]."""
-    feats = fetch(grid_cl, coords, precision)
+               precision: str = 'f32',
+               fetch_coords: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[coords | fourier(coords) | features fetched in ``precision``]; the
+    fetch at ``fetch_coords`` where given (a windowed grid's frame)."""
+    feats = fetch(grid_cl, coords if fetch_coords is None else fetch_coords, precision)
     return torch.cat([coords, fourier_embed(coords, model.spec.n_freqs), feats], dim=-1)
 
 
@@ -350,16 +360,50 @@ def predict_trilinear(model, grid_cl: torch.Tensor, coords: torch.Tensor
     return out.clamp(-1.0, 1.0)
 
 
+def check_local_decode(spec: ModelSpec):
+    """Raise unless the spec runs the float32 fetch and the float32 MLP as
+    PyTorch ops, the only path with a windowed form (the JAX package runs
+    its windowed forward as float32 XLA whatever the spec)."""
+    if (spec.interp_backend != 'trilinear' or spec.fetch_precision != 'f32'
+            or spec.mlp_backend != 'xla' or spec.compute_dtype != 'float32'):
+        raise ValueError(
+            f"tile-local decode needs the float32 fetch and MLP (interp_backend "
+            f"'xla', mlp_backend 'xla', compute_dtype 'float32'); got interp_backend="
+            f"{spec.interp_backend!r}, fetch {spec.fetch_precision!r}, mlp_backend="
+            f"{spec.mlp_backend!r}, compute_dtype={spec.compute_dtype!r}")
+
+
 def apply_model(model, coords: torch.Tensor, *, train: bool = True,
                 train_gates: bool = False,
                 masks: Optional[Sequence[torch.Tensor]] = None,
-                noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                x_window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Full forward pass at (N, d_in) normalized coordinates -> (N, d_out),
     differentiable in the model's tensors (on the card through the kernels'
     ``torch.autograd.Function``s); the spec's backends choose the kernels
-    (:func:`predict`)."""
-    grid = decode_volume(model, train_gates=train_gates, masks=masks, noise=noise)
-    return predict(model, channel_minor(grid), coords, train=train)
+    (:func:`predict`).
+
+    x_window: (start, length) of the grid's last axis to decode, or None;
+    the caller keeps every sample's interpolation support inside it.
+    Coordinate 0 is re-expressed in the window's frame for the fetch (the
+    float32 fetch on the (G, G, length, F) grid), the embedding takes the
+    global coordinates, and the MLP runs in float32; other specs raise
+    (:func:`check_local_decode`)."""
+    if x_window is None:
+        grid = decode_volume(model, train_gates=train_gates, masks=masks, noise=noise)
+        return predict(model, channel_minor(grid), coords, train=train)
+    spec = model.spec
+    check_local_decode(spec)
+    grid = decode_volume(model, train_gates=train_gates, masks=masks, noise=noise,
+                         x_window=x_window)
+    start, length = x_window
+    # the pixel coordinate ((c + 1) * W - 1) / 2 equals the window's
+    # ((c' + 1) * length - 1) / 2 + start
+    c0 = ((coords[:, 0] + 1.0) * spec.grid_size - 2.0 * float(start)) / float(length) - 1.0
+    x = _mlp_input(model, channel_minor(grid), coords,
+                   fetch_coords=torch.cat([c0[:, None], coords[:, 1:]], dim=1))
+    out = mlp_apply(list(model.mlp_w), list(model.mlp_b), x, snake_alt)
+    return out if train else out.clamp(-1.0, 1.0)
 
 
 @torch.no_grad()

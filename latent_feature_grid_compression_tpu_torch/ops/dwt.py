@@ -118,7 +118,10 @@ class WaveletFilter3d:
         y = y.reshape(B, C, 8, *y.shape[2:])
         return y, np.asarray(spatial, dtype=int)
 
-    def decode(self, coeffs: torch.Tensor, shape) -> torch.Tensor:
+    def decode(self, coeffs: torch.Tensor, shape, last_window=None) -> torch.Tensor:
+        """``last_window`` (start, length): only that window of the last
+        axis' output, by a column slice of its operator before the first
+        contraction (the same dot products as the full decode's columns)."""
         if coeffs.dim() != 6:
             raise ValueError(f"decode expects rank 6, got {coeffs.dim()}")
         B, C = coeffs.shape[:2]
@@ -128,6 +131,12 @@ class WaveletFilter3d:
         Ts = [_synthesis_matrix(self.wavelet, s_in, s_out, coeffs.device,
                                 coeffs.dtype)
               for s_in, s_out in zip(spatial, shape)]
+        if last_window is not None:
+            start, length = (int(v) for v in last_window)
+            if not 0 <= start <= shape[2] - length:
+                raise ValueError(f"window {last_window} outside an axis of {shape[2]}")
+            Ts[2] = Ts[2][:, :, start:start + length]
+            shape = shape[:2] + (length,)
         y = torch.einsum('nabwxyz,wzZ->nabxyZ', x, Ts[2])
         y = torch.einsum('nabxyZ,byY->naxYZ', y, Ts[1])
         y = torch.einsum('naxYZ,axX->nXYZ', y, Ts[0])
@@ -157,10 +166,15 @@ def encode_pyramid(filt: WaveletFilter3d, volume: torch.Tensor,
 
 
 def decode_pyramid(filt: WaveletFilter3d, coeffs: Sequence[torch.Tensor],
-                   shapes) -> torch.Tensor:
-    """Inverse of :func:`encode_pyramid`; returns (C, D, H, W)."""
+                   shapes, last_window=None) -> torch.Tensor:
+    """Inverse of :func:`encode_pyramid`; returns (C, D, H, W).
+
+    last_window: (start, length), or None: decode only that window of the
+    final level's last axis (the tile-local decode of the space-sharded
+    trainer; the coarser levels are small and decoded whole)."""
     restored = coeffs[0][None]
-    for high, shape in zip(coeffs[1:], shapes):
+    n = len(shapes)
+    for i, (high, shape) in enumerate(zip(coeffs[1:], shapes)):
         data = torch.cat([restored[:, :, None], high[None]], dim=2)
-        restored = filt.decode(data, shape)
+        restored = filt.decode(data, shape, last_window if i == n - 1 else None)
     return restored[0]

@@ -1,5 +1,4 @@
-"""Top-level training entry (port of the JAX package's ``train/run.py``,
-single device).
+"""Top-level training entry (port of the JAX package's ``train/run.py``).
 
 training(cfg) -> info dict:
   load + normalize volume -> build model (or warm-start from
@@ -20,8 +19,21 @@ phase 1's second chunk; the TensorBoard writer (tensorboardX, else
 ``torch.utils.tensorboard``, else none) logs into ``cfg.Tensorboard_log_dir``
 or ``runs/<expname>``.
 
-Runs on ``device='cuda'`` unless the caller passes ``'cpu'``.  Options whose
-paths are not ported raise "not yet ported" and name the ROADMAP item.
+Runs on ``device='cuda'`` unless the caller passes ``'cpu'``.
+
+Multi-device: with ``mesh_data * mesh_space > 1`` the run is one process a
+device, launched by ``python -m torch.distributed.run --nproc_per_node K``
+(K = mesh_data * mesh_space, else it raises); every rank trains on its
+device (``cuda:LOCAL_RANK``; NCCL, or gloo asked for by name through
+``dist_backend='gloo'``, the only way two ranks may share a card) with the
+volume's x-slab under a space axis, while the whole volume stays in host
+memory for the evaluation.  Rank 0 alone writes the experiment directory
+(``resume_meta.txt``, the train states, ``bake.npz``, the writer's logs, the
+evaluation's artifacts); every rank leaves with the same model and info.
+Three paths the JAX package takes silently raise here: tile-local decode
+(``mesh_local_decode``) under a backend other than 'xla', under the bf16
+compute path, the fused MLP or the one-kernel forward, and on a volume
+whose X the space axis does not divide.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig, dict_from_file, write_dict
 from ..data.volume import VolumeMeta, load_volume
@@ -41,21 +54,59 @@ from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.container import store_model_parameters
 from ..io.train_state_io import load_train_state
 from ..models import gates as G
-from ..models.feature_grid import (FeatureGridModel, init_model, make_spec,
-                                   num_net_params, remove_drop_layers,
+from ..models.feature_grid import (FeatureGridModel, check_local_decode, init_model,
+                                   make_spec, num_net_params, remove_drop_layers,
                                    save_dropvalues_on_grid)
 from ..models.variance import init_variance_model
+from ..parallel import mesh as pm
+from ..parallel.distributed import initialize_distributed, rank_device
 from .trainer import (StepTimer, init_train_state, make_phase_spec, solve_phase,
                       state_to_model)
 
 
-def check_ported(cfg: TrainConfig):
-    """Raise on every option whose path the port does not have yet."""
-    if cfg.mesh_data * cfg.mesh_space > 1 or cfg.mesh_shard_params \
-            or cfg.mesh_local_decode:
-        raise ValueError("multi-device training is not yet ported "
-                         "(ROADMAP Queue 1 item 5)")
-    # an unknown compute dtype, backend or drop type raises in make_spec
+def _check_local_decode(cfg: TrainConfig, meta: VolumeMeta, spec):
+    """Tile-local decode needs a space axis that divides the volume's X and
+    the float32 'xla' path; the JAX package drops it or changes backend
+    silently where this raises."""
+    if cfg.mesh_space <= 1:
+        raise ValueError("mesh_local_decode needs mesh_space > 1")
+    if meta.resolution[0] % cfg.mesh_space:
+        raise ValueError(f"mesh_local_decode: the volume's X {meta.resolution[0]} does "
+                         f"not divide mesh_space {cfg.mesh_space}")
+    if cfg.interp_backend != 'xla':
+        raise ValueError(f"mesh_local_decode needs interp_backend 'xla'; got "
+                         f"{cfg.interp_backend!r}")
+    check_local_decode(spec)
+
+
+def _build_mesh(cfg: TrainConfig, meta: VolumeMeta, spec, device: torch.device,
+                backend: Optional[str], verbose: bool):
+    """(the mesh or None, whether the volume is cut over 'space', this
+    rank's device).  Starts the process group (``backend``, None: the
+    device's default) from the launcher's environment; the mesh must have
+    as many ranks as it."""
+    if cfg.mesh_local_decode:
+        _check_local_decode(cfg, meta, spec)
+    want = cfg.mesh_data * cfg.mesh_space
+    initialize_distributed(backend=backend, device=device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if want != world:
+        raise ValueError(
+            f"mesh_data * mesh_space = {cfg.mesh_data} * {cfg.mesh_space} needs {want} "
+            f"processes, one a device, and this run has {world}: launch it with "
+            f"torchrun --nproc_per_node {want} (python -m torch.distributed.run)")
+    if want == 1:
+        return None, False, device
+    dev = rank_device(device, backend, verbose=verbose)
+    mesh = pm.make_mesh(cfg.mesh_data, cfg.mesh_space, device=dev)
+    use_space = cfg.mesh_space > 1 and meta.resolution[0] % cfg.mesh_space == 0
+    if verbose and mesh.rank == 0:
+        print(f"Mesh: data={mesh.data} x space={mesh.space} ({want} ranks, "
+              f"{mesh.backend} on {dev.type}), volume "
+              f"{'x-slab sharded' if use_space else 'replicated'}"
+              f"{', state sharded over space' if cfg.mesh_shard_params else ''}"
+              f"{', tile-local decode' if cfg.mesh_local_decode else ''}", flush=True)
+    return mesh, use_space, dev
 
 
 def experiment_dir(cfg: TrainConfig) -> str:
@@ -182,20 +233,22 @@ def training(cfg: TrainConfig, verbose: bool = True,
              device: str | torch.device = 'cuda',
              positions: Tuple[Optional[Iterator], Optional[Iterator]] = (None, None),
              gate_noise: Optional[Iterator] = None,
-             variance_model=None) -> dict:
+             variance_model=None, dist_backend: Optional[str] = None) -> dict:
     """Full two-phase training run; returns the info dict.
 
     positions: per phase, an optional iterator of (N, 3) integer voxel
     positions used in place of the phase's generator.  gate_noise: an
     optional iterator of phase 1's per-level gate noise (a list a step) in
     place of its generator.  variance_model: (weights, biases) to start the
-    dynamic family's variance model from, in place of its init."""
-    check_ported(cfg)
+    dynamic family's variance model from, in place of its init.  On a mesh
+    ``positions`` yields this rank's positions (in its slab), and every
+    rank returns rank 0's info with its own timings.  dist_backend: the
+    process group's backend (None: nccl on the card, gloo on the CPU;
+    'gloo' lets ranks share a card)."""
     dev = resolve_device(device)
     if volume_np is None:
         volume_np = load_volume(cfg.data)
     meta = VolumeMeta(tuple(volume_np.shape))
-    volume = torch.from_numpy(np.ascontiguousarray(volume_np, dtype=np.float32)).to(dev)
 
     spec = make_spec(d_in=cfg.d_in, hidden=cfg.n_hidden_size, d_out=cfg.d_out,
                      num_layers=cfg.n_layers, n_freqs=cfg.n_embedding_freq,
@@ -207,6 +260,17 @@ def training(cfg: TrainConfig, verbose: bool = True,
                      interp_backend=cfg.interp_backend,
                      compute_dtype=cfg.compute_dtype,
                      mlp_backend=cfg.mlp_backend)
+    mesh, use_space, dev = _build_mesh(cfg, meta, spec, dev, dist_backend, verbose)
+    lead = mesh is None or mesh.rank == 0
+    verbose = verbose and lead
+    if mesh is None:
+        volume = torch.from_numpy(np.ascontiguousarray(volume_np, dtype=np.float32)).to(dev)
+    else:
+        # the whole volume stays on the host for the evaluation
+        volume = pm.shard_volume(mesh, volume_np, use_space)
+    mesh_kw = dict(mesh=mesh, use_space=use_space,
+                   shard_params=bool(cfg.mesh_shard_params) and mesh is not None,
+                   local_decode=bool(cfg.mesh_local_decode))
     # one init generator: the model (grid, MLP, gates), then the variance model
     init_gen = torch.Generator().manual_seed(cfg.seed)
     model = init_model(spec, init_gen, device=dev)
@@ -219,21 +283,27 @@ def training(cfg: TrainConfig, verbose: bool = True,
         model = load_checkpoint(cfg.checkpoint_path, spec, device=dev, model=model)
 
     experiment_path = experiment_dir(cfg)
-    os.makedirs(experiment_path, exist_ok=True)
+    if lead:
+        os.makedirs(experiment_path, exist_ok=True)
     resume_phase, resume_dir = _resume_point(cfg, verbose)
     timers, phase_stats = [], {}
-    writer = _make_writer(cfg)
+    writer = _make_writer(cfg) if lead else None
 
     def run_phase(phase, state, masks, gate_noise=None, profile_dir=''):
         ph = make_phase_spec(cfg, spec, meta, phase=phase)
-        generators = (_phase_generator(cfg.seed, phase, dev),
+        # the positions' generator is the rank's own, the gate noise's the
+        # same on every rank
+        generators = (_phase_generator(cfg.seed, phase, dev,
+                                       () if mesh is None else (0, mesh.rank)),
                       _phase_generator(cfg.seed, phase, dev, (1,)))
         save_path = os.path.join(experiment_path, f'train_state_phase{phase}.npz')
         if resume_phase == phase:
             state = load_train_state(
                 os.path.join(resume_dir, f'train_state_phase{phase}.npz'), state,
-                generators)
-        write_dict({'phase': phase}, 'resume_meta.txt', experiment_path)
+                generators, mesh_shape=None if mesh is None else (mesh.data, mesh.space),
+                rank=0 if mesh is None else mesh.rank)
+        if lead:
+            write_dict({'phase': phase}, 'resume_meta.txt', experiment_path)
         timers.append(StepTimer(ph.batch_n))
         losses, vol_losses = [], []
         start = state.step
@@ -246,7 +316,8 @@ def training(cfg: TrainConfig, verbose: bool = True,
                             noise_generator=generators[1], gate_noise=gate_noise,
                             verbose=verbose, timer=timers[-1], metric_cb=losses.append,
                             volume_cb=vol_losses.append, writer=writer,
-                            state_save_path=save_path, profile_dir=profile_dir)
+                            state_save_path=save_path,
+                            profile_dir=profile_dir if lead else '', **mesh_kw)
         seconds = time.perf_counter() - t0
         steps = state.step - start
         phase_stats.update({
@@ -274,7 +345,8 @@ def training(cfg: TrainConfig, verbose: bool = True,
             # the gates
             masks, zeros = _load_bake(resume_dir, dev)
         # (also when resumed, so that this run's directory resumes alone)
-        _save_bake(experiment_path, masks, zeros)
+        if lead:
+            _save_bake(experiment_path, masks, zeros)
 
         # --- phase 2: finetune at lr/10 under the frozen masks -------------
         # (without the variance model: its gradient there is 0, so is its
@@ -286,17 +358,27 @@ def training(cfg: TrainConfig, verbose: bool = True,
         state2 = run_phase(2, state2, masks)
         model = state_to_model(state2, model)
 
-        # --- hard prune + evaluate -----------------------------------------
+        # --- hard prune + evaluate (rank 0) --------------------------------
         model = remove_drop_layers(model, masks)
-        info = evaluate_model_training(model, meta, volume_np, zeros, cfg, writer=writer,
-                                       verbose=verbose, write_vols=write_vols,
-                                       volume_dev=volume, device=dev)
+        info = None
+        if lead:
+            info = evaluate_model_training(
+                model, meta, volume_np, zeros, cfg, writer=writer, verbose=verbose,
+                write_vols=write_vols, volume_dev=volume if mesh is None else None,
+                device=dev)
     finally:
         if writer is not None:
             writer.close()
+    if mesh is not None:
+        # the other ranks wait here for rank 0's evaluation
+        shared = [info]
+        dist.broadcast_object_list(shared, src=0)
+        info = shared[0]
     info.update({'train_' + k: v
                  for k, v in StepTimer.merge(timers).stats().items()})
     info.update({'train_' + k: v for k, v in phase_stats.items()})
-    write_dict(info, 'info.txt', experiment_path)
-    write_dict({'phase': 'done'}, 'resume_meta.txt', experiment_path)
+    if lead:
+        write_dict(info, 'info.txt', experiment_path)
+        write_dict({'phase': 'done'}, 'resume_meta.txt', experiment_path)
+    pm.barrier(mesh)
     return info

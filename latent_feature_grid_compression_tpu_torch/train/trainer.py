@@ -40,8 +40,20 @@ shadow lr.
 
 Around the chunks, as the JAX trainer: throttled saves of the state and
 its generators for a mid-training resume, a profiler trace of the second
-chunk, and the TensorBoard scalars and histograms on a worker thread.  Not
-ported yet: multi-device (ROADMAP Queue 1 item 5).
+chunk, and the TensorBoard scalars and histograms on a worker thread.
+
+On a ('data', 'space') mesh (``parallel/mesh.py``, one process a device)
+every rank runs the same step on its 1/n_devices of the batch: positions
+from a generator of its own, inside its x-slab of the volume under a space
+axis (offset to global coordinates before the model sees them), the gate
+noise from a generator that is the same on every rank (every rank decodes
+the same gated grid).  The gradient, the loss and its terms are averaged
+over the mesh in one all-reduce; with the state ZeRO-sharded over 'space'
+(``ZeroCtx``) the step all-gathers the parameters, reduce-scatters the
+gradient over 'space' and then averages its 1/space shard over 'data', and
+Adam updates the shard.  With tile-local decode (``train_step``'s
+``x_window``) each rank decodes only the window of the grid's x axis its
+slab's samples reach.  The pass accounting counts the global batch.
 """
 
 from __future__ import annotations
@@ -61,10 +73,12 @@ from ..data.volume import VolumeMeta
 from ..io.train_state_io import atomic_save_train_state
 from ..models import gates as G
 from ..models.feature_grid import (FeatureGridModel, ModelSpec, Params, apply_model,
-                                   coeff_shapes)
+                                   check_local_decode, coeff_shapes)
 from ..models.variance import apply_variance_model
 from ..utils.profiling import trace
 from . import losses as L
+from ..parallel import mesh as pm
+from ..parallel.mesh import ShardCtx, ZeroCtx
 
 _F32 = np.float32
 # the least seconds between two mid-phase saves of the state (a save copies
@@ -227,6 +241,25 @@ class TrainState:
     ema_var: Optional[torch.Tensor]
 
 
+def x_windows(ph: PhaseSpec, space_size: int) -> Tuple[List[int], int]:
+    """(each space index's window start, the windows' common length) on the
+    grid's x axis: the grid cells the slab's samples interpolate from, the
+    1-cell halo included, as the JAX trainer derives them."""
+    res = np.asarray(ph.resolution, dtype=np.int32)
+    max_idx = (res - 1).astype(np.float32)
+    sx = float((max_idx / max_idx.max())[0])
+    W = ph.spec.grid_size
+    local_x = ph.resolution[0] // space_size
+    los, his = [], []
+    for d in range(space_size):
+        pix = [(((x / float(max_idx[0])) * 2.0 - 1.0) * sx + 1.0) * W / 2.0 - 0.5
+               for x in (d * local_x, (d + 1) * local_x - 1)]
+        los.append(max(0, math.floor(pix[0])))
+        his.append(min(W - 1, math.floor(pix[1]) + 1))
+    length = max(h - lo + 1 for lo, h in zip(los, his))
+    return [min(lo, W - length) for lo in los], length
+
+
 def init_train_state(model: FeatureGridModel, lr: float, shadow_lr: float,
                      train_gates: bool, variance=None,
                      weight_dkl: float = 0.0) -> TrainState:
@@ -284,14 +317,19 @@ def adam_update(flat, g, m, v, lr, bc1, bc2, b1=0.9, b2=0.999, eps=1e-8):
 
 class PhaseConstants:
     """Per-phase constants on the device: sampling geometry, the flat
-    volume, and 1 - b**t for every step of the phase (so that step t's bias
-    corrections are views, not launches)."""
+    volume (the rank's x-slab under a space axis: ``x_offset`` is its first
+    slice, ``draw_res`` the extent positions are drawn in), and 1 - b**t
+    for every step of the phase (so that step t's bias corrections are
+    views, not launches)."""
 
-    def __init__(self, ph: PhaseSpec, volume: torch.Tensor):
+    def __init__(self, ph: PhaseSpec, volume: torch.Tensor, x_offset: int = 0):
         dev = volume.device
         res = np.asarray(ph.resolution, dtype=np.int64)
         max_idx = (res - 1).astype(np.float32)
         self.res = res
+        self.draw_res = (int(volume.shape[0]),) + tuple(int(r) for r in res[1:])
+        self.offset = torch.as_tensor([x_offset, 0, 0], device=dev)
+        self.x_offset = x_offset
         self.max_idx = torch.as_tensor(max_idx, device=dev)
         self.scales = torch.as_tensor(max_idx / max_idx.max(), device=dev)
         self.strides = torch.as_tensor([res[1] * res[2], res[2], 1], device=dev)
@@ -302,9 +340,11 @@ class PhaseConstants:
 
 
 def chunk_inputs(c: PhaseConstants, pos: torch.Tensor):
-    """(steps, N, 3) integer positions -> normalized, scaled coordinates and
-    the exact ground-truth voxel values of the whole chunk."""
-    norm = (pos.to(torch.float32) / c.max_idx) * 2.0 - 1.0
+    """(steps, N, 3) integer positions (in the slab) -> normalized, scaled
+    global coordinates and the exact ground-truth voxel values of the whole
+    chunk."""
+    gpos = pos.to(torch.int64) + c.offset if c.x_offset else pos
+    norm = (gpos.to(torch.float32) / c.max_idx) * 2.0 - 1.0
     norm = norm * c.scales
     gt = c.volume[(pos.to(torch.int64) * c.strides).sum(-1)]
     return norm, gt
@@ -326,20 +366,23 @@ def draw_noise(ph: PhaseSpec, n_steps: int, generator: torch.Generator,
 def draw_positions(c: PhaseConstants, n_steps: int, N: int,
                    generator: torch.Generator) -> torch.Tensor:
     """(n_steps, N, 3) IID uniform voxel indices (the reference's
-    IndexDataset), in one call per axis."""
+    IndexDataset; in the rank's slab under a space axis), in one call per
+    axis."""
     dev = c.volume.device
     return torch.stack([torch.randint(0, int(r), (n_steps, N), generator=generator,
                                       device=dev, dtype=torch.int32)
-                        for r in c.res], dim=-1)
+                        for r in c.draw_res], dim=-1)
 
 
 def loss_and_grad(ph: PhaseSpec, layout: FlatLayout, flat: torch.Tensor,
                   norm: torch.Tensor, gt: torch.Tensor, masks=None, noise=None,
                   weight_dkl: Optional[torch.Tensor] = None,
-                  terms: Optional[dict] = None):
+                  terms: Optional[dict] = None,
+                  x_window: Optional[Tuple[int, int]] = None):
     """(loss, volume loss, gradient of the loss with respect to ``flat``).
     ``noise``: this step's per-level gate noise (straight-through,
-    variational); ``weight_dkl``: this step's KL weight (variational).
+    variational); ``weight_dkl``: this step's KL weight (variational);
+    ``x_window``: the tile-local decode's window (``apply_model``).
     ``terms``: a dict that receives the loss's other terms under the JAX
     trainer's metric names (``Log_Likelyhood_loss``, ``DKL_loss``,
     ``Weight_loss`` for the variational families in phase 1, else
@@ -349,7 +392,8 @@ def loss_and_grad(ph: PhaseSpec, layout: FlatLayout, flat: torch.Tensor,
     p, variance = layout.views(x)
     train_gates = bool(ph.drop_type)
     pred = apply_model(p, norm, train=True, train_gates=train_gates,
-                       masks=masks if ph.use_masks else None, noise=noise)[:, 0]
+                       masks=masks if ph.use_masks else None, noise=noise,
+                       x_window=x_window)[:, 0]
     # the sums over the levels taken over the flat slices at once
     s = layout.slices
     coeffs = [x[s['coeffs']]]
@@ -381,28 +425,64 @@ def loss_and_grad(ph: PhaseSpec, layout: FlatLayout, flat: torch.Tensor,
     return loss.detach(), vol_loss.detach(), g
 
 
+def _mesh_mean(sc: ShardCtx, zc: Optional[ZeroCtx], g: torch.Tensor,
+               scalars: torch.Tensor):
+    """(this rank's gradient, the scalars), averaged over the mesh.
+    Replicated state: one all-reduce of [gradient | scalars].  ZeRO: the
+    padded gradient cut into the axis' slices, each followed by the
+    scalars, reduce-scattered over the axis (so the scalars ride along with
+    every slice), then this 1/axis slice averaged over the other axes: the
+    order that moves the fewest bytes (``comm_volume_per_step``)."""
+    mesh, k = sc.mesh, scalars.numel()
+    if zc is None:
+        buf = pm.all_reduce_mean(mesh, torch.cat([g, scalars]), sc.axis_names)
+        return buf[:-k], buf[-k:]
+    n = mesh.shape[zc.axis]
+    size = -(-zc.n_params // n)
+    rows = torch.nn.functional.pad(g, (0, n * size - g.numel())).view(n, size)
+    buf = torch.cat([rows, scalars.expand(n, k)], dim=1).reshape(-1)
+    local = pm.reduce_scatter_mean(mesh, buf, zc.axis)
+    local = pm.all_reduce_mean(mesh, local, [a for a in sc.axis_names if a != zc.axis])
+    return local[:size], local[size:]
+
+
 def train_step(ph: PhaseSpec, st: TrainState, c: PhaseConstants,
                norm: torch.Tensor, gt: torch.Tensor, masks=None,
-               guard: bool = False, noise=None, terms: Optional[dict] = None):
+               guard: bool = False, noise=None, terms: Optional[dict] = None,
+               sc: Optional[ShardCtx] = None, zc: Optional[ZeroCtx] = None,
+               x_window: Optional[Tuple[int, int]] = None):
     """One step in place on ``st``; returns (loss, volume loss) on the
     device.  ``guard``: the stop flag may be set, so every update is taken
     only where it is not (a stopped step changes nothing).  ``noise``: the
     step's per-level gate noise.  ``terms``: receives the loss's other
-    terms (``loss_and_grad``)."""
+    terms (``loss_and_grad``).  ``sc``: the mesh (the gradient, the loss
+    and its terms averaged over it); ``zc``: ``st`` holds this rank's
+    slices of the ZeRO-sharded vectors; ``x_window``: the tile-local
+    decode's window."""
     t = st.step + 1
     weight_dkl = None
     if ph.variational:
         # the KL weight is ramped before the loss that uses it
         weight_dkl = L.ramp_weight_dkl(st.weight_dkl, ph.weight_dkl_multiplier)
-    loss, vol_loss, g = loss_and_grad(ph, st.layout, st.flat, norm, gt, masks, noise,
-                                      weight_dkl, terms)
+    # the whole parameter vector: one all-gather of the shards under ZeRO
+    full = st.flat if zc is None else \
+        pm.all_gather_flat(sc.mesh, st.flat, zc.axis)[:zc.n_params]
+    loss, vol_loss, g = loss_and_grad(ph, st.layout, full, norm, gt, masks, noise,
+                                      weight_dkl, terms, x_window)
+    if sc is not None:
+        named = [k for k, v in (terms or {}).items() if torch.is_tensor(v)]
+        g, scalars = _mesh_mean(sc, zc, g, torch.stack(
+            [loss, vol_loss] + [terms[k] for k in named]))
+        loss, vol_loss = scalars[0], scalars[1]
+        if named:
+            terms.update(zip(named, scalars[2:]))
     flat, m, v = adam_update(st.flat, g, st.m, st.v, st.lr, c.bc1[t - 1],
                              c.bc2[t - 1])
     ema = ema_var = None
     if ph.drop_type == 'smallify':
-        # fed with the pre-update betas
+        # fed with the pre-update betas (of the gathered vector under ZeRO)
         mom = ph.spec.drop_momentum
-        phi = torch.sign(st.flat[st.layout.slices['betas']]) - st.ema
+        phi = torch.sign(full[st.layout.slices['betas']]) - st.ema
         ema = st.ema + mom * phi
         ema_var = (1.0 - mom) * (st.ema_var + mom * phi * phi)
 
@@ -515,6 +595,38 @@ def _emit_histograms(writer, rates: List[torch.Tensor], step: int):
         writer.add_histogram(f'droprates_layer_{lvl}', r.cpu().numpy().ravel(), step)
 
 
+def shard_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor, mesh=None,
+                use_space: bool = True, shard_params: bool = False,
+                local_decode: bool = False):
+    """A phase's set-up on this rank: (the state, ZeRO-sharded with
+    ``shard_params``; the phase constants; the samples a step takes here;
+    ``train_step``'s keyword arguments sc, zc and x_window).  Without a
+    mesh: (state, the constants, the batch, {}).  ``solve_phase`` describes
+    the arguments."""
+    if mesh is None:
+        return state, PhaseConstants(ph, volume), ph.batch_n, {}
+    sc = pm.make_shard_ctx(mesh, use_space)
+    if ph.batch_n % sc.n_devices:
+        raise ValueError(f"batch_size * sample_size = {ph.batch_n} does not divide "
+                         f"over {sc.n_devices} ranks")
+    x_offset, x_stop = pm.slab_bounds(mesh, ph.resolution[0], use_space)
+    if volume.shape[0] != x_stop - x_offset:
+        raise ValueError(f"the volume has {volume.shape[0]} x slices; this rank's "
+                         f"slab has {x_stop - x_offset} (parallel.mesh.shard_volume)")
+    x_window = zc = None
+    if local_decode:
+        if sc.space_axis is None:
+            raise ValueError("tile-local decode needs the volume cut over a space "
+                             "axis (mesh_space > 1 dividing the volume's X)")
+        check_local_decode(ph.spec)
+        starts, length = x_windows(ph, sc.space_size)
+        x_window = (starts[mesh.space_index], length)
+    if shard_params:
+        state, zc = pm.shard_train_state(mesh, state)
+    return (state, PhaseConstants(ph, volume, x_offset), ph.batch_n // sc.n_devices,
+            dict(sc=sc, zc=zc, x_window=x_window))
+
+
 def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 steps_per_chunk: int, masks=None, *,
                 generator: Optional[torch.Generator] = None,
@@ -525,12 +637,14 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 metric_cb: Optional[Callable[[np.ndarray], None]] = None,
                 volume_cb: Optional[Callable[[np.ndarray], None]] = None,
                 writer=None, state_save_path: str = '',
-                save_every_s: float = SAVE_EVERY_S, profile_dir: str = ''
-                ) -> TrainState:
+                save_every_s: float = SAVE_EVERY_S, profile_dir: str = '',
+                mesh=None, use_space: bool = True, shard_params: bool = False,
+                local_decode: bool = False) -> TrainState:
     """Run one phase until its pass budget is spent or the plateau stop; a
     state that has finished its phase (``phase_done``) takes no step.
 
-    volume:           the (X, Y, Z) ground truth on the training device.
+    volume:           the (X, Y, Z) ground truth on the training device
+                      (the rank's x-slab on a mesh with a space axis).
     generator:        draws the positions (a ``torch.Generator`` on that
                       device) unless ``positions`` yields (N, 3) integer
                       arrays, one per step.
@@ -552,18 +666,50 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                       positions and noise before it runs, so a save holds
                       the generators where the next chunk starts.
     profile_dir:      a ``torch.profiler`` trace of the second chunk (the
-                      first builds the kernels) written there."""
+                      first builds the kernels) written there.
+    mesh:             a ``parallel.mesh.Mesh``: every rank of it calls
+                      solve_phase alike and takes its part of each step
+                      (N / ranks samples; ``generator`` and ``positions``
+                      are the rank's own, in its slab under a space axis;
+                      ``noise_generator`` is the same on every rank).  The
+                      volume is cut over 'space' when ``use_space`` (its X
+                      divides the axis), else whole on every rank.
+                      ``shard_params`` ZeRO-shards the state over 'space'
+                      for the phase; ``local_decode`` decodes the rank's grid
+                      window only (a space axis and the float32 fetch and
+                      MLP, else it raises).  The state comes in and goes out
+                      replicated.  A save gathers on every rank and rank 0
+                      writes it, with every rank's position-generator state
+                      and the mesh shape; a writer, a profile_dir and
+                      verbose are rank 0's (the caller passes them there).
+    """
     if positions is None and generator is None:
         raise ValueError("solve_phase needs a generator or a positions iterator")
     if (G.noise_kind(ph.drop_type) and gate_noise is None
             and noise_generator is None):
         raise ValueError(f"drop_type {ph.drop_type!r} needs a noise generator "
                          f"or a gate-noise iterator")
-    c = PhaseConstants(ph, volume)
-    N = ph.batch_n
+    state, c, N, step_kw = shard_phase(ph, state, volume, mesh, use_space, shard_params,
+                                       local_decode)
+    zc = step_kw.get('zc')
     generators = (generator, noise_generator)
     stopped = phase_done(ph, state)
     last_save, last_hist = time.monotonic(), -math.inf
+
+    def replicated(st):
+        return st if zc is None else pm.unshard_train_state(mesh, st, zc)
+
+    def save(full):
+        if mesh is None:
+            atomic_save_train_state(state_save_path, full, generators)
+            return
+        rank_states = pm.gather_objects(
+            mesh, None if generator is None else generator.get_state())
+        if mesh.rank == 0:
+            atomic_save_train_state(state_save_path, full, generators,
+                                    mesh_shape=(mesh.data, mesh.space),
+                                    rank_states=rank_states)
+
     chunk = 0
     # the writer's worker (an executor starts its thread at the first submit)
     with ThreadPoolExecutor(max_workers=1) as pool:
@@ -575,6 +721,9 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
             else:
                 pos = torch.from_numpy(np.stack([np.asarray(next(positions))
                                                  for _ in range(n)])).to(volume.device)
+                if pos.shape[1:] != (N, 3):
+                    raise ValueError(f"positions of shape {tuple(pos.shape[1:])}; a step "
+                                     f"takes ({N}, 3) here")
             noise = None
             if G.noise_kind(ph.drop_type) and gate_noise is None:
                 noise = draw_noise(ph, n, noise_generator, volume.device)
@@ -591,11 +740,12 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 losses, vol_losses, terms = [], [], []
                 guard = False
                 for i in range(n):
-                    named = {} if writer is not None else None
+                    # on a mesh every rank averages the same terms
+                    named = {} if writer is not None or mesh is not None else None
                     loss, vol_loss = train_step(ph, state, c, norm_all[i], gt_all[i],
                                                 masks, guard,
                                                 None if noise is None else [a[i] for a in noise],
-                                                named)
+                                                named, **step_kw)
                     losses.append(loss)
                     vol_losses.append(vol_loss)
                     terms.append(named)
@@ -618,23 +768,33 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 state.step = int(read[1])
             k = state.step - start
             losses, vol_losses = read[2:2 + k], read[2 + len(losses):][:k]
-            if (state_save_path and not stopped
-                    and time.monotonic() - last_save >= save_every_s):
-                atomic_save_train_state(state_save_path, state, generators)
+            save_now = bool(state_save_path) and not stopped and \
+                time.monotonic() - last_save >= save_every_s
+            hist_now = writer is not None and ph.variational and \
+                (stopped or time.monotonic() - last_hist > 30.0)
+            if mesh is not None:
+                # rank 0's clock decides for every rank: a save and a
+                # sharded histogram gather over the mesh
+                save_now, hist_now = (bool(f) for f in pm.broadcast(mesh, torch.tensor(
+                    [save_now, hist_now], dtype=torch.int32, device=mesh.device)).tolist())
+            if save_now:
+                save(replicated(state))
                 last_save = time.monotonic()
+            rates = None
+            if hist_now and ph.variational:
+                p, _ = state.layout.views(replicated(state).flat.detach())
+                rates = [G.variational_dropout_rates(p, lvl)
+                         for lvl in range(len(p.log_thetas))]
+                last_hist = time.monotonic()
             if writer is not None:
                 values = iter(read[2 + 2 * len(terms):])
                 terms = [{tag: next(values) if torch.is_tensor(v) else v
                           for tag, v in named.items()} for named in terms][:k]
                 futures.append(pool.submit(_emit_scalars, writer, start, losses,
                                            vol_losses, terms))
-                if ph.variational and (stopped or time.monotonic() - last_hist > 30.0):
-                    p, _ = state.layout.views(state.flat.detach())
-                    rates = [G.variational_dropout_rates(p, lvl)
-                             for lvl in range(len(p.log_thetas))]
+                if rates is not None:
                     futures.append(pool.submit(_emit_histograms, writer, rates,
                                                state.step))
-                    last_hist = time.monotonic()
                 # a failed write raises here, at the latest after the phase
                 while futures and futures[0].done():
                     futures.pop(0).result()
@@ -643,11 +803,12 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
             if volume_cb is not None:
                 volume_cb(np.asarray(vol_losses))
             if verbose and k:
-                vp = _F32(state.step) * _F32(N) * _F32(1.0 / float(ph.n_voxels))
+                vp = _F32(state.step) * _F32(ph.batch_n) * _F32(1.0 / float(ph.n_voxels))
                 print(f"Pass [{vp:.4f} / {ph.max_pass:.1f}]: volume loss: "
                       f"{vol_losses[-1]:.4f}, complete_loss: {losses[-1]:.4f}")
         for f in futures:
             f.result()
+    state = replicated(state)
     if state_save_path:
-        atomic_save_train_state(state_save_path, state, generators)
+        save(state)
     return state

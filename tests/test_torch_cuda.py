@@ -3,7 +3,9 @@ gradient, the fused MLP forward and backward, the one-kernel model forward
 and backward, each mode of them: the 'bf16' ones of the bf16 compute path
 too) against their plain PyTorch versions, the wrappers' checks, and the
 model, evaluation and training paths through them (every gate family's
-train step, and the bf16 compute path's).
+train step, and the bf16 compute path's); the kernels on the windowed grid
+of tile-local decode, and the collectives of multi-device training on CUDA
+tensors (NCCL in a world of one; two gloo ranks sharing the card).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it also runs where JAX is not installed; the
@@ -24,8 +26,9 @@ from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
 from latent_feature_grid_compression_tpu_torch.ops import mlp_fused as mf
 from latent_feature_grid_compression_tpu_torch.ops.embedding import fourier_embed
 from latent_feature_grid_compression_tpu_torch.ops.interpolation import (
-    channel_minor, grid_sample_3d, grid_sample_channel_minor_backward,
-    grid_sample_channel_minor_backward_bf16, grid_sample_channel_minor_bf16)
+    channel_minor, grid_sample_3d, grid_sample_channel_minor,
+    grid_sample_channel_minor_backward, grid_sample_channel_minor_backward_bf16,
+    grid_sample_channel_minor_bf16)
 
 pytestmark = pytest.mark.cuda
 
@@ -993,3 +996,101 @@ if __name__ == '__main__':
                                  'step and report where its Adam steps differ.')
     ap.add_argument('--repeat', type=int, default=10)
     _adam_step_report(ap.parse_args().repeat)
+
+
+# ---------------------------------------------------------------------------
+# Multi-device training: the windowed grid of tile-local decode, and the
+# process groups' collectives on CUDA tensors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('W', [5, 8, 9])
+def test_kernels_on_a_windowed_grid_match_plain(cuda_device, W):
+    """Tile-local decode fetches from (15, 15, W', 16), W' < 15: the fetch
+    against its plain version within KERNEL_TOL, the gradient within
+    KERNEL_TOL of max |dG| (atomics), on a train step's half batch whose x
+    spans the window (and its padding)."""
+    g = torch.Generator(device=cuda_device).manual_seed(W)
+    grid = torch.randn((15, 15, W, 16), device=cuda_device, generator=g)
+    coords = torch.rand((16384, 3), device=cuda_device, generator=g) * 2.2 - 1.1
+    out = gs.grid_sample_channel_minor_cuda(grid, coords)
+    plain = grid_sample_channel_minor(grid, coords)
+    assert (out - plain).abs().max().item() <= KERNEL_TOL
+    dout = torch.randn(out.shape, device=cuda_device, generator=g)
+    dgrid = gs.grid_sample_channel_minor_backward_cuda(dout, coords, 15, 15, W)
+    dplain = grid_sample_channel_minor_backward(dout, coords, 15, 15, W)
+    assert (dgrid - dplain).abs().max().item() <= KERNEL_TOL * dplain.abs().max().item()
+
+
+def test_windowed_forward_on_card_matches_full(cuda_device):
+    """apply_model(x_window) at the flagship widths through the fetch kernel,
+    at coordinates inside the window, against the full forward."""
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(0),
+                          device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    coords = torch.rand((32768, 3), device=cuda_device, generator=g) * 2 - 1
+    coords[:, 0] = coords[:, 0].abs() * -1.0    # x in [-1, 0]: cells 0..7
+    before = gs.launches
+    with torch.no_grad():
+        win = fg.apply_model(model, coords, x_window=(0, 9))
+        full = fg.apply_model(model, coords)
+    assert gs.launches == before + 2
+    assert (win - full).abs().max().item() <= 2e-5 * full.abs().max().item()
+
+
+def test_nccl_world_of_one_runs_the_collectives_on_the_card(cuda_device, tmp_path):
+    """A world-1 NCCL process group on the card: all_reduce,
+    reduce_scatter_tensor and all_gather_into_tensor on CUDA tensors."""
+    import torch.distributed as dist
+    card = torch.device('cuda', torch.cuda.current_device())
+    dist.init_process_group('nccl', init_method='file://' + str(tmp_path / 'rendezvous'),
+                            world_size=1, rank=0, device_id=card)
+    try:
+        x = torch.arange(8, dtype=torch.float32, device=card)
+        y = x.clone()
+        dist.all_reduce(y)
+        scattered = torch.empty(8, device=card)
+        dist.reduce_scatter_tensor(scattered, x.clone())
+        gathered = torch.empty(8, device=card)
+        dist.all_gather_into_tensor(gathered, x)
+        torch.cuda.synchronize()
+        for t in (y, scattered, gathered):
+            assert torch.equal(t, x)
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_rank_on_the_card(rank, init_file, out):
+    """One of two gloo ranks that share card 0: the mesh's collectives on
+    CUDA tensors."""
+    import torch.distributed as dist
+    from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
+    dist.init_process_group('gloo', init_method='file://' + init_file, world_size=2,
+                            rank=rank)
+    try:
+        mesh = pm.make_mesh(1, 2, device=torch.device('cuda', 0))
+        x = torch.arange(6, dtype=torch.float32, device='cuda') + 10 * rank
+        torch.save({'default_device': str(pm.make_mesh(1, 2).device),
+                    'mean': pm.all_reduce_mean(mesh, x.clone()).cpu(),
+                    'scatter': pm.reduce_scatter_mean(mesh, x.clone()).cpu(),
+                    'gather': pm.all_gather_flat(mesh, x.clone()).cpu(),
+                    'device': str(x.device)}, f'{out}/rank{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gloo_ranks_sharing_the_card_run_the_mesh_collectives(cuda_device, tmp_path):
+    """Two gloo ranks on card 0 (the mesh phase's set-up on one card): the
+    mean, the reduce-scatter-mean and the all-gather on CUDA tensors give
+    the exact values, with no staging through the host; a mesh built with
+    no device is on the card under gloo too."""
+    import torch.multiprocessing as mp
+    mp.spawn(_gloo_rank_on_the_card, args=(str(tmp_path / 'rendezvous'), str(tmp_path)),
+             nprocs=2)
+    base = torch.arange(6, dtype=torch.float32)
+    for rank in range(2):
+        r = torch.load(tmp_path / f'rank{rank}.pt')
+        assert r['device'].startswith('cuda')
+        assert r['default_device'] == 'cuda:0'
+        assert torch.equal(r['mean'], base + 5)
+        assert torch.equal(r['scatter'], (base + 5)[3 * rank:3 * rank + 3])
+        assert torch.equal(r['gather'], torch.cat([base, base + 10]))

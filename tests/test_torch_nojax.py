@@ -54,6 +54,11 @@ info = training(TrainConfig(basedir='/', expname='e', max_pass=3, batch_size=64,
                             n_hidden_size=8, n_layers=2),
                 verbose=False, volume_np=vol, write_vols=False, device='cpu')
 assert info['psnr'] == info['psnr'] and os.path.exists('e/binary_model_file')
+from latent_feature_grid_compression_tpu_torch.parallel import (
+    comm_volume_per_step, initialize_distributed, make_mesh)
+assert initialize_distributed(device='cpu') is False   # no launcher environment
+assert comm_volume_per_step(4609, 2, 2, True)['total_per_device'] > 0
+assert 'latent_feature_grid_compression_tpu_torch.parallel.mesh' in sys.modules
 assert not any(k == 'jax' or k.startswith(('jax.', 'latent_feature_grid_compression_tpu.'))
                for k, v in sys.modules.items() if v is not None)
 print('OK')
@@ -80,6 +85,12 @@ def _sources():
     yield os.path.join(REPO, 'train_torch.py')
     # the card's tests run where JAX is not installed
     yield os.path.join(REPO, 'tests', 'test_torch_cuda.py')
+
+
+def test_port_sources_cover_the_parallel_package():
+    names = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {os.path.join('parallel', f) for f in
+            ('__init__.py', 'distributed.py', 'mesh.py')} <= names
 
 
 def test_no_jax_import_in_port_sources():

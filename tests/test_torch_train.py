@@ -415,8 +415,11 @@ def test_decode_copies_its_operators_once():
 
 @pytest.mark.parametrize('field,value', [('mesh_data', 2), ('mesh_space', 2)])
 def test_unported_training_options_raise(field, value):
-    with pytest.raises(ValueError, match='not yet ported'):
-        trun.training(tconfig.TrainConfig(**{field: value}), device='cpu')
+    """A mesh of two ranks in a run without a process group of that size
+    raises the launch error, which names the torchrun launch."""
+    with pytest.raises(ValueError, match='torchrun --nproc_per_node 2'):
+        trun.training(tconfig.TrainConfig(**{field: value}), device='cpu',
+                      volume_np=_volume((16, 16, 16)))
 
 
 def _cli_args(tmp_path, vol_path, *extra):
