@@ -15,7 +15,10 @@ with the MLP as PyTorch ops; --mlp_backend pallas, the fused MLP kernels;
 other gate family under the default backend, and the bf16 compute path
 (--compute_dtype bfloat16, alone and with --interp_backend fused: the
 'bf16' modes of the fetch, its gradient and the one-kernel forward and
-backward).  Phases, each printing one JSON line, in order:
+backward); then the quantization study on the trained model, the volume
+readers, and a NAS search with its quality-control re-runs at
+mhd_p_HyperparamSearch.txt's widths.  Phases, each printing one JSON line,
+in order:
 
   1. device      card name, and its name and power limit from nvidia-smi
   2. build       nvcc of every csrc/*.cu (started together), seconds, ptxas
@@ -115,7 +118,40 @@ backward).  Phases, each printing one JSON line, in order:
                  PSNR finite, the container restores; PSNR, ratio, zeros and
                  samples/s a phase; the dynamic family also the profile of 50
                  steps
- 14. mesh        multi-device training, 2 ranks through python -m
+ 14. quant       the post-training quantization study (mock_quantization_study:
+                 coefficients through int8 at scale 0.02, the MLP through
+                 int32 at 1e-4) on train's model.npz over the 255^3 volume:
+                 the fetch kernel once an evaluation chunk, twice (128);
+                 the float PSNR equal to train's within 1e-3 dB, the zeros
+                 and ratio train's less the masks' storage; the quantized
+                 PSNR within 1e-3 dB of a float64 host PSNR of the quantized
+                 model's field through the plain versions; both PSNRs,
+                 both ratios, seconds
+ 15. readers     load_volume of the 255^3 volume written as .cvol (and .h5
+                 where h5py is installed) bitwise equal to the .npy's; the
+                 read times
+ 16. nas         nas.run_search on mhd_p_HyperparamSearch.txt at its
+                 published widths (22 features on 17^3, dynamic
+                 variational, 4 x 32, batch 2048 x 16) over the .cvol copy,
+                 cut to max_pass = 1: 4 trials of train_torch.py, 2 at a
+                 time on the card (GP-EHVI, seed 0); then
+                 utils/trigger_experiments.py: runs_at_target_ratios at the
+                 trials' geometric-mean ratio (lambda_drop_loss), and
+                 rerun_frontier_configs of the front's first trial with
+                 wavelet_filter '' (and no warm start).  Each process runs
+                 train_torch.py through a wrapper that counts its launches.
+                 Every process exits 0 (a failed trial is run again in the
+                 foreground, then the phase raises), PSNR finite, ratio > 1,
+                 the fetch kernel once a step and an evaluation chunk and the
+                 gradient kernel once a step (the paths nas and qc of the
+                 kernels line), each trial's TensorBoard metrics equal to its
+                 info.txt where tensorboard is installed; then the fetch and
+                 gradient kernels against their plain versions (the kernel
+                 phases' checks) at each run's grid and features on the
+                 trainer's positions; each trial's parameters, grid size,
+                 PSNR, ratio and seconds, the QC runs' ratios against their
+                 targets
+ 17. mesh        multi-device training, 2 ranks through python -m
                  torch.distributed.run (this script as each rank's worker,
                  driving train_torch.py): NCCL with a card a rank, else gloo
                  with both ranks on the one card, asked for by name (the
@@ -139,22 +175,23 @@ backward).  Phases, each printing one JSON line, in order:
                  per rank and summed, ms a step, a profiled 50 steps' share
                  in collectives, the bytes comm_volume_per_step predicts
                  against the bytes the step moves
- 15. step_rates  the flagship step time of each backend (the bf16 paths
+ 18. step_rates  the flagship step time of each backend (the bf16 paths
                  too) without the profiler, 5 rounds of 100 steps, the
                  backends in turns
- 16. kernels     one line {"kernels": [...]} for every ported kernel
+ 19. kernels     one line {"kernels": [...]} for every ported kernel
 
 Every count of launches is set to 0 just before a path is driven and read
 just after it.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
 
-``--only`` takes a comma-separated list of phases 2-15 (build, kernel,
+``--only`` takes a comma-separated list of phases 2-18 (build, kernel,
 kernel_bwd, kernel_mlp, kernel_fused, kernel_bf16, checkpoint, binary,
-queries, queries_bf16, train, train_bf16, resume, train_families, mesh,
-step_rates) and runs the device phase and those, in the order above, with
-the same checks (train_bf16 and mesh without train compare no PSNR;
-resume runs train's default run first, whose experiment it resumes); the
+queries, queries_bf16, train, train_bf16, resume, train_families, quant,
+readers, nas, mesh, step_rates) and runs the device phase and those, in the
+order above, with the same checks (train_bf16 and mesh without train
+compare no PSNR; resume and quant run train's default run first, whose
+experiment they read); the
 kernels line and the ok line need every phase, so a partial run prints
 neither (a quick loop on one kernel, never the smoke).
 """
@@ -162,6 +199,7 @@ neither (a quick loop on one kernel, never the smoke).
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import os
@@ -178,13 +216,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from latent_feature_grid_compression_tpu_torch.data.cvol import read_cvol, write_cvol
 from latent_feature_grid_compression_tpu_torch.data.synthetic import synth_volume
 from latent_feature_grid_compression_tpu_torch.data.volume import VolumeMeta, load_volume
 from latent_feature_grid_compression_tpu_torch.device import disable_tf32
 from latent_feature_grid_compression_tpu_torch.eval.reconstruct import (
-    CHUNK, eval_stats_on_device, field_from_net, lattice_chunk)
-from latent_feature_grid_compression_tpu_torch.config import load_config, write_dict
-from latent_feature_grid_compression_tpu_torch.io.checkpoint import save_checkpoint
+    CHUNK, deviation_statistics, eval_stats_on_device, field_from_net, lattice_chunk)
+from latent_feature_grid_compression_tpu_torch.config import (
+    dict_from_file, load_config, write_dict)
+from latent_feature_grid_compression_tpu_torch.io.checkpoint import (
+    load_checkpoint, save_checkpoint)
 from latent_feature_grid_compression_tpu_torch.io.container import restore_model
 from latent_feature_grid_compression_tpu_torch.io.train_state_io import (
     TENSOR_FIELDS, atomic_save_train_state, load_train_state)
@@ -201,6 +242,8 @@ from latent_feature_grid_compression_tpu_torch.ops.interpolation import (
     channel_minor, grid_sample_channel_minor, grid_sample_channel_minor_backward,
     grid_sample_channel_minor_backward_bf16, grid_sample_channel_minor_bf16)
 from latent_feature_grid_compression_tpu_torch.ops.mlp import mlp_apply, mlp_apply_bf16
+from latent_feature_grid_compression_tpu_torch.ops.quantization import (
+    mock_quantization_study, quantize_model)
 from latent_feature_grid_compression_tpu_torch.train import trainer as tr
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -533,6 +576,50 @@ def phase_build():
 
 
 @torch.no_grad()
+def fetch_case(C, G, kind, g, timed=True):
+    """The fetch kernel against its plain version and F.grid_sample on a
+    random (C, G^3) grid at ``kind`` coordinates: 'uniform' (out-of-range
+    ones included), 'trainer' (one train step's positions) or 'lattice' (a
+    chunk of the 255^3 lattice); with ``timed`` the kernel's, plain,
+    library and bound times."""
+    n = TRAIN_BATCH if kind == 'trainer' else CHUNK
+    feats = torch.randn((C, G, G, G), device='cuda', generator=g)
+    if kind == 'uniform':
+        coords = torch.rand((n, 3), device='cuda', generator=g) * 2.4 - 1.2
+    elif kind == 'trainer':
+        coords = trainer_positions(n, g)
+    else:
+        coords, _ = lattice_chunk(VolumeMeta((VOLUME_N,) * 3), 32 * n, n,
+                                  torch.device('cuda'))
+    grid_cl = channel_minor(feats)
+    out = gs.grid_sample_channel_minor_cuda(grid_cl, coords)
+    plain = grid_sample_channel_minor(grid_cl, coords)
+    lib = F.grid_sample(feats[None], coords.view(1, n, 1, 1, 3),
+                        mode='bilinear', padding_mode='zeros',
+                        align_corners=False).view(C, n).t()
+    torch.cuda.synchronize()
+    err = (out - plain).abs().max().item()
+    err_lib = (out - lib).abs().max().item()
+    case = f'C={C}, G={G}, {kind} coords'
+    check(bool(torch.isfinite(out).all()), f'non-finite kernel output ({case})')
+    check(err <= KERNEL_TOL, f'kernel vs plain {err} > {KERNEL_TOL} ({case})')
+    check(err_lib <= LIBRARY_TOL,
+          f'kernel vs F.grid_sample {err_lib} > {LIBRARY_TOL} ({case})')
+    row = {'phase': 'kernel', 'name': gs.KERNEL, 'C': C, 'grid': G, 'n': n,
+           'coords': kind, 'max_abs_err': err, 'max_abs_err_library': err_lib,
+           'plan': gs.fwd_plan(n, C, G, G, G, gs._vec4(C, grid_cl, out))}
+    if timed:
+        bound, bound_by = fetch_bound_ms(n, C, G, G, G)
+        row.update(
+            kernel_ms=time_ms(lambda: gs.grid_sample_channel_minor_cuda(grid_cl, coords)),
+            plain_ms=time_ms(lambda: grid_sample_channel_minor(grid_cl, coords)),
+            library_ms=time_ms(lambda: F.grid_sample(
+                feats[None], coords.view(1, n, 1, 1, 3), mode='bilinear',
+                padding_mode='zeros', align_corners=False)),
+            bound_ms=bound, bound_by=bound_by)
+    return row
+
+
 def phase_kernel():
     """Kernel vs plain vs F.grid_sample at the NAS range of grids, on
     uniform random coordinates (out-of-range ones included), and at the
@@ -548,39 +635,7 @@ def phase_kernel():
     # on 17^3
     for C, G, kind in ([(C, G, 'uniform') for C, G in cases]
                        + [(16, 15, 'lattice'), (16, 15, 'trainer'), (22, 17, 'trainer')]):
-        n = TRAIN_BATCH if kind == 'trainer' else CHUNK
-        feats = torch.randn((C, G, G, G), device='cuda', generator=g)
-        if kind == 'uniform':
-            coords = torch.rand((n, 3), device='cuda', generator=g) * 2.4 - 1.2
-        elif kind == 'trainer':
-            coords = trainer_positions(n, g)
-        else:
-            coords, _ = lattice_chunk(VolumeMeta((VOLUME_N,) * 3), 32 * n, n,
-                                      torch.device('cuda'))
-        grid_cl = channel_minor(feats)
-        out = gs.grid_sample_channel_minor_cuda(grid_cl, coords)
-        plain = grid_sample_channel_minor(grid_cl, coords)
-        lib = F.grid_sample(feats[None], coords.view(1, n, 1, 1, 3),
-                            mode='bilinear', padding_mode='zeros',
-                            align_corners=False).view(C, n).t()
-        torch.cuda.synchronize()
-        err = (out - plain).abs().max().item()
-        err_lib = (out - lib).abs().max().item()
-        case = f'C={C}, G={G}, {kind} coords'
-        check(bool(torch.isfinite(out).all()), f'non-finite kernel output ({case})')
-        check(err <= KERNEL_TOL, f'kernel vs plain {err} > {KERNEL_TOL} ({case})')
-        check(err_lib <= LIBRARY_TOL,
-              f'kernel vs F.grid_sample {err_lib} > {LIBRARY_TOL} ({case})')
-        bound, bound_by = fetch_bound_ms(n, C, G, G, G)
-        row = {'phase': 'kernel', 'name': gs.KERNEL, 'C': C, 'grid': G, 'n': n,
-               'coords': kind, 'max_abs_err': err, 'max_abs_err_library': err_lib,
-               'kernel_ms': time_ms(lambda: gs.grid_sample_channel_minor_cuda(grid_cl, coords)),
-               'plain_ms': time_ms(lambda: grid_sample_channel_minor(grid_cl, coords)),
-               'library_ms': time_ms(lambda: F.grid_sample(
-                   feats[None], coords.view(1, n, 1, 1, 3), mode='bilinear',
-                   padding_mode='zeros', align_corners=False)),
-               'bound_ms': bound, 'bound_by': bound_by,
-               'plan': gs.fwd_plan(n, C, G, G, G, gs._vec4(C, grid_cl, out))}
+        row = fetch_case(C, G, kind, g)
         emit(row)
         rows.append(row)
     return rows
@@ -594,6 +649,55 @@ def trainer_positions(n, generator):
     return (pos.to(torch.float32) / (VOLUME_N - 1)) * 2.0 - 1.0
 
 
+def grad_case(C, G, kind, g, timed=True):
+    """The gradient kernel against its plain version and aten's
+    grid_sampler_3d_backward at one train step's batch, on 'trainer' or
+    'uniform' coordinates; with ``timed`` the times as fetch_case's."""
+    n = TRAIN_BATCH
+    if kind == 'trainer':
+        coords = trainer_positions(n, g)
+    else:
+        coords = torch.rand((n, 3), device='cuda', generator=g) * 2.4 - 1.2
+    grad = torch.randn((n, C), device='cuda', generator=g)
+    out = gs.grid_sample_channel_minor_backward_cuda(grad, coords, G, G, G)
+    plain = grid_sample_channel_minor_backward(grad, coords, G, G, G)
+    # aten's backward of F.grid_sample, asking for the input's gradient
+    # only; its (N, C) -> (1, C, N, 1, 1) layouts are made once here
+    feats = torch.empty((1, C, G, G, G), device='cuda')
+    grad_out = grad.t().reshape(1, C, n, 1, 1).contiguous()
+    grid5 = coords.view(1, n, 1, 1, 3)
+
+    def library():
+        return torch.ops.aten.grid_sampler_3d_backward(
+            grad_out, feats, grid5, 0, 0, False, [True, False])
+
+    lib_in, lib_grid = library()
+    torch.cuda.synchronize()
+    scale = plain.abs().max().item()
+    err = (out - plain).abs().max().item()
+    err_lib = (out - lib_in[0].permute(1, 2, 3, 0)).abs().max().item()
+    case = f'C={C}, G={G}, {kind} coords'
+    check(bool(torch.isfinite(out).all()), f'non-finite gradient ({case})')
+    check(err <= BWD_KERNEL_TOL * scale,
+          f'gradient kernel vs plain {err} > {BWD_KERNEL_TOL} * {scale} ({case})')
+    check(err_lib <= 1e-4 * scale, f'gradient kernel vs aten {err_lib} ({case})')
+    row = {'phase': 'kernel_bwd', 'name': gs.BWD_KERNEL, 'C': C, 'grid': G,
+           'n': n, 'coords': kind, 'max_abs_err': err, 'max_abs_dG': scale,
+           'max_abs_err_library': err_lib,
+           'library_skipped_grid_grad': lib_grid is None or lib_grid.numel() == 0,
+           'adds': n * 8 * C,
+           'plan': gs.bwd_plan(n, C, G, G, G, gs._vec4(C, grad, out))}
+    if timed:
+        bound, bound_by = grad_bound_ms(n, C, G, G, G)
+        row.update(
+            kernel_ms=time_ms(lambda: gs.grid_sample_channel_minor_backward_cuda(
+                grad, coords, G, G, G)),
+            plain_ms=time_ms(lambda: grid_sample_channel_minor_backward(
+                grad, coords, G, G, G)),
+            library_ms=time_ms(library), bound_ms=bound, bound_by=bound_by)
+    return row
+
+
 def phase_kernel_bwd():
     """Gradient kernel vs plain vs aten's grid_sampler_3d_backward, at one
     train step's batch: the flagship shape on the trainer's positions, then
@@ -601,50 +705,11 @@ def phase_kernel_bwd():
     coordinates; each row names the route its shape takes."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 2)
     rows = []
-    cases = ([(16, 15, 'trainer', TRAIN_BATCH), (22, 17, 'trainer', TRAIN_BATCH)]
-             + [(16, G, 'uniform', TRAIN_BATCH) for G in (4, 22, 23, 32, 62)]
-             + [(5, 15, 'uniform', TRAIN_BATCH), (32, 15, 'uniform', TRAIN_BATCH)])
-    for C, G, kind, n in cases:
-        if kind == 'trainer':
-            coords = trainer_positions(n, g)
-        else:
-            coords = torch.rand((n, 3), device='cuda', generator=g) * 2.4 - 1.2
-        grad = torch.randn((n, C), device='cuda', generator=g)
-        out = gs.grid_sample_channel_minor_backward_cuda(grad, coords, G, G, G)
-        plain = grid_sample_channel_minor_backward(grad, coords, G, G, G)
-        # aten's backward of F.grid_sample, asking for the input's gradient
-        # only; its (N, C) -> (1, C, N, 1, 1) layouts are made once here
-        feats = torch.empty((1, C, G, G, G), device='cuda')
-        grad_out = grad.t().reshape(1, C, n, 1, 1).contiguous()
-        grid5 = coords.view(1, n, 1, 1, 3)
-
-        def library():
-            return torch.ops.aten.grid_sampler_3d_backward(
-                grad_out, feats, grid5, 0, 0, False, [True, False])
-
-        lib_in, lib_grid = library()
-        torch.cuda.synchronize()
-        scale = plain.abs().max().item()
-        err = (out - plain).abs().max().item()
-        err_lib = (out - lib_in[0].permute(1, 2, 3, 0)).abs().max().item()
-        case = f'C={C}, G={G}, {kind} coords'
-        check(bool(torch.isfinite(out).all()), f'non-finite gradient ({case})')
-        check(err <= BWD_KERNEL_TOL * scale,
-              f'gradient kernel vs plain {err} > {BWD_KERNEL_TOL} * {scale} ({case})')
-        check(err_lib <= 1e-4 * scale, f'gradient kernel vs aten {err_lib} ({case})')
-        bound, bound_by = grad_bound_ms(n, C, G, G, G)
-        row = {'phase': 'kernel_bwd', 'name': gs.BWD_KERNEL, 'C': C, 'grid': G,
-               'n': n, 'coords': kind, 'max_abs_err': err, 'max_abs_dG': scale,
-               'max_abs_err_library': err_lib,
-               'library_skipped_grid_grad': lib_grid is None or lib_grid.numel() == 0,
-               'adds': n * 8 * C,
-               'kernel_ms': time_ms(lambda: gs.grid_sample_channel_minor_backward_cuda(
-                   grad, coords, G, G, G)),
-               'plain_ms': time_ms(lambda: grid_sample_channel_minor_backward(
-                   grad, coords, G, G, G)),
-               'library_ms': time_ms(library),
-               'bound_ms': bound, 'bound_by': bound_by,
-               'plan': gs.bwd_plan(n, C, G, G, G, gs._vec4(C, grad, out))}
+    cases = ([(16, 15, 'trainer'), (22, 17, 'trainer')]
+             + [(16, G, 'uniform') for G in (4, 22, 23, 32, 62)]
+             + [(5, 15, 'uniform'), (32, 15, 'uniform')])
+    for C, G, kind in cases:
+        row = grad_case(C, G, kind, g)
         emit(row)
         rows.append(row)
     routes = {r['plan']['route'] for r in rows}
@@ -1447,7 +1512,8 @@ def state_round_trip(config, vol_dev, tmp):
           'the loaded state drew other positions or noise')
     rel_diff = np.abs(l_loaded - l_live) / np.abs(l_live)
     check(float(rel_diff.max()) <= ATOMICS_TOL,
-          f'continued losses differ by {float(rel_diff.max())} of themselves')
+          f'{os.path.basename(config)}: continued losses differ by '
+          f'{float(rel_diff.max())} of themselves')
     return {'config': os.path.relpath(config, REPO), 'chunk': RESUME_CHUNK,
             'saved_at_step': 2 * RESUME_CHUNK, 'save_ms': save_ms, 'load_ms': load_ms,
             'file_bytes': os.path.getsize(path), 'trainables': live.flat.numel(),
@@ -1533,7 +1599,6 @@ def phase_resume(tmp, vol_path, default):
                      **{f'phase2_{k}_minus_train': info[f'train_phase2_{k}'] -
                         default[f'train_phase2_{k}']
                         for k in ('first_loss', 'last_loss', 'last_volume_loss')}}
-    shutil.rmtree(exp)
 
     prof_dir = os.path.join(tmp, 'profile_trace')
     run_chunk = load_config(FLAGSHIP_CONFIG).steps_per_chunk
@@ -1573,6 +1638,286 @@ def phase_resume(tmp, vol_path, default):
             default['train_phase1_samples_per_sec']
     emit(row)
     return row
+
+
+# ---------------------------------------------------------------------------
+# quant, readers, nas: the quantization study, the volume readers, the NAS
+# search and the quality-control re-runs
+# ---------------------------------------------------------------------------
+
+NAS_CONFIG = os.path.join(CONFIGS, 'mhd_p_HyperparamSearch.txt')
+NAS_TRIALS = 4
+NAS_PARALLELISM = 2   # both trials' processes on the one card
+NAS_MAX_PASS = 1      # the published 60 passes cut to 1
+TRIAL_TIMEOUT_S = 600
+
+
+def bitwise_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+def phase_quant(tmp, vol_path, default):
+    """The post-training quantization study on train-3's model.npz (the
+    train phase's default run, ``default``, left its experiment in ``tmp``)."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    spec = make_spec(d_in=cfg.d_in, hidden=cfg.n_hidden_size, d_out=cfg.d_out,
+                     num_layers=cfg.n_layers, n_freqs=cfg.n_embedding_freq,
+                     grid_features=cfg.grid_features, grid_size=cfg.grid_size,
+                     wavelet=cfg.wavelet_filter)
+    model = load_checkpoint(os.path.join(tmp, 'train', 'model.npz'), spec, device='cuda')
+    vol = load_volume(vol_path)
+    meta = VolumeMeta(vol.shape)
+    n_chunks = math.ceil(meta.n_voxels / CHUNK)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    study = mock_quantization_study(model, vol)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == only({gs.KERNEL: 2 * n_chunks}),
+          f'the study launched {counts}, expected the fetch {2 * n_chunks} times')
+    check(abs(study['psnr'] - default['psnr']) <= PSNR_TOL_DB,
+          f"the study's PSNR {study['psnr']} against train-3's {default['psnr']}")
+    # train-3's zeros are the bake's less the masks' storage (a bit a gate
+    # value: gate values / 32 floats, see save_dropvalues_on_grid); the study
+    # counts the pruned coefficients' zeros alone, so its float ratio leaves
+    # the masks out
+    mask_floats = sum(c[0].numel() for c in model.coeffs) / 32.0
+    n_params = study['num_grid_params'] + study['num_mlp_params']
+    check(n_params == default['num_parameters']
+          and study['num_zeros'] - mask_floats == default['num_zeros'],
+          f"the study counts {n_params} parameters and {study['num_zeros']} zeros; "
+          f"train-3 {default['num_parameters']} and {default['num_zeros']} "
+          f"(masks {mask_floats} floats)")
+    ratio_with_masks = meta.n_voxels / (n_params - (study['num_zeros'] - mask_floats))
+    check(ratio_with_masks == default['compression_ratio'],
+          f"{ratio_with_masks} against train-3's ratio {default['compression_ratio']}")
+    # the quantized model's field through the plain versions, PSNR in
+    # float64 on the host
+    qmodel = quantize_model(model)
+    psnr_plain = deviation_statistics(plain_field(qmodel, meta).cpu().numpy(), vol)[0]
+    check(abs(study['psnr_quant'] - psnr_plain) <= PSNR_TOL_DB,
+          f"the study's quantized PSNR {study['psnr_quant']} against the plain "
+          f"field's {psnr_plain}")
+    # the int8 grid clips at +-127.5 steps of 0.02
+    clipped = [int((c.abs() > 127.5 * 0.02).sum()) for c in model.coeffs]
+    emit({'phase': 'quant', 'model': 'train-3 model.npz (mhd_p_smallify.txt)',
+          'volume': list(meta.resolution), 'grid_scale': 0.02, 'mlp_scale': 1e-4,
+          **study, 'psnr_drop': study['psnr'] - study['psnr_quant'],
+          'psnr_quant_plain_host': psnr_plain, 'train3_psnr': default['psnr'],
+          'train3_compression_ratio': default['compression_ratio'],
+          'train3_num_zeros': default['num_zeros'], 'mask_floats': mask_floats,
+          'clipped_by_level': clipped,
+          'max_abs_by_level': [c.abs().max().item() for c in model.coeffs],
+          'seconds': seconds, 'launches': counts})
+    return counts
+
+
+def cvol_copy(vol_path):
+    """The .npy volume as an uncompressed float32 .cvol beside it."""
+    path = os.path.splitext(vol_path)[0] + '.cvol'
+    if not os.path.exists(path):
+        write_cvol(path, np.load(vol_path).astype(np.float32))
+    return path
+
+
+def phase_readers(tmp, vol_path):
+    """load_volume of the same volume as .npy, .cvol and .h5 (where h5py is
+    installed): bitwise the .npy's, and the read times."""
+    raw = np.load(vol_path)
+    row = {'phase': 'readers', 'volume': list(raw.shape), 'dtype': str(raw.dtype)}
+    t0 = time.perf_counter()
+    paths = {'npy': vol_path, 'cvol': cvol_copy(vol_path)}
+    row['cvol_write_s'] = time.perf_counter() - t0
+    try:
+        import h5py
+    except ImportError:
+        row['h5'] = 'h5py is not installed: no .h5 case'
+    else:
+        paths['h5'] = os.path.splitext(vol_path)[0] + '.h5'
+        with h5py.File(paths['h5'], 'w') as f:
+            f.create_dataset('data', data=raw[None])   # load_volume squeezes
+    want = load_volume(vol_path)
+    reads = {}
+    for fmt, path in paths.items():
+        t0 = time.perf_counter()
+        got = load_volume(path)
+        seconds = time.perf_counter() - t0
+        check(bitwise_equal(got, want), f'load_volume of the .{fmt} differs from the .npy')
+        reads[fmt] = {'load_volume_s': seconds, 'file_bytes': os.path.getsize(path)}
+    t0 = time.perf_counter()
+    check(bitwise_equal(read_cvol(paths['cvol']), raw.astype(np.float32)),
+          'read_cvol differs from the volume written')
+    reads['cvol']['read_cvol_s'] = time.perf_counter() - t0
+    row['reads'] = reads
+    emit(row)
+
+
+# train_torch.py as a NAS trial or QC run: the kernels' launch counts of
+# the run, from 0 at its start, written to launches.json in its experiment
+# directory (cwd + --basedir + --expname, as the trainer places it)
+TRIAL_SCRIPT = """\
+import json, os, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+import train_torch
+argv = sys.argv[1:]
+chip_smoke.reset_counts()
+train_torch.main(argv)
+exp = os.getcwd() + argv[argv.index('--basedir') + 1] + argv[argv.index('--expname') + 1]
+with open(os.path.join(exp, 'launches.json'), 'w') as f:
+    json.dump(chip_smoke.read_counts(), f)
+"""
+
+
+def trial_script(work):
+    """TRIAL_SCRIPT written into ``work``: its path."""
+    path = os.path.join(work, 'trial_train_torch.py')
+    with open(path, 'w') as f:
+        f.write(TRIAL_SCRIPT.format(repo=REPO))
+    return path
+
+
+def experiment_row(exp, n_chunks):
+    """An experiment's info.txt (PSNR, ratio, zeros, steps, training
+    seconds) and its launches.json, which must show the fetch kernel once a
+    step and an evaluation chunk and the gradient kernel once a step:
+    (info, row, launch counts)."""
+    info = dict_from_file(os.path.join(exp, 'info.txt'))
+    check(math.isfinite(info['psnr']) and info['compression_ratio'] > 1,
+          f"{exp}: PSNR {info['psnr']}, ratio {info['compression_ratio']}")
+    steps = info['train_phase1_steps'] + info['train_phase2_steps']
+    with open(os.path.join(exp, 'launches.json')) as f:
+        counts = json.load(f)
+    want = only({gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps})
+    check(steps > 0 and counts == want,
+          f'{exp} took {steps} steps and launched {counts}, expected {want}')
+    cfg = dict_from_file(os.path.join(exp, 'config.txt'))
+    return info, {'psnr': info['psnr'], 'compression_ratio': info['compression_ratio'],
+                  'num_zeros': info['num_zeros'], 'num_parameters': info['num_parameters'],
+                  'grid_size': cfg['grid_size'], 'grid_features': cfg['grid_features'],
+                  'wavelet_filter': cfg['wavelet_filter'], 'steps': steps,
+                  'train_seconds': info['train_phase1_seconds'] + info['train_phase2_seconds'],
+                  'launches': counts}, counts
+
+
+def add_counts(total, counts):
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def phase_nas(tmp, vol_path):
+    """run_search on mhd_p_HyperparamSearch.txt at its published widths, cut
+    to NAS_MAX_PASS on the .cvol copy of the volume, NAS_TRIALS trials two
+    at a time; then a quality-control run at the trials' geometric-mean
+    ratio and the front's first trial again without the wavelet.  Each
+    process runs train_torch.py through TRIAL_SCRIPT, which counts its
+    kernel launches; then the fetch and gradient kernels against their
+    plain versions at each run's grid and features.  Returns the launches
+    of the search's trials and of the QC runs, summed."""
+    from latent_feature_grid_compression_tpu_torch.nas import search as nas
+    from latent_feature_grid_compression_tpu_torch.utils import trigger_experiments as qc
+    work = os.path.join(tmp, 'nas_run')
+    os.makedirs(work)
+    script = trial_script(work)
+    cfg = dict_from_file(NAS_CONFIG)
+    cfg.update(data=cvol_copy(vol_path), max_pass=NAS_MAX_PASS)
+    write_dict(cfg, 'search.txt', work)
+    cfg_path = os.path.join(work, 'search.txt')
+    n_chunks = math.ceil(VolumeMeta((VOLUME_N,) * 3).n_voxels / CHUNK)
+    has_tb = importlib.util.find_spec('tensorboard') is not None
+    row = {'phase': 'nas', 'config': os.path.relpath(NAS_CONFIG, REPO),
+           'data': '.cvol', 'max_pass': NAS_MAX_PASS, 'drop_type': 'variational_dynamic',
+           'trials': NAS_TRIALS, 'parallelism': NAS_PARALLELISM, 'seed': SEED,
+           'metrics_from': 'tensorboard' if has_tb else 'info.txt (no tensorboard)'}
+    launches = {'nas': {}, 'qc': {}}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        trials = nas.run_search(cfg_path, drop_type='variational_dynamic',
+                                total_trials=NAS_TRIALS, parallelism=NAS_PARALLELISM,
+                                basedir='/nas/', seed=SEED, train_script=script,
+                                poll_interval=0.5)
+        row['search_s'] = time.perf_counter() - t0
+        row['trial_rows'] = []
+        for t in trials:
+            if t.proc.returncode != 0 or not t.metrics:
+                # the search discards a trial's output: run it again in the
+                # foreground to show the error
+                subprocess.run(t.proc.args, timeout=TRIAL_TIMEOUT_S)
+                check(False, f'NAS trial {t.expname} exited {t.proc.returncode}, '
+                             f'metrics {t.metrics}')
+            info, trial_row, counts = experiment_row(os.path.join(work, 'nas', t.expname),
+                                                     n_chunks)
+            launches['nas'] = add_counts(launches['nas'], counts)
+            if has_tb:
+                tb = nas.read_trial_metrics_tb(os.path.join('runs', t.expname))
+                check(tb == t.metrics and all(
+                    v == float(np.float32(info['num_zeros' if k == 'zeroes' else k]))
+                    for k, v in tb.items()),
+                    f'{t.expname}: TensorBoard {tb}, metrics {t.metrics}, info {info}')
+            row['trial_rows'].append({'expname': t.expname, 'params': t.params,
+                                      'returncode': t.proc.returncode, **trial_row})
+
+        ratios = [t.metrics['compression_ratio'] for t in trials]
+        target = math.exp(sum(map(math.log, ratios)) / len(ratios))
+        front = [trials[i] for i in nas.pareto_front([t.objective for t in trials])]
+        cmds = qc.runs_at_target_ratios(os.path.join(work, 'nas'), cfg_path,
+                                        param_key='lambda_drop_loss', target_ratios=(target,),
+                                        basedir='/qc/', train_script=script, dry_run=True)
+        check(len(cmds) == 1, f'{len(cmds)} runs for one target ratio: {cmds}')
+        # the trial's config.txt names its model.npz as checkpoint_path (a
+        # warm start); the coefficients of another wavelet have other
+        # shapes, so the re-run without one starts afresh
+        cmds += qc.rerun_frontier_configs([os.path.join(work, 'nas', front[0].expname)],
+                                          {'wavelet_filter': '', 'checkpoint_path': ''},
+                                          basedir='/qc/', train_script=script, dry_run=True)
+        qc_rows = {}
+        for name, cmd in zip((f'qc_target_{int(target)}', 'qc_rerun_0'), cmds):
+            check(cmd[cmd.index('--expname') + 1] == name, f'{cmd} is not the run {name}')
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True, timeout=TRIAL_TIMEOUT_S)
+            seconds = time.perf_counter() - t0
+            if res.returncode != 0:
+                print(res.stdout[-4000:], flush=True)
+            check(res.returncode == 0, f'{cmd} exited {res.returncode}')
+            _, qc_rows[name], counts = experiment_row(os.path.join(work, 'qc', name),
+                                                      n_chunks)
+            launches['qc'] = add_counts(launches['qc'], counts)
+            qc_rows[name]['seconds'] = seconds
+            qc_rows[name]['lambda_drop_loss'] = dict_from_file(
+                os.path.join(work, 'qc', name, 'config.txt'))['lambda_drop_loss']
+        qc_rows[f'qc_target_{int(target)}']['target_ratio'] = target
+        qc_rows['qc_rerun_0'].update(rerun_of=front[0].expname,
+                                     trial_ratio=front[0].metrics['compression_ratio'],
+                                     trial_psnr=front[0].metrics['psnr'])
+        row['qc'] = qc_rows
+    finally:
+        os.chdir(cwd)
+    row['launches'] = launches
+    # the kernels at the shapes the runs drew: each run's decoded (or, with
+    # no wavelet, raw) grid of grid_size^3 x grid_features, at the config's
+    # batch on the trainer's positions
+    runs = row['trial_rows'] + list(row['qc'].values())
+    shapes = sorted({(r['grid_features'], r['grid_size']) for r in runs})
+    g = torch.Generator(device='cuda').manual_seed(SEED + 4)
+    check(cfg['batch_size'] * cfg['sample_size'] == TRAIN_BATCH,
+          f"the config's batch is not {TRAIN_BATCH}")
+    row['kernel_cases'] = []
+    for C, G in shapes:
+        fwd, bwd = fetch_case(C, G, 'trainer', g, timed=False), \
+            grad_case(C, G, 'trainer', g, timed=False)
+        row['kernel_cases'].append(
+            {'C': C, 'grid': G, 'n': fwd['n'], 'fetch_max_abs_err': fwd['max_abs_err'],
+             'fetch_max_abs_err_library': fwd['max_abs_err_library'],
+             'fetch_route': fwd['plan']['route'],
+             'grad_max_abs_err_relative': bwd['max_abs_err'] / bwd['max_abs_dG'],
+             'grad_route': bwd['plan']['route']})
+    emit(row)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1992,7 +2337,7 @@ def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
 
 PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'kernel_bf16',
           'checkpoint', 'binary', 'queries', 'queries_bf16', 'train', 'train_bf16',
-          'resume', 'train_families', 'mesh', 'step_rates')
+          'resume', 'train_families', 'quant', 'readers', 'nas', 'mesh', 'step_rates')
 # run only when --only names them
 ON_REQUEST = ('nccl_probe',)
 
@@ -2051,7 +2396,8 @@ def main(argv=None):
     try:
         vol_path = os.path.join(tmp, 'mhd_like.npy')
         if want('checkpoint') or want('train') or want('train_bf16') or \
-                want('resume') or want('train_families') or want('mesh'):
+                want('resume') or want('train_families') or want('quant') or \
+                want('readers') or want('nas') or want('mesh'):
             np.save(vol_path, synth_volume(VOLUME_N, seed=1, octaves=6))
         if want('checkpoint'):
             _, model, path_counts['decompress'] = phase_checkpoint(tmp, vol_path)
@@ -2063,8 +2409,9 @@ def main(argv=None):
                 for suffix in suffixes:
                     path_counts['queries' + suffix] = phase_queries(model, suffix)
         default = None
-        if want('train') or want('resume'):
-            default, path_counts['train'] = phase_train(tmp, vol_path, keep=want('resume'))
+        if want('train') or want('resume') or want('quant'):
+            default, path_counts['train'] = phase_train(
+                tmp, vol_path, keep=want('resume') or want('quant'))
         if want('train'):
             for suffix in ('_mlp_pallas', '_fused'):
                 _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
@@ -2079,6 +2426,12 @@ def main(argv=None):
             for family in FAMILIES:
                 _, path_counts['train_' + family] = phase_train(tmp, vol_path,
                                                                 family=family)
+        if want('quant'):
+            path_counts['quant'] = phase_quant(tmp, vol_path, default)
+        if want('readers'):
+            phase_readers(tmp, vol_path)
+        if want('nas'):
+            path_counts.update(phase_nas(tmp, vol_path))
         if want('mesh'):
             path_counts['mesh'], windows = phase_mesh(tmp, vol_path, default)
         if args.only is not None and 'nccl_probe' in args.only:

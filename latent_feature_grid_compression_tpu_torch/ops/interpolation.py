@@ -13,6 +13,10 @@ Port of the JAX package's ``ops/interpolation.py``:
    coordinates (floor/ceil corners with a degenerate-cell guard, so integer
    points return the voxel value), and its exact fast path for integer
    lattice points, :func:`gather_volume` / :func:`gather_rows`.
+3. :func:`finite_difference_gradient` — the volume's central-difference
+   gradient through :func:`trilinear_interpolate`, and
+   :func:`generate_regular_grid_interpolator`, scipy's interpolator over
+   the index lattice (neither is on the training path).
 
 The fetch and its gradient are the plain versions of the CUDA kernels in
 ``csrc/grid_sample_fwd.cu`` and ``csrc/grid_sample_bwd.cu``: the CPU path
@@ -200,3 +204,38 @@ def gather_volume(volume: torch.Tensor, int_points: torch.Tensor) -> torch.Tenso
     positions are integer, so its ground truth is a gather)."""
     X, Y, Z = volume.shape
     return gather_rows(volume.reshape(X * Y, Z), Y, int_points)
+
+
+def generate_regular_grid_interpolator(volume):
+    """scipy's ``RegularGridInterpolator`` over the index lattice of an
+    (X, Y, Z) volume (numpy or a CPU tensor)."""
+    import numpy as np
+    from scipy.interpolate import RegularGridInterpolator
+    vol = np.asarray(volume)
+    axes = [np.arange(s, dtype=np.float64) for s in vol.shape]
+    return RegularGridInterpolator(tuple(axes), vol)
+
+
+def finite_difference_gradient(volume: torch.Tensor, points: torch.Tensor,
+                               min_bb: torch.Tensor, max_bb: torch.Tensor,
+                               res: torch.Tensor, scale=None) -> torch.Tensor:
+    """(N, 3) central-difference gradient of :func:`trilinear_interpolate`
+    at ``points``: each axis is re-interpolated one voxel step either side,
+    the steps clamped into the box; ``scale`` (3,) divides each axis's
+    derivative."""
+    step = (max_bb - min_bb) / (res - 1.0)
+    grads = []
+    for axis in range(3):
+        offset = torch.zeros(3, dtype=points.dtype, device=points.device)
+        offset[axis] = step[axis]
+        p_neg = points - offset[None]
+        p_pos = points + offset[None]
+        p_neg[:, axis] = torch.maximum(p_neg[:, axis], min_bb[axis])
+        p_pos[:, axis] = torch.minimum(p_pos[:, axis], max_bb[axis])
+        s = 1.0 if scale is None else scale[axis]
+        denom = (2.0 * s * (p_pos[:, axis] - p_neg[:, axis])
+                 / (max_bb[axis] - min_bb[axis]))
+        deriv = (trilinear_interpolate(volume, p_pos, min_bb, max_bb, res)
+                 - trilinear_interpolate(volume, p_neg, min_bb, max_bb, res)) / denom
+        grads.append(deriv)
+    return torch.stack(grads, dim=1)

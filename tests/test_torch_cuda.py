@@ -2,10 +2,11 @@
 gradient, the fused MLP forward and backward, the one-kernel model forward
 and backward, each mode of them: the 'bf16' ones of the bf16 compute path
 too) against their plain PyTorch versions, the wrappers' checks, and the
-model, evaluation and training paths through them (every gate family's
-train step, and the bf16 compute path's); the kernels on the windowed grid
-of tile-local decode, and the collectives of multi-device training on CUDA
-tensors (NCCL in a world of one; two gloo ranks sharing the card).
+model, evaluation, quantization-study and training paths through them
+(every gate family's train step, and the bf16 compute path's); the kernels
+on the windowed grid of tile-local decode, and the collectives of
+multi-device training on CUDA tensors (NCCL in a world of one; two gloo
+ranks sharing the card).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it also runs where JAX is not installed; the
@@ -24,6 +25,7 @@ from latent_feature_grid_compression_tpu_torch.models import feature_grid as fg
 from latent_feature_grid_compression_tpu_torch.ops import fused_forward as ff
 from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
 from latent_feature_grid_compression_tpu_torch.ops import mlp_fused as mf
+from latent_feature_grid_compression_tpu_torch.ops import quantization as qz
 from latent_feature_grid_compression_tpu_torch.ops.embedding import fourier_embed
 from latent_feature_grid_compression_tpu_torch.ops.interpolation import (
     channel_minor, grid_sample_3d, grid_sample_channel_minor,
@@ -416,6 +418,29 @@ def test_field_and_stats_on_card_match_cpu(cuda_device):
                                      chunk=4096, device=cuda_device)
     np.testing.assert_allclose(out, ref, atol=5e-5)
     assert abs(stats[0] - ref_stats[0]) <= 1e-3
+
+
+def test_quantization_study_on_card_matches_the_plain_path(cuda_device):
+    """The post-training quantization study on the card (two evaluations
+    through the fetch kernel) against the same study on the CPU's plain
+    path, on a flagship-width model with zeros in its coefficients."""
+    shape = (20, 24, 28)
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(4),
+                          device='cpu')
+    with torch.no_grad():
+        for c in model.coeffs:
+            c[c.abs() < 0.05] = 0.0
+    vol = np.random.default_rng(5).uniform(-1, 1, shape).astype(np.float32)
+    ref = qz.mock_quantization_study(model, vol, device='cpu')
+    before = gs.launches
+    got = qz.mock_quantization_study(model, vol, device=cuda_device)
+    assert gs.launches == before + 2 * -(-int(np.prod(shape)) // rec.CHUNK)
+    assert ref['num_zeros'] > 0
+    for k in ('num_grid_params', 'num_mlp_params', 'num_zeros', 'compression_ratio',
+              'compression_ratio_quant'):
+        assert got[k] == ref[k], k
+    for k in ('psnr', 'psnr_quant'):
+        assert abs(got[k] - ref[k]) <= 1e-3, k
 
 
 def _mlp_params(dims, device, seed):

@@ -54,6 +54,28 @@ info = training(TrainConfig(basedir='/', expname='e', max_pass=3, batch_size=64,
                             n_hidden_size=8, n_layers=2),
                 verbose=False, volume_np=vol, write_vols=False, device='cpu')
 assert info['psnr'] == info['psnr'] and os.path.exists('e/binary_model_file')
+from latent_feature_grid_compression_tpu_torch.ops.quantization import mock_quantization_study
+from latent_feature_grid_compression_tpu_torch.data.cvol import read_cvol, write_cvol
+from latent_feature_grid_compression_tpu_torch.data.volume import load_volume
+from latent_feature_grid_compression_tpu_torch.nas import run_search
+from latent_feature_grid_compression_tpu_torch.utils import analysis, plots, trigger_experiments
+study = mock_quantization_study(model, vol, device='cpu')
+assert study['psnr_quant'] == study['psnr_quant'] and study['num_grid_params'] > 0
+write_cvol('v.cvol', vol.astype('float32'))
+assert (read_cvol('v.cvol') == vol.astype('float32')).all()
+assert load_volume('v.cvol').shape == (6, 7, 8)
+assert analysis.targets_from_frontier(
+    [{'config': {'lambda_drop_loss': 1e-8}, 'info': {'compression_ratio': 100.0}},
+     {'config': {'lambda_drop_loss': 1e-6}, 'info': {'compression_ratio': 400.0}}],
+    target_ratios=(200,))[200] > 1e-8
+assert plots.plot_weight_histograms(model, 'h.png') == 'h.png'
+assert trigger_experiments.rerun_frontier_configs(['e'], dry_run=True)[0][1] == 'train_torch.py'
+def fake(cmd, expdir):
+    os.makedirs(expdir)
+    open(expdir + 'info.txt', 'w').write('compression_ratio = 120.0\npsnr = 31.0\n')
+trials = run_search('cfg.txt', total_trials=4, parallelism=2, basedir='/nas/',
+                    dry_run_cmd=fake)
+assert all(t.metrics['psnr'] == 31.0 for t in trials)
 from latent_feature_grid_compression_tpu_torch.parallel import (
     comm_volume_per_step, initialize_distributed, make_mesh)
 assert initialize_distributed(device='cpu') is False   # no launcher environment
@@ -81,6 +103,7 @@ def _sources():
     yield os.path.join(REPO, 'chip_smoke.py')
     yield os.path.join(REPO, 'ablate_mlp.py')
     yield os.path.join(REPO, 'ablate_fetch.py')
+    yield os.path.join(REPO, 'resume_noise.py')
     yield os.path.join(REPO, 'infer_torch.py')
     yield os.path.join(REPO, 'train_torch.py')
     # the card's tests run where JAX is not installed
@@ -91,6 +114,14 @@ def test_port_sources_cover_the_parallel_package():
     names = {os.path.relpath(p, PORT) for p in _sources()}
     assert {os.path.join('parallel', f) for f in
             ('__init__.py', 'distributed.py', 'mesh.py')} <= names
+
+
+def test_port_sources_cover_the_ported_tools():
+    names = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {os.path.join(*f.split('/')) for f in
+            ('ops/quantization.py', 'data/cvol.py', 'data/volume.py', 'nas/__init__.py',
+             'nas/search.py', 'nas/bayesopt.py', 'utils/analysis.py',
+             'utils/trigger_experiments.py', 'utils/plots.py')} <= names
 
 
 def test_no_jax_import_in_port_sources():
