@@ -2,39 +2,42 @@
 """Variants of the trilinear fetch and grid-gradient kernels, timed in turns
 on one NVIDIA card.
 
-    python3 ablate_fetch.py [--parent DIR] [--variants whole,bwd_shared,...]
+    python3 ablate_fetch.py [--parent DIR] [--variants whole,bwd_batch_8,...]
 
-Builds csrc/grid_sample_fwd.cu and csrc/grid_sample_bwd.cu as they are
-('whole') and once for each variant below, a copy of csrc/ with one piece
-replaced, and with ``--parent`` the two sources of another tree's csrc/ (for
-example the parent commit's, unpacked with ``git archive``) as the variant
-'parent'; every nvcc started together, into a temporary directory.  Then
-times the wrappers with chip_smoke.time_ms at the main path's shapes and a
-few others, every variant in turns over three rounds (the order reversed
-every other round): the fetch at C = 16, grid 15 on one 2^18 chunk of the
-255^3 lattice (evaluation) and on one train step's 32,768 trainer positions,
-and on 2^18 uniform coordinates at grid 4, grid 23, grid 62, C = 32, C = 5,
-and C = 22 on grid 17 (two configs of the repo), the last two with scalar
-loads; the fetch in 'bf16' as the bf16 compute path runs it
-(``gs.fetch(grid, coords, 'bf16')`` under no_grad, from the float32 grid)
-at the lattice and trainer cases, grid 23, C = 5 and C = 22 on grid 17 on
-the trainer positions (a parent whose 'bf16' entry reads a bf16 copy of
-the grid, as PR 9's does, is timed with the copy made before its launch,
-as its fetch made it); the gradient at one train step's batch on the trainer positions
-(C = 16, grid 15) and on
-uniform coordinates at grids 4, 5, 6, 8, 10, 12, 22 and 32, at C 32 on grid
-13 and C 64 on grid 10 (their dG does not fit one block's shared memory),
-and at grid 4 with 4,096 and 262,144 samples; and torch.zeros of the
-flagship's dG alone, which the gradient's wrapper runs before the kernel.
-A fetch variant ('fwd_*') is timed on the fetch cases of both modes, a
-gradient variant ('bwd_*') on the gradient cases, 'whole' and 'parent' on
-all.  Each variant is held against the plain versions first (max |diff|;
-the gradient relative to max |dG|; the 'bf16' fetch must equal its plain
-version bit for bit, or the script raises), reports whether each fetch's
-output is bit for bit the first variant's, its ptxas registers and spill
-stores and its launch plan at each case.  Prints the card, one JSON line a
-variant and round, and a last line of medians.  Exits non-zero without a
-card.
+Builds csrc/grid_sample_fwd.cu and csrc/grid_sample_bwd.cu (the gradient
+kernel) as they are ('whole') and once for each variant below, a copy of
+csrc/ with one piece replaced, and with ``--parent`` the two sources of
+another tree's csrc/ (for example the parent commit's, unpacked with ``git
+archive``) as the variant 'parent'; every nvcc started together, into a
+temporary directory.  Then times the wrappers with chip_smoke.time_ms at
+the main path's shapes and a few others, every variant in turns over three
+rounds (the order reversed every other round): the fetch at C = 16, grid 15
+on one 2^18 chunk of the 255^3 lattice (evaluation) and on one train step's
+32,768 trainer positions, and on 2^18 uniform coordinates at grid 4, grid
+23, grid 62, C = 32, C = 5, and C = 22 on grid 17 (two configs of the
+repo), the last two with scalar loads; the fetch in 'bf16' as the bf16
+compute path runs it (``gs.fetch(grid, coords, 'bf16')`` under no_grad,
+from the float32 grid) at the lattice and trainer cases, grid 23, C = 5 and
+C = 22 on grid 17 on the trainer positions (a parent whose 'bf16' entry
+reads a bf16 copy of the grid, as PR 9's does, is timed with the copy made
+before its launch, as its fetch made it); the gradient at one train step's
+batch on the trainer positions (C = 16, grid 15; C 22 on grid 17) and on
+uniform coordinates at grids 4, 5, 6, 8, 10, 12, 22, 23, 32 and 62, C 5, C
+32 on grid 13 and C 64 on grid 10, and at grid 4 with 4,096 and 262,144
+samples, and in 'bf16' at the flagship (a parent whose gradient adds with
+atomics, as PR 13's does, is timed through its own entries, with the
+torch.zeros of dG its wrapper ran before the launch).  A fetch variant
+('fwd_*') is timed on the fetch cases of both modes, a gradient variant
+('bwd_*') on the gradient cases, 'whole' and 'parent' on all.  Each
+variant is held against the plain versions first (max |diff|; the 'bf16'
+fetch and the gradient kernel must equal their plain versions, the
+gradient's run on the CPU, bit for bit, or the script raises; an atomics
+parent's gradient is reported relative to max |dG|), reports whether each
+fetch's output is bit for bit the first variant's, its ptxas registers and
+spill stores, its launch plan at each case, and the host's time to
+enqueue a call of the trainer cases behind a busy card (``enqueue_ms``).
+Prints the card, one JSON line a variant and round, and a last line of
+medians.  Exits non-zero without a card.
 
 Fetch variants: fwd_cell_shfl (the first lane of a sample finds its cell
 and shuffles it to the others), fwd_no_prefetch (each step loads its own
@@ -47,11 +50,11 @@ a corner, or 8 scalar loads) in place of 4: those of every fetch
 on the float4 route (fwd_8_a_lane_scalar), of none (fwd_4_a_lane); and its
 roundings one value at a time, by a conversion (fwd_bf16_round_each) or by
 integer operations (fwd_bf16_round_int), in place of a packed conversion a
-pair.  Gradient
-variants: bwd_shared (the shared route wherever dG fits one block, however
-few adds an address), bwd_global (the global route at every shape),
-bwd_pad4 (the shared copy's rows 4 floats longer than C), bwd_threads_512
-(shared-route blocks of 512 threads).
+pair.  Gradient variants: bwd_blocks_2 (two blocks an SM: 64 registers a
+thread, twice the blocks at each grid barrier), bwd_batch_8 and
+bwd_batch_2 (the gather's terms loaded 8 or 2 a step in place of 4), and
+two cuts that time the phases, their dG wrong and reported, not raised:
+bwd_cut_rank (no sort within a bucket), bwd_cut_gather (no gather).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -75,11 +79,10 @@ from latent_feature_grid_compression_tpu_torch.ops import _build
 from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
 from latent_feature_grid_compression_tpu_torch.ops.interpolation import (
     grid_sample_channel_minor, grid_sample_channel_minor_backward,
-    grid_sample_channel_minor_bf16)
+    grid_sample_channel_minor_backward_bf16, grid_sample_channel_minor_bf16)
 
 FWD = 'grid_sample_fwd.cu'
 BWD = 'grid_sample_bwd.cu'
-ROUTE = 'p->shared = bytes <= optin && 8 * n >= kSharedMinAdds * rows;'
 CELL = '    const lfgc::Cell cell = lfgc::cell_of(cx, cy, cz, D, H, W);\n'
 CELL_SHFL = '''    lfgc::Cell cell, own;
     if (sub == 0) own = lfgc::cell_of(cx, cy, cz, D, H, W);
@@ -136,10 +139,13 @@ VARIANTS = {
     'fwd_4_a_lane': [(FWD, WIDE_STEPS, WIDE_STEPS.replace('4;', '(1 << 30);'))],
     'fwd_bf16_round_each': [(TRI, ROUND_PAIRS, ROUND_EACH)],
     'fwd_bf16_round_int': [(TRI, ROUND_PAIRS, ROUND_INT)],
-    'bwd_shared': [(BWD, ROUTE, 'p->shared = bytes <= optin;')],
-    'bwd_global': [(BWD, ROUTE, 'p->shared = false;')],
-    'bwd_pad4': [(BWD, 'p->pitch = C;', 'p->pitch = C + 4;')],
-    'bwd_threads_512': [(BWD, 'kSharedThreads = 1024;', 'kSharedThreads = 512;')],
+    'bwd_blocks_2': [(BWD, 'constexpr int kBlocksPerSm = 1;', 'constexpr int kBlocksPerSm = 2;')],
+    'bwd_batch_8': [(BWD, 'constexpr int kBatch = 4;', 'constexpr int kBatch = 8;')],
+    'bwd_batch_2': [(BWD, 'constexpr int kBatch = 4;', 'constexpr int kBatch = 2;')],
+    # cuts, to time the phases (their dG is not the gradient)
+    'bwd_cut_rank': [(BWD, 'for (int q = lo; q < hi; ++q)', 'for (int q = hi; q < hi; ++q)')],
+    'bwd_cut_gather': [(BWD, 'for (int64_t u = tid >> 5; u < units;',
+                        'for (int64_t u = units; u < units;')],
 }
 SOURCES = ('grid_sample_fwd', 'grid_sample_bwd')
 
@@ -151,8 +157,8 @@ def ptxas_of(log):
 
 def make_cases(gen):
     """name -> (direction, C, grid, n, coords, input): the fetch's input
-    ('fwd', 'bf16') is the channel-minor grid, the gradient's the output
-    gradient g."""
+    ('fwd', 'bf16') is the channel-minor grid, the gradient's ('bwd', 'bwd
+    bf16' in that mode) the output gradient g."""
     n_eval, n_step = CHUNK, cs.TRAIN_BATCH
     lattice, _ = lattice_chunk(VolumeMeta((cs.VOLUME_N,) * 3), 32 * n_eval, n_eval,
                                torch.device('cuda'))
@@ -181,16 +187,15 @@ def make_cases(gen):
         'fwd bf16 uniform C5 G15': ('bf16', 5, 15, n_eval, uniform(n_eval), grid(5, 15)),
         'fwd bf16 trainer C22 G17': ('bf16', 22, 17, n_step, trainer, grid(22, 17)),
         'bwd trainer C16 G15': ('bwd', 16, 15, n_step, trainer, grad(n_step, 16)),
-        'bwd uniform C16 G4': ('bwd', 16, 4, n_step, uniform(n_step), grad(n_step, 16)),
-        'bwd uniform C16 G22': ('bwd', 16, 22, n_step, uniform(n_step), grad(n_step, 16)),
-        'bwd uniform C16 G32': ('bwd', 16, 32, n_step, uniform(n_step), grad(n_step, 16)),
+        'bwd trainer C22 G17': ('bwd', 22, 17, n_step, trainer, grad(n_step, 22)),
         **{f'bwd uniform C16 G{G}': ('bwd', 16, G, n_step, uniform(n_step), grad(n_step, 16))
-           for G in (5, 6, 8, 10, 12)},
+           for G in (4, 5, 6, 8, 10, 12, 22, 23, 32, 62)},
+        'bwd uniform C5 G15': ('bwd', 5, 15, n_step, uniform(n_step), grad(n_step, 5)),
         'bwd uniform C32 G13': ('bwd', 32, 13, n_step, uniform(n_step), grad(n_step, 32)),
         'bwd uniform C64 G10': ('bwd', 64, 10, n_step, uniform(n_step), grad(n_step, 64)),
         **{f'bwd uniform C16 G4 n{n}': ('bwd', 16, 4, n, uniform(n), grad(n, 16))
            for n in (4096, 8 * n_step)},
-        'zeros C16 G15': ('zeros', 16, 15, 0, None, None),
+        'bwd bf16 trainer C16 G15': ('bwd bf16', 16, 15, n_step, trainer, grad(n_step, 16)),
     }
 
 
@@ -213,9 +218,27 @@ def fetch_bf16_from_copy(grid, coords):
     return out
 
 
-def call(case, bf16_copy=False):
+def adds_by_atomics(csrc):
+    """Whether the gradient of the sources in ``csrc`` adds dG by float
+    atomics (PR 13's kernel, whose entries take the fetch's arguments and a
+    dG zeroed first), not the one-launch fixed-order gradient kernel."""
+    return 'cudaLaunchCooperativeKernel(' not in (csrc / BWD).read_text()
+
+
+def grad_by_atomics(g, coords, G, precision):
+    """The gradient of an entry that adds by atomics: dG zeroed, then the
+    launch, as that entry's wrapper made them."""
+    n, C = g.shape
+    dgrid = torch.zeros((G, G, G, C), device=g.device)
+    gs._launch(gs.BWD_KERNEL, f'lfgc_grid_sample_bwd_{precision}', g, coords, dgrid, n, C,
+               G, G, G, gs._vec4(C, g, dgrid))
+    return dgrid
+
+
+def call(case, bf16_copy=False, atomics=False):
     """The wrapper's call for a case (the 'bf16' fetch as the bf16 compute
-    path calls it; ``bf16_copy``: through a bf16 copy of the grid)."""
+    path calls it; ``bf16_copy``: through a bf16 copy of the grid;
+    ``atomics``: the gradient through an atomics entry)."""
     direction, C, G, _, coords, a = case
     if direction == 'fwd':
         return lambda: gs.grid_sample_channel_minor_cuda(a, coords)
@@ -223,18 +246,21 @@ def call(case, bf16_copy=False):
         if bf16_copy:
             return lambda: fetch_bf16_from_copy(a, coords)
         return lambda: gs.fetch(a, coords, 'bf16')
-    if direction == 'zeros':   # the wrapper's zeroing of dG alone
-        return lambda: torch.zeros((G, G, G, C), device='cuda')
+    precision = 'bf16' if direction == 'bwd bf16' else 'f32'
+    if atomics:
+        return lambda: grad_by_atomics(a, coords, G, precision)
+    if precision == 'bf16':
+        return lambda: gs.grid_sample_channel_minor_backward_bf16_cuda(a, coords, G, G, G)
     return lambda: gs.grid_sample_channel_minor_backward_cuda(a, coords, G, G, G)
 
 
-def error(case, bf16_copy=False):
-    """max |kernel - plain| (the gradient's over max |dG|); raises where the
-    'bf16' fetch is not its plain version bit for bit."""
+def error(case, bf16_copy=False, atomics=False, strict=True):
+    """max |kernel - plain|; raises where the 'bf16' fetch, or the gradient
+    kernel, is not its plain version (the gradient's run on the CPU) bit for
+    bit; an atomics gradient's error (or, with ``strict`` False, a cut
+    variant's) over max |dG| instead."""
     direction, _, G, _, coords, a = case
-    if direction == 'zeros':
-        return 0.0
-    got = call(case, bf16_copy)()
+    got = call(case, bf16_copy, atomics)()
     if direction == 'fwd':
         return (got - grid_sample_channel_minor(a, coords)).abs().max().item()
     if direction == 'bf16':
@@ -244,20 +270,51 @@ def error(case, bf16_copy=False):
                                f"{(got - want).abs().max().item()} (C {a.shape[3]}, "
                                f"grid {G})")
         return 0.0
-    return cs.rel(got, grid_sample_channel_minor_backward(a, coords, G, G, G))
+    plain = (grid_sample_channel_minor_backward_bf16 if direction == 'bwd bf16'
+             else grid_sample_channel_minor_backward)
+    want = plain(a.cpu(), coords.cpu(), G, G, G)
+    if atomics or not strict:
+        return cs.rel(got.cpu(), want)
+    if not torch.equal(got.cpu(), want):
+        raise RuntimeError(f'the gradient kernel differs from its plain version on the '
+                           f'CPU by {(got.cpu() - want).abs().max().item()} ({direction}, '
+                           f'C {a.shape[1]}, grid {G})')
+    return 0.0
 
 
 def plan(case):
     direction, C, G, n, _, a = case
-    if direction == 'zeros':
-        return None
-    if direction == 'bf16':
-        return gs.fwd_plan(n, C, G, G, G, gs._vec4(C, a), 'bf16')
-    return (gs.fwd_plan if direction == 'fwd' else gs.bwd_plan)(n, C, G, G, G,
-                                                                 gs._vec4(C, a))
+    if direction in ('fwd', 'bf16'):
+        return gs.fwd_plan(n, C, G, G, G, gs._vec4(C, a), 'bf16' if direction == 'bf16'
+                           else 'f32')
+    return gs.bwd_plan(n, C, G, G, G, 'bf16' if direction == 'bwd bf16' else 'f32')
+
+
+# cases whose host enqueue time is read, behind a busy card
+ENQUEUE_CASES = ('fwd trainer C16 G15', 'bwd trainer C16 G15', 'bwd bf16 trainer C16 G15')
+
+
+def enqueue_ms(fn, calls=20, reps=5):
+    """Host time to enqueue one call while the card is busy: ``calls`` calls
+    issued behind a spin kernel that outlasts them, the median of ``reps``.
+    A launch that waits for the card (rather than queueing behind it) shows
+    as about the spin's length over ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(cs.SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def timed(variant, case_name):
+    """Whether ``variant`` is timed on the case: 'whole' and 'parent' on
+    every case, a variant on the cases of its kernel."""
     return variant in ('whole', 'parent') or variant[:3] == case_name[:3]
 
 
@@ -283,25 +340,29 @@ def main(argv=None):
     cases = make_cases(torch.Generator(device='cuda').manual_seed(cs.SEED))
     root = Path(tempfile.mkdtemp(prefix='lfgc_ablate_fetch_'))
     csrc, build_dir = _build.CSRC_DIR, _build.BUILD_DIR
-    ms = {name: {c: [] for c in cases if timed(name, c)} for name in variants}
     try:
         logs = build_all(csrc, root, variants, SOURCES)
+        ms = {name: {c: [] for c in cases if timed(name, c)} for name in variants}
         copy = {name: takes_bf16_copy(root / name / 'csrc') for name in variants}
+        atomics = {name: adds_by_atomics(root / name / 'csrc') for name in variants}
         first = {}   # the first variant's fetch outputs
         for name in variants:
             use(root / name / 'csrc')
             with torch.no_grad():
-                errs = {c: error(case, copy[name]) for c, case in cases.items()
-                        if timed(name, c)}
+                errs = {c: error(case, copy[name], atomics[name], '_cut_' not in name)
+                        for c, case in cases.items() if timed(name, c)}
                 equal = {}
                 for c, case in cases.items():
                     if timed(name, c) and case[0] in ('fwd', 'bf16'):
                         out = call(case, copy[name])()
                         equal[c] = torch.equal(out, first.setdefault(c, out))
+                enqueue = {c: enqueue_ms(call(cases[c], copy[name], atomics[name]))
+                           for c in ENQUEUE_CASES if timed(name, c)}
             plans = ({c: plan(case) for c, case in cases.items() if timed(name, c)}
                      if name != 'parent' else None)
             print(json.dumps({'variant': name, 'ptxas': ptxas_of(logs[name]),
-                              'bf16_grid_copy': copy[name], 'max_err': errs,
+                              'bf16_grid_copy': copy[name], 'grad_by_atomics': atomics[name],
+                              'max_err': errs, 'enqueue_ms': enqueue,
                               'equal_to_first': equal, 'plans': plans}), flush=True)
         order = list(variants)
         for rnd in range(3):
@@ -310,7 +371,7 @@ def main(argv=None):
                 row = {'variant': name, 'round': rnd}
                 with torch.no_grad():
                     for c in ms[name]:
-                        row[c] = cs.time_ms(call(cases[c], copy[name]))
+                        row[c] = cs.time_ms(call(cases[c], copy[name], atomics[name]))
                         ms[name][c].append(row[c])
                 print(json.dumps(row), flush=True)
     finally:

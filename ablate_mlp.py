@@ -21,8 +21,8 @@ Cuts: no_sin (the activation and its derivative without sinf), no_chain
 (the hidden chain: the forward's layers before the head, the backward's
 recompute), no_dw, no_db, no_dh (those jobs of the backward skipped),
 no_loads (x and the output gradient not read), no_route (the one-kernel
-backward's dX not routed into dG), no_fetch (the one-kernel kernels' x0
-feature columns not fetched).  x0_per_entry: the bf16 kernels' x0 built one
+backward's dX not written out for the gradient kernel), no_fetch (the
+one-kernel kernels' x0 feature columns not fetched).  x0_per_entry: the bf16 kernels' x0 built one
 entry a thread (build_x0, as the 'f32' kernels do) instead of one sample
 and 4 channels a thread.  Launch variants of the forward: fwd_tile_128
 (tiles of up to 128 samples), fwd_threads_128 and fwd_threads_512 (blocks of
@@ -68,7 +68,7 @@ VARIANTS = {
     'no_loads': [(TC, 'return row0 + e / K0 < n ? x[row0 * K0 + e] : 0.0f;', 'return 0.0f;'),
                  (TC, 'return o < D && row0 + s < n ? g[(row0 + s) * D + o] : 0.0f;',
                   'return 0.0f;')],
-    'no_route': [(FF, 'for (int e = threadIdx.x; e < S * g.C; e += blockDim.x) {',
+    'no_route': [(FF, 'for (int e = threadIdx.x; e < S * C; e += blockDim.x) {',
                   'for (int e = threadIdx.x; e < 0; e += blockDim.x) {')],
     'no_fetch': [(FF, 'for (int e = threadIdx.x; e < S * Q; e += blockDim.x) {',
                   'for (int e = threadIdx.x; e < 0; e += blockDim.x) {')],

@@ -17,10 +17,11 @@
 // than storing it) and the chain.
 //
 // The backward's dW and db are reduced per block and then in a fixed order;
-// the feature columns of dX (float32) are routed into the channel-minor
-// gradient of the grid through the 8 corner weights with atomicAdd, like
-// csrc/grid_sample_bwd.cu.  The atomics add in an order that changes from run
-// to run: the grid's gradient is not bitwise reproducible.
+// the feature columns of dX (float32) go to an (n, C) buffer, which the
+// wrapper routes into the channel-minor gradient of the grid through the
+// deterministic gradient kernel (csrc/grid_sample_bwd.cu), as the plain
+// version routes them through the fetch's plain gradient: the grid's
+// gradient is bitwise reproducible.
 //
 // Bound on the card: operations.  Per sample it reads 12 bytes of
 // coordinates and writes 4 * d_out (the grid, 216 KB at the flagship, stays
@@ -34,17 +35,17 @@
 // back in float32.  The 'f32' kernels run the MLP on the CUDA cores in
 // float32 FMAs out of shared memory (snake_mlp.cuh), a forward block a tile.
 //
-// Precision: `bf16` set is the TPU kernel's 'mixed' (the fetch and the
-// routing into dG in float32, the MLP's products on bfloat16 operands);
-// unset, everything is float32.  `interp_bf16` set with `bf16` is the TPU
-// kernel's 'bf16': the MLP half as in 'mixed', the fetch of x0's feature
-// columns and the routing of dX into dG by trilinear.cuh's 'bf16' formulas
-// (lfgc::fetch_channels, lfgc::grad_term: the same code as the 'bf16' fetch
-// and gradient kernels, so the features equal grid_sample_fwd.cu's 'bf16'
-// output bit for bit; the grid's float32 values are rounded to bf16 as
-// they are loaded).  The mode reaches the kernels in Grid::bf16, a branch
-// taken alike by every thread.  sinf/cosf, not the fast intrinsics: the
-// Fourier arguments reach 2^(n_freqs-1) * 2 pi * |coord|.
+// Precision: `bf16` set is the TPU kernel's 'mixed' (the fetch in float32,
+// the MLP's products on bfloat16 operands); unset, everything is float32.
+// `interp_bf16` set with `bf16` is the TPU kernel's 'bf16': the MLP half as
+// in 'mixed', the fetch of x0's feature columns by trilinear.cuh's 'bf16'
+// formulas (lfgc::fetch_channels: the same code as the 'bf16' fetch kernel,
+// so the features equal grid_sample_fwd.cu's 'bf16' output bit for bit; the
+// grid's float32 values are rounded to bf16 as they are loaded), and the
+// wrapper routes dX through the gradient kernel's 'bf16' mode.  The mode
+// reaches the kernels in Grid::bf16, a branch taken alike by every thread.
+// sinf/cosf, not the fast intrinsics: the Fourier arguments reach
+// 2^(n_freqs-1) * 2 pi * |coord|.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -204,23 +205,12 @@ fused_fwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ Tc
   }
 }
 
-// Routes the feature columns of dX (pitch P) into dG through the corner
-// weights, by atomics, in the mode IBF16 (lfgc::grad_term, the gradient
-// kernels' terms).
-template <bool IBF16>
-__device__ void route_dx(const float* dx, int P, int emb, const Grid& g,
-                         const float* __restrict__ coords, float* __restrict__ dgrid,
-                         int S, int64_t row0, int64_t n) {
-  for (int e = threadIdx.x; e < S * g.C; e += blockDim.x) {
-    const int s = e / g.C, ch = e - s * g.C;
-    const int64_t r = row0 + s;
-    if (r >= n) continue;
-    const float v = dx[s * P + emb + ch];
-    const float* c = coords + 3 * r;
-    for_each_corner_split(cell_of(c[0], c[1], c[2], g.D, g.H, g.W), g.D, g.H, g.W,
-                          [&](int64_t row, float wxy, float wz) {
-                            atomicAdd(dgrid + row * g.C + ch, grad_term<IBF16>(wxy, wz, v));
-                          });
+// Writes the feature columns of dX (pitch P) to `dfeat` (n, C).
+__device__ void store_dfeat(const float* dx, int P, int emb, int C, float* __restrict__ dfeat,
+                            int S, int64_t row0, int64_t n) {
+  for (int e = threadIdx.x; e < S * C; e += blockDim.x) {
+    const int s = e / C, ch = e - s * C;
+    if (row0 + s < n) dfeat[(row0 + s) * C + ch] = dx[s * P + emb + ch];
   }
 }
 
@@ -230,7 +220,7 @@ template <bool BF16>
 __global__ void __launch_bounds__(kMlpThreads)
 fused_bwd_kernel(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p, Grid g,
                  const float* __restrict__ coords, const float* __restrict__ gout,
-                 float* __restrict__ dgrid, float* __restrict__ partial, int64_t n,
+                 float* __restrict__ dfeat, float* __restrict__ partial, int64_t n,
                  int n_freqs, int S) {
   extern __shared__ float smem[];
   const int P = m.pitch, D = m.dim[m.nw], emb = 3 + 6 * n_freqs;
@@ -246,7 +236,7 @@ fused_bwd_kernel(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p
       dz[s * P + o] = row0 + s < n ? gout[(row0 + s) * D + o] : 0.0f;
     }
     const float* dx = tile_backward<BF16>(m, smem, S, slot, t == blockIdx.x);
-    route_dx<false>(dx, P, emb, g, coords, dgrid, S, row0, n);
+    store_dfeat(dx, P, emb, g.C, dfeat, S, row0, n);
   }
 }
 
@@ -258,7 +248,7 @@ template <>
 __global__ void __launch_bounds__(kTcThreads, 2)
 fused_bwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ TcPlan p,
                        Grid g, const float* __restrict__ coords,
-                       const float* __restrict__ gout, float* __restrict__ dgrid,
+                       const float* __restrict__ gout, float* __restrict__ dfeat,
                        float* __restrict__ partial, int64_t n, int n_freqs, int) {
   extern __shared__ float smem[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem);
@@ -277,11 +267,7 @@ fused_bwd_kernel<true>(const __grid_constant__ Mlp m, const __grid_constant__ Tc
     }
     tc_load_grad(m, p, base, gout, row0, n);
     const float* dx = tile_backward_tc(m, p, base, acc);
-    if (g.bf16) {
-      route_dx<true>(dx, P0, emb, g, coords, dgrid, p.S, row0, n);
-    } else {
-      route_dx<false>(dx, P0, emb, g, coords, dgrid, p.S, row0, n);
-    }
+    store_dfeat(dx, P0, emb, g.C, dfeat, p.S, row0, n);
   }
   tc_end(m, p, base, acc, slot);
 }
@@ -309,13 +295,13 @@ inline decltype(&fused_bwd_kernel<true>) bwd_kernel(bool bf16) {
 
 template <bool BF16>
 cudaError_t launch_bwd(const Mlp& m, const Grid& g, const float* coords,
-                       const float* gout, float* dgrid, float* dparams,
+                       const float* gout, float* dfeat, float* dparams,
                        float* partial, int64_t n, int n_freqs, cudaStream_t stream) {
   Launch b;
   cudaError_t err = bwd_launch(bwd_kernel(BF16), BF16, m, n, &b);
   if (err != cudaSuccess) return err;
   fused_bwd_kernel<BF16><<<dim3(unsigned(b.blocks)), b.threads, b.smem, stream>>>(
-      m, b.p, g, coords, gout, dgrid, partial, n, n_freqs, b.S);
+      m, b.p, g, coords, gout, dfeat, partial, n, n_freqs, b.S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce_slots(partial, dparams, m.total, b.blocks, stream);
@@ -400,13 +386,12 @@ extern "C" int lfgc_fused_forward_bwd_plan(const int* dims, int nw, int bf16, in
   return int(err);
 }
 
-// For the output gradient gout (n, dims[nw]): dgrid (D, H, W, C), zeroed by
-// the caller and summed here by atomics, and the flat dparams = [dW_0 ..
-// dW_{nw-1} ((out, in) each), db_0 .. db_{nw-1}].
+// For the output gradient gout (n, dims[nw]): dX's feature columns into
+// dfeat (n, C), and the flat dparams = [dW_0 .. dW_{nw-1} ((out, in) each), db_0 .. db_{nw-1}].
 extern "C" int lfgc_fused_forward_bwd(const void* grid, const void* coords,
                                       const void* const* w, const void* const* b,
                                       const int* dims, int nw, const void* gout,
-                                      void* dgrid, void* dparams, void* partial,
+                                      void* dfeat, void* dparams, void* partial,
                                       int64_t n, int C, int D, int H, int W,
                                       int n_freqs, int bf16, int interp_bf16,
                                       void* stream) {
@@ -418,12 +403,12 @@ extern "C" int lfgc_fused_forward_bwd(const void* grid, const void* coords,
   if (n <= 0) return int(cudaSuccess);
   const float* cp = static_cast<const float*>(coords);
   const float* gp = static_cast<const float*>(gout);
-  float* dg = static_cast<float*>(dgrid);
+  float* df = static_cast<float*>(dfeat);
   float* dpp = static_cast<float*>(dparams);
   float* pp = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(bf16 ? launch_bwd<true>(m, g, cp, gp, dg, dpp, pp, n, n_freqs, s)
-                  : launch_bwd<false>(m, g, cp, gp, dg, dpp, pp, n, n_freqs, s));
+  return int(bf16 ? launch_bwd<true>(m, g, cp, gp, df, dpp, pp, n, n_freqs, s)
+                  : launch_bwd<false>(m, g, cp, gp, df, dpp, pp, n, n_freqs, s));
 }
 
 extern "C" const char* lfgc_cuda_error_string(int code) {

@@ -12,7 +12,9 @@ Format:
   payload: raw voxels (x-fastest) or, if compressed, per-slice
            [uint32 compressed_size][LZ4 block] chunks.
 
-The LZ4 blocks are decoded by the pure-Python decoder here, always.
+The LZ4 blocks are decoded by the port's native helper (``native/lib.py``,
+built with g++ at first use; a failed build raises); the pure-Python
+decoder here, ``_lz4_decompress_block_py``, is its plain version.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from ..native import lib as native
 
 _DTYPES = {0: np.uint8, 1: np.uint16, 2: np.float32}
 _HEADER_SIZE = 64
@@ -97,7 +101,10 @@ def read_cvol(filepath: str) -> np.ndarray:
             while remaining > 0:
                 (csize,) = struct.unpack('<I', f.read(4))
                 out_size = min(chunk_bytes, remaining)
-                part = _lz4_decompress_block_py(f.read(csize), out_size, history)
+                part = native.lz4_decompress(f.read(csize), out_size, history)
+                if len(part) != out_size:
+                    raise ValueError(f"{filepath}: a slice decoded to {len(part)} of "
+                                     f"{out_size} bytes")
                 parts.append(part)
                 history = (history + part)[-_HISTORY:]
                 remaining -= out_size

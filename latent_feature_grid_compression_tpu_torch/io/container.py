@@ -16,9 +16,12 @@ reference's model_utils.py format):
 Labels are packed big-endian, most significant bit first.  When a section is
 not byte aligned, a trailing u32 holds the section's last label (the writer
 right-aligns the last partial byte, so that label is re-read from the u32).
-Bit packing and the 1-D k-means are numpy only: the k-means is the port's own
-(k-means++ seeds, then Lloyd on the sorted data), so its labels, and thus the bytes, may
-differ from the JAX writer's; each package restores the other's files.
+The 1-D k-means (seed 0, at most 100 Lloyd iterations) goes through the
+port's native helper (``native/lib.py``, the JAX package's
+``native/lfgc_io.cpp`` algorithm), as the JAX writer quantizes through its
+own build of that helper; bit packing is numpy's and gives the bytes the
+JAX writer's packer does: for the same parameters the two packages write
+the same container and ``_mask.bnr`` byte for byte.
 """
 
 from __future__ import annotations
@@ -30,53 +33,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..native import lib as native
 from ..models.feature_grid import FeatureGridModel, ModelSpec, coeff_shapes, make_spec
-
-
-def _kmeans_1d(x: np.ndarray, k: int, max_iter: int = 1000
-               ) -> Tuple[np.ndarray, np.ndarray]:
-    """k-means of 1-D data with at least k distinct values: k-means++ seeds
-    (a fixed generator, so the result is reproducible), then Lloyd.  On the
-    sorted data each cluster is a run between the midpoints of neighbouring
-    centers, so an iteration is a search and a cumulative sum.
-    -> (labels, centers ascending)."""
-    order = np.argsort(x, kind='stable')
-    xs = x[order].astype(np.float64)
-    n = len(xs)
-    rng = np.random.default_rng(0)
-    seeds = [xs[rng.integers(n)]]
-    d2 = (xs - seeds[0]) ** 2
-    for _ in range(1, k):
-        # D^2 sampling; a value already seeded has weight 0
-        cdf = np.cumsum(d2)
-        c = xs[min(int(np.searchsorted(cdf, rng.random() * cdf[-1], side='right')),
-                   n - 1)]
-        seeds.append(c)
-        d2 = np.minimum(d2, (xs - c) ** 2)
-    centers = np.sort(np.asarray(seeds))
-    csum = np.concatenate([[0.0], np.cumsum(xs)])
-
-    def runs(c):
-        cuts = np.searchsorted(xs, (c[:-1] + c[1:]) / 2.0, side='right')
-        return np.concatenate([[0], cuts]), np.concatenate([cuts, [n]])
-
-    for _ in range(max_iter):
-        starts, ends = runs(centers)
-        counts = ends - starts
-        means = (csum[ends] - csum[starts]) / np.maximum(counts, 1)
-        new = np.where(counts > 0, means, centers)
-        if np.array_equal(new, centers):
-            break
-        centers = new
-    starts, ends = runs(centers)
-    labels = np.empty(n, dtype=np.int64)
-    labels[order] = np.repeat(np.arange(k), ends - starts)
-    return labels, centers.astype(np.float32)
 
 
 def kmeans_quantization(values: np.ndarray, n_clusters: int
                         ) -> Tuple[np.ndarray, np.ndarray]:
-    """1-D k-means -> (labels, n_clusters float32 centers).
+    """1-D k-means -> (labels, n_clusters float32 centers), by the native
+    helper with the JAX writer's arguments (seed 0, max_iter 100).
 
     An empty input (a fully pruned tensor) gives no labels and zero centers;
     fewer distinct values than clusters are fitted with one cluster each and
@@ -85,7 +49,7 @@ def kmeans_quantization(values: np.ndarray, n_clusters: int
     if len(x) == 0:
         return np.zeros(0, dtype=np.int64), np.zeros(n_clusters, dtype=np.float32)
     k = min(n_clusters, len(np.unique(x)))
-    labels, centers = _kmeans_1d(x, k)
+    labels, centers = native.kmeans_1d(x, k, max_iter=100, seed=0)
     return labels, np.pad(centers, (0, n_clusters - k))
 
 

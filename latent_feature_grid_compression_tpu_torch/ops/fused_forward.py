@@ -26,8 +26,13 @@ grid and the MLP parameters: CPU tensors take the plain versions, CUDA
 tensors the kernels or an error; nothing falls back.  ``launches`` and
 ``bwd_launches`` count the kernels' launches in 'mixed' and 'f32',
 ``bf16_launches`` and ``bf16_bwd_launches`` in 'bf16', and nothing else.
-The grid's gradient is summed with atomics (not bitwise reproducible on the
-card, as ``csrc/grid_sample_bwd.cu``); dW and db in a fixed order.
+The backward kernel hands dX's feature columns back as an (N, C) buffer,
+which the fetch's gradient kernel (``ops/grid_sample.py``, deterministic)
+routes into the grid's gradient, as the plain version routes them through
+the fetch's plain gradient: the grid's gradient, like dW and db (summed in a
+fixed order), is bitwise reproducible on the card, and its launch counts as
+the gradient kernel's (``grid_sample.bwd_launches``, or
+``bf16_bwd_launches`` in 'bf16').
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import _build
+from . import grid_sample as gs
 from .embedding import fourier_embed, fourier_out_dim
 from .interpolation import (grid_sample_channel_minor,
                             grid_sample_channel_minor_backward,
@@ -65,8 +71,8 @@ _I = ctypes.c_int
 # interp_bf16, stream
 FWD_ARGTYPES = [_P, _P, _PP, _PP, _PI, _I, _P, ctypes.c_int64, _I, _I, _I, _I, _I,
                 _I, _I, _P]
-# grid, coords, w[], b[], dims[], nw, g, dgrid, dparams, partial, n, C, D, H, W,
-# n_freqs, bf16, interp_bf16, stream
+# grid, coords, w[], b[], dims[], nw, g, dfeat, dparams, partial, n, C, D, H,
+# W, n_freqs, bf16, interp_bf16, stream
 BWD_ARGTYPES = [_P, _P, _PP, _PP, _PI, _I, _P, _P, _P, _P, ctypes.c_int64, _I, _I,
                 _I, _I, _I, _I, _I, _P]
 # n, dims[], nw, bf16
@@ -164,20 +170,20 @@ def fused_forward_cuda(grid: torch.Tensor, coords: torch.Tensor,
     return out
 
 
-def fused_forward_backward_cuda(grid: torch.Tensor, coords: torch.Tensor,
-                                weights: Sequence[torch.Tensor],
-                                biases: Sequence[torch.Tensor], n_freqs: int,
-                                g: torch.Tensor, precision: str = 'mixed'):
+def fused_forward_backward_dx_cuda(grid: torch.Tensor, coords: torch.Tensor,
+                                   weights: Sequence[torch.Tensor],
+                                   biases: Sequence[torch.Tensor], n_freqs: int,
+                                   g: torch.Tensor, precision: str = 'mixed'):
     """Launch the backward kernel (and its fixed-order reduction of the
-    per-block dW, db): (dgrid, [dW_i], [db_i]) for the output gradient
-    ``g``; dgrid is zeroed here and summed by atomics."""
+    per-block dW, db) for the output gradient ``g``: (dX's feature columns
+    (N, C), [dW_i], [db_i])."""
     global bwd_launches, bf16_bwd_launches
     mlp, interp = _split(precision)
     bf16 = mlp == 'bf16'
     dims = _check(grid, coords, weights, biases, n_freqs, g)
     n = coords.shape[0]
     D, H, W, C = grid.shape
-    dgrid = torch.zeros_like(grid)
+    dfeat = torch.empty((n, C), device=grid.device, dtype=torch.float32)
     wp, bp, dp = layer_pointers(weights, biases, dims)
     dparams, partial = grad_buffers(KERNEL, 'lfgc_fused_forward_bwd_slots', weights,
                                     biases, dp, n, grid.device, bf16)
@@ -185,7 +191,7 @@ def fused_forward_backward_cuda(grid: torch.Tensor, coords: torch.Tensor,
         lib, fn = _build.entry(KERNEL, 'lfgc_fused_forward_bwd', BWD_ARGTYPES)
         with torch.cuda.device(grid.device):
             err = fn(grid.data_ptr(), coords.data_ptr(), wp, bp, dp, len(weights),
-                     g.data_ptr(), dgrid.data_ptr(), dparams.data_ptr(),
+                     g.data_ptr(), dfeat.data_ptr(), dparams.data_ptr(),
                      partial.data_ptr(), n, C, D, H, W, n_freqs, int(bf16),
                      int(interp == 'bf16'), torch.cuda.current_stream(grid.device).cuda_stream)
         _build.raise_on_error(lib, KERNEL, err)
@@ -194,7 +200,22 @@ def fused_forward_backward_cuda(grid: torch.Tensor, coords: torch.Tensor,
         else:
             bwd_launches += 1
     dws, dbs = param_grads(dparams, weights, biases)
-    return dgrid, dws, dbs
+    return dfeat, dws, dbs
+
+
+def fused_forward_backward_cuda(grid: torch.Tensor, coords: torch.Tensor,
+                                weights: Sequence[torch.Tensor],
+                                biases: Sequence[torch.Tensor], n_freqs: int,
+                                g: torch.Tensor, precision: str = 'mixed'):
+    """The backward kernel, then the fetch's gradient kernel on dX's feature
+    columns: (dgrid, [dW_i], [db_i]) for the output gradient ``g``, all
+    bitwise reproducible."""
+    dfeat, dws, dbs = fused_forward_backward_dx_cuda(grid, coords, weights, biases,
+                                                     n_freqs, g, precision)
+    D, H, W, _ = grid.shape
+    route = (gs.grid_sample_channel_minor_backward_bf16_cuda if _split(precision)[1] == 'bf16'
+             else gs.grid_sample_channel_minor_backward_cuda)
+    return route(dfeat, coords, D, H, W), dws, dbs
 
 
 class _FusedForward(torch.autograd.Function):

@@ -3,9 +3,9 @@ differentiable fetch.
 
 The forward kernel (``csrc/grid_sample_fwd.cu``) is the port of both forward
 Pallas kernels of the JAX package's ``ops/pallas_kernels.py``
-(``_fwd_kernel`` and ``_fwd_kernel_blocked``); the backward kernel
-(``csrc/grid_sample_bwd.cu``) the port of both backward ones (``_bwd_kernel``
-and ``_bwd_kernel_blocked``).  Their plain versions are
+(``_fwd_kernel`` and ``_fwd_kernel_blocked``); the gradient kernel
+(``csrc/grid_sample_bwd.cu``) the port of both backward ones
+(``_bwd_kernel`` and ``_bwd_kernel_blocked``).  Their plain versions are
 ``ops/interpolation.py::grid_sample_channel_minor`` and
 ``grid_sample_channel_minor_backward``.
 
@@ -18,24 +18,28 @@ rounds the grid), so no bf16 copy is made, and the gradient rounds where
 the TPU kernel rounds.  Their plain versions are
 ``grid_sample_channel_minor_bf16`` and its ``_backward_bf16``.
 
+The gradient kernel is deterministic, as the TPU's sequential sums are: it
+buckets the samples by cell and sums each entry of dG in one thread, in the
+plain version's order, so on the card it equals the plain version run on
+the CPU bit for bit, and two calls give the same dG.  It is one cooperative
+launch on ``torch.empty`` buffers (dG and an int32 scratch): nothing is
+zeroed first.
+
 :func:`fetch` is what the model, the trainer and the evaluation call: a
 ``torch.autograd.Function`` whose forward and backward take the plain
 versions for CPU tensors and launch the kernels (or raise) for CUDA tensors.
 Nothing falls back, and a mode never runs as the other.  The gradient
 reaches the grid only: the trainer never differentiates with respect to the
 sample positions (the JAX package stops their gradient), and it is float32
-in both modes.  ``launches`` and ``bwd_launches`` count the kernels'
-launches in 'f32', ``bf16_launches`` and ``bf16_bwd_launches`` those in
-'bf16' (and nothing else), so a run can show which kernels its path went
-through.  The backward kernel adds with atomics, so on the card its result
-is not bitwise reproducible from run to run.
+in both modes.  ``launches`` and ``bwd_launches`` count the fetch and
+gradient kernels' launches in 'f32', ``bf16_launches`` and
+``bf16_bwd_launches`` those in 'bf16' (and nothing else), so a run can show
+which kernels its path went through.
 
 :func:`fwd_plan` and :func:`bwd_plan` report how the kernels launch for a
 shape on the current card: the forward's lanes (float4 or scalar), the
-backward's route ('shared': dG summed in each block's shared memory, then
-added into dG once a block; 'global': every product added straight into
-dG), and the grid, which the C code chooses from the shape and the number of
-samples before the launch, in either mode.
+gradient's blocks, buckets and lanes a row, which the C code chooses from
+the shape and the number of samples before the launch, in either mode.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ BF16_BWD_KERNEL = 'grid_sample_bwd_bf16'
 PRECISIONS = ('f32', 'bf16')
 
 # kernel launches since the last reset: forward (grid_sample_channel_minor_cuda)
-# and backward (grid_sample_channel_minor_backward_cuda) in 'f32', and in
+# and gradient (grid_sample_channel_minor_backward_cuda) in 'f32', and in
 # 'bf16' (grid_sample_channel_minor_bf16_cuda, ..._backward_bf16_cuda)
 launches = 0
 bwd_launches = 0
@@ -68,11 +72,33 @@ bf16_bwd_launches = 0
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
-# the plan entries: n, C, D, H, W, vec4, out (7 ints)
+# the forward's plan entries: n, C, D, H, W, vec4, out (7 ints)
 PLAN_ARGTYPES = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 PLAN_FIELDS = ('route', 'threads', 'blocks_per_sm', 'blocks', 'samples_per_warp',
                'channels_per_lane', 'smem_bytes')
+# the gradient kernel's entries: g, coords, dgrid, scratch, scratch ints, n,
+# C, D, H, W, stream
+BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
+# its plan entry: n, C, D, H, W, bf16, out (7 ints)
+BWD_PLAN_ARGTYPES = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+BWD_PLAN_FIELDS = ('threads', 'blocks_per_sm', 'blocks', 'buckets', 'rows_per_warp',
+                   'lanes_per_row', 'smem_bytes')
+# most blocks the gradient kernel launches (its kMaxBlocks): one partial sum
+# a block in the scratch
+BWD_SCRATCH_BLOCKS = 1024
+
+
+def bwd_scratch_words(n: int, C: int, D: int, H: int, W: int) -> int:
+    """The int32 scratch the gradient kernel takes for n samples of C
+    channels into a (D, H, W) grid: a sorted record of 4 and a sorted row of
+    g of C a sample, a bucket and a placed index a sample, the bucket counts,
+    their prefixes and the buckets' first slots ((D+1)(H+1)(W+1) buckets,
+    one more prefix and slot), a partial sum a block."""
+    return (6 + C) * n + 3 * (D + 1) * (H + 1) * (W + 1) + 2 + BWD_SCRATCH_BLOCKS
 
 
 def _launch(name: str, entry: str, a: torch.Tensor, coords: torch.Tensor,
@@ -147,19 +173,29 @@ def grid_sample_channel_minor_bf16_cuda(grid: torch.Tensor, coords: torch.Tensor
     return _forward_cuda(grid, coords, 'bf16')
 
 
-def _backward_cuda(g: torch.Tensor, coords: torch.Tensor, D: int, H: int, W: int,
-                   precision: str) -> torch.Tensor:
-    global bwd_launches, bf16_bwd_launches
+def _check_grad_args(g: torch.Tensor, coords: torch.Tensor):
     if g.dim() != 2 or coords.dim() != 2 or coords.shape != (g.shape[0], 3):
         raise ValueError(f"expected g (N, C) and coords (N, 3); got "
                          f"{tuple(g.shape)} and {tuple(coords.shape)}")
     _check({'g': g}, coords)
+
+
+def _backward_cuda(g: torch.Tensor, coords: torch.Tensor, D: int, H: int, W: int,
+                   precision: str) -> torch.Tensor:
+    global bwd_launches, bf16_bwd_launches
+    _check_grad_args(g, coords)
     n, C = g.shape
-    dgrid = torch.zeros((D, H, W, C), device=g.device, dtype=torch.float32)
     if n == 0 or C == 0:
-        return dgrid
-    _launch(BWD_KERNEL, f'lfgc_grid_sample_bwd_{precision}', g, coords, dgrid, n, C,
-            D, H, W, _vec4(C, g, dgrid))
+        return torch.zeros((D, H, W, C), device=g.device, dtype=torch.float32)
+    dgrid = torch.empty((D, H, W, C), device=g.device, dtype=torch.float32)
+    scratch = torch.empty(bwd_scratch_words(n, C, D, H, W), device=g.device,
+                          dtype=torch.int32)
+    lib, fn = _build.entry(BWD_KERNEL, f'lfgc_grid_sample_bwd_{precision}', BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    with torch.cuda.device(g.device):
+        err = fn(g.data_ptr(), coords.data_ptr(), dgrid.data_ptr(), scratch.data_ptr(),
+                 scratch.numel(), n, C, D, H, W, stream)
+    _build.raise_on_error(lib, BWD_KERNEL, err)
     if precision == 'bf16':
         bf16_bwd_launches += 1
     else:
@@ -170,30 +206,20 @@ def _backward_cuda(g: torch.Tensor, coords: torch.Tensor, D: int, H: int, W: int
 def grid_sample_channel_minor_backward_cuda(g: torch.Tensor, coords: torch.Tensor,
                                             D: int, H: int, W: int
                                             ) -> torch.Tensor:
-    """Launch the backward kernel: the (N, C) output gradient ``g`` at (N, 3)
+    """Launch the gradient kernel: the (N, C) output gradient ``g`` at (N, 3)
     coordinates, both contiguous float32 on one card -> the gradient of the
-    channel-minor (D, H, W, C) grid, zeroed here and summed by atomics."""
+    channel-minor (D, H, W, C) grid, each entry summed in the plain
+    version's order (bit for bit the plain version on the CPU)."""
     return _backward_cuda(g, coords, D, H, W, 'f32')
 
 
 def grid_sample_channel_minor_backward_bf16_cuda(g: torch.Tensor, coords: torch.Tensor,
                                                  D: int, H: int, W: int
                                                  ) -> torch.Tensor:
-    """Launch the 'bf16' backward kernel: as
+    """Launch the gradient kernel in 'bf16': as
     :func:`grid_sample_channel_minor_backward_cuda` (float32 in and out),
     each term rounded where the TPU kernel's 'bf16' backward rounds."""
     return _backward_cuda(g, coords, D, H, W, 'bf16')
-
-
-def _plan(name: str, entry: str, routes, n: int, C: int, D: int, H: int, W: int,
-          vec4: bool, precision: str) -> dict:
-    lib, fn = _build.entry(name, entry, PLAN_ARGTYPES)
-    out = (ctypes.c_int * len(PLAN_FIELDS))()
-    _build.raise_on_error(lib, name, fn(n, C, D, H, W, int(vec4), out))
-    plan = dict(zip(PLAN_FIELDS, out))
-    plan['route'] = routes[plan['route']]
-    plan['mode'] = precision
-    return plan
 
 
 def fwd_plan(n: int, C: int, D: int, H: int, W: int, vec4: bool = True,
@@ -207,22 +233,26 @@ def fwd_plan(n: int, C: int, D: int, H: int, W: int, vec4: bool = True,
     _check_precision(precision)
     entry = ('lfgc_grid_sample_fwd_bf16_plan' if precision == 'bf16'
              else 'lfgc_grid_sample_fwd_plan')
-    return _plan(KERNEL, entry, ('scalar', 'float4'), n, C, D, H, W, vec4, precision)
+    lib, fn = _build.entry(KERNEL, entry, PLAN_ARGTYPES)
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    _build.raise_on_error(lib, KERNEL, fn(n, C, D, H, W, int(vec4), out))
+    plan = dict(zip(PLAN_FIELDS, out))
+    plan['route'] = ('scalar', 'float4')[plan['route']]
+    plan['mode'] = precision
+    return plan
 
 
-def bwd_plan(n: int, C: int, D: int, H: int, W: int, vec4: bool = True,
-             precision: str = 'f32') -> dict:
-    """How the backward kernel of the mode ``precision`` launches for n
-    samples into a (D, H, W, C) gradient on the current card: route
-    'shared' (each block sums dG in ``smem_bytes`` of shared memory, where
-    dG fits and each of its addresses would take at least ~1,000 of the
-    n * 8 adds) or 'global' (chosen alike in both modes), threads a block,
-    blocks an SM, blocks, samples a warp step, channels a lane, and the
+def bwd_plan(n: int, C: int, D: int, H: int, W: int, precision: str = 'f32') -> dict:
+    """How the gradient kernel of the mode ``precision`` launches for n
+    samples into a (D, H, W, C) gradient on the current card: threads a
+    block, blocks an SM, blocks (one cooperative launch), buckets, rows of
+    dG a warp sums at once, lanes a row, shared bytes a block, and the
     mode."""
     _check_precision(precision)
-    entry = ('lfgc_grid_sample_bwd_bf16_plan' if precision == 'bf16'
-             else 'lfgc_grid_sample_bwd_plan')
-    return _plan(BWD_KERNEL, entry, ('global', 'shared'), n, C, D, H, W, vec4, precision)
+    lib, fn = _build.entry(BWD_KERNEL, 'lfgc_grid_sample_bwd_plan', BWD_PLAN_ARGTYPES)
+    out = (ctypes.c_int * len(BWD_PLAN_FIELDS))()
+    _build.raise_on_error(lib, BWD_KERNEL, fn(n, C, D, H, W, int(precision == 'bf16'), out))
+    return {**dict(zip(BWD_PLAN_FIELDS, out)), 'mode': precision}
 
 
 class _Fetch(torch.autograd.Function):

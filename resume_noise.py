@@ -6,17 +6,19 @@
 The resume phase of chip_smoke.py (``state_round_trip``) trains a fresh
 flagship-width state of a gate family for 2 chunks of 50 steps, saves it,
 loads it back, runs one more chunk from the loaded and from the live state,
-and holds the continued losses to ATOMICS_TOL of each other: the two runs
-start bit for bit equal and differ only by the order of the gradient
-kernel's atomic adds.  This script repeats that round trip ``--reps`` times
-for smallify and dynamic variational (the two configs the phase runs), with
-chip_smoke.py and the package of the tree DIR (default: this checkout), so
-that two trees can be run in turns.  The round trip's checks are recorded,
-not raised.  One JSON line a round trip, then one summary line a config:
-the continued chunks' max relative loss differences (the check's measure),
-sorted, their median, 90th percentile and max, and how many exceeded
-ATOMICS_TOL; likewise the max absolute difference over the chunk's mean
-|loss|, and the chunk's least |loss|.  The volume is synth_volume(255,
+and holds the continued losses and the states they end in bit for bit
+(trees whose gradient kernel adds with atomics held the losses to
+ATOMICS_TOL of each other).  This script repeats that round trip ``--reps``
+times for smallify and dynamic variational (the two configs the phase
+runs), with chip_smoke.py and the package of the tree DIR (default: this
+checkout), so that two trees can be run in turns.  The round trip's checks
+are recorded, not raised.  One JSON line a round trip, then one summary
+line a config: the continued chunks' max relative loss differences (the
+atomics-era check's measure), sorted, their median, 90th percentile and
+max, how many exceeded ATOMICS_TOL, how many round trips' continued losses
+differed at all, and how many round trips failed any of the tree's checks;
+likewise the max absolute difference over the chunk's mean |loss|, and the
+chunk's least |loss|.  The volume is synth_volume(255,
 seed=1, octaves=6), as the smoke's, saved to ``--volume`` (or a temporary
 file) unless that file exists, and read through load_volume as the smoke
 reads it.
@@ -81,7 +83,7 @@ def main(argv=None):
         vol_dev = torch.from_numpy(cs.load_volume(vol_path)).cuda()
         for name in CONFIGS:
             config = os.path.join(tree, 'experiment-config-files', name)
-            diffs, of_mean, min_abs = [], [], []
+            diffs, of_mean, min_abs, unequal, failing = [], [], [], 0, 0
             for rep in range(args.reps):
                 del failed[:], losses[:]
                 row = cs.state_round_trip(config, vol_dev, tmp)
@@ -90,6 +92,8 @@ def main(argv=None):
                 diffs.append(row['continued_max_rel_loss_diff'])
                 of_mean.append(float(diff.max() / np.abs(live).mean()))
                 min_abs.append(float(np.abs(live).min()))
+                unequal += not np.array_equal(loaded, live)
+                failing += bool(failed)
                 print(json.dumps({'tree': label, 'config': name, 'rep': rep, **row,
                                   'continued_loss_min': float(live.min()),
                                   'continued_loss_max': float(live.max()),
@@ -100,6 +104,7 @@ def main(argv=None):
                 'tree': label, 'config': name, 'reps': args.reps,
                 'atomics_tol': cs.ATOMICS_TOL, **summary(diffs),
                 'over_tol': sum(d > cs.ATOMICS_TOL for d in diffs),
+                'losses_unequal': unequal, 'failed_round_trips': failing,
                 'max_abs_diff_over_mean_abs_loss': summary(of_mean),
                 'min_abs_loss': summary(min_abs)}), flush=True)
     finally:

@@ -283,13 +283,15 @@ def test_checkpoints_with_gates_round_trip_both_ways(tmp_path):
 
 
 def test_kmeans_quantization_is_as_good_as_jax():
+    """The port quantizes with its native k-means and JAX's arguments: the
+    JAX writer's labels and centers bit for bit."""
     x = np.random.default_rng(8).standard_normal(20000).astype(np.float32)
     labels, centers = tct.kmeans_quantization(x, 256)
     assert labels.min() >= 0 and labels.max() < 256 and centers.dtype == np.float32
     assert np.all(np.diff(centers) > 0)
-    jlabels, jcenters = jct.kmeans_quantization(x, 256, 0)
-    err = np.mean((centers[labels] - x) ** 2)
-    assert err <= 1.1 * np.mean((jcenters[jlabels] - x) ** 2)
+    jlabels, jcenters = jct.kmeans_quantization(x, 256)
+    np.testing.assert_array_equal(labels, jlabels)
+    assert centers.tobytes() == jcenters.tobytes()
     # fewer distinct values than clusters: each is a center, the rest zero
     labels, centers = tct.kmeans_quantization(np.array([2.0, -1.0, 2.0, 5.0]), 32)
     np.testing.assert_array_equal(centers[labels], [2.0, -1.0, 2.0, 5.0])

@@ -457,3 +457,39 @@ def test_search_and_qc_runs_through_train_torch(tmp_path, monkeypatch):
     conf = tconfig.dict_from_file(str(rerun / 'config.txt'))
     assert conf['wavelet_filter'] == '' and conf['grid_size'] == front[0].params['grid_size']
     assert sys.executable == cmds[0][0]
+
+
+def _example(script):
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        'examples', script)
+    spec = importlib.util.spec_from_file_location(script[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_nas_example_matches_jaxs(tmp_path, monkeypatch, capsys):
+    """examples/nas_example_torch.py is examples/nas_example.py over the
+    port: the same search, frontier and plot from the same stand-in
+    trainer; the trials run train_torch.py."""
+    out = {}
+    for name, script in (('jax', 'nas_example.py'), ('torch', 'nas_example_torch.py')):
+        ex = _example(script)
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        cfg = str(tmp_path / name / 'base.txt')
+        tconfig.write_dict({'data': 'x.npy', 'max_pass': 5}, 'base.txt', str(tmp_path / name))
+        log = []
+        search = ex.run_search
+        monkeypatch.setattr(ex, 'run_search', lambda *a, **k: search(
+            *a, dry_run_cmd=_fake_trainer(log), **k))
+        monkeypatch.setattr(sys, 'argv', [script, '--config', cfg, '--trials', '6',
+                                          '--parallelism', '2', '--basedir', '/nas_out/'])
+        ex.main()
+        printed = capsys.readouterr().out.splitlines()
+        out[name] = [ln for ln in printed if ln.startswith('  trial ')]
+        wrote = [ln for ln in printed if ln.startswith('wrote ')]
+        assert len(wrote) == 1 and os.path.exists(wrote[0][len('wrote '):])
+        assert os.path.basename(log[0][1]) == {'jax': 'train.py', 'torch': 'train_torch.py'}[name]
+    assert out['torch'] and out['torch'] == out['jax']

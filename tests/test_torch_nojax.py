@@ -61,6 +61,11 @@ from latent_feature_grid_compression_tpu_torch.nas import run_search
 from latent_feature_grid_compression_tpu_torch.utils import analysis, plots, trigger_experiments
 study = mock_quantization_study(model, vol, device='cpu')
 assert study['psnr_quant'] == study['psnr_quant'] and study['num_grid_params'] > 0
+from latent_feature_grid_compression_tpu_torch.native import lib as native
+import numpy as np
+labels, centers = native.kmeans_1d(np.linspace(-1, 1, 1000), 16)
+assert labels.max() == 15 and (np.diff(centers) > 0).all()
+assert native.lz4_decompress(bytes([0x30]) + b'abc', 3) == b'abc'
 write_cvol('v.cvol', vol.astype('float32'))
 assert (read_cvol('v.cvol') == vol.astype('float32')).all()
 assert load_volume('v.cvol').shape == (6, 7, 8)
@@ -106,6 +111,7 @@ def _sources():
     yield os.path.join(REPO, 'resume_noise.py')
     yield os.path.join(REPO, 'infer_torch.py')
     yield os.path.join(REPO, 'train_torch.py')
+    yield os.path.join(REPO, 'examples', 'nas_example_torch.py')
     # the card's tests run where JAX is not installed
     yield os.path.join(REPO, 'tests', 'test_torch_cuda.py')
 
@@ -121,7 +127,9 @@ def test_port_sources_cover_the_ported_tools():
     assert {os.path.join(*f.split('/')) for f in
             ('ops/quantization.py', 'data/cvol.py', 'data/volume.py', 'nas/__init__.py',
              'nas/search.py', 'nas/bayesopt.py', 'utils/analysis.py',
-             'utils/trigger_experiments.py', 'utils/plots.py')} <= names
+             'utils/trigger_experiments.py', 'utils/plots.py', 'native/__init__.py',
+             'native/lib.py')} <= names
+    assert os.path.join(REPO, 'examples', 'nas_example_torch.py') in set(_sources())
 
 
 def test_no_jax_import_in_port_sources():
@@ -160,32 +168,66 @@ def test_kernel_entry_matches_wrapper_signature():
 
 
 def test_bwd_kernel_entry_matches_wrapper_signature():
-    _check_entry(gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_f32', gs._ARGTYPES)
+    assert len(gs.BWD_ARGTYPES) == 11
+    _check_entry(gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_f32', gs.BWD_ARGTYPES)
 
 
-@pytest.mark.parametrize('kernel,entry', [(gs.KERNEL, 'lfgc_grid_sample_fwd_bf16'),
-                                          (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_bf16')])
-def test_bf16_kernel_entries_match_wrapper_signature(kernel, entry):
+def test_gradient_kernel_plan_reads_the_entrys_report(monkeypatch):
+    """No card here: a stand-in entry fills the report, and the wrapper
+    names its fields and the mode."""
+    report = [512, 2, 106, 4096, 2, 16, 424]
+    calls = []
+
+    def fn(*args):
+        calls.append(args[:6])
+        for k, v in enumerate(report):
+            args[6][k] = v
+        return 0
+    monkeypatch.setattr(_build, 'entry', lambda name, symbol, argtypes: (None, fn))
+    got = gs.bwd_plan(32768, 16, 15, 15, 15, precision='bf16')
+    assert calls == [(32768, 16, 15, 15, 15, 1)]
+    assert got == {**dict(zip(gs.BWD_PLAN_FIELDS, report)), 'mode': 'bf16'}
+
+
+def test_gradient_kernel_adds_no_float_by_atomics():
+    """The gradient kernel's float sums are each one thread's, in a fixed
+    order: its only atomics are on the integer bucket counts, and it writes
+    every entry of dG (the wrapper zeroes nothing)."""
+    with open(os.path.join(PORT, 'csrc', 'grid_sample_bwd.cu')) as f:
+        src = f.read()
+    atomics = re.findall(r'atomic\w+\(([^,]*),', src)
+    assert atomics and set(atomics) == {'count + k'}, atomics
+    assert 'a.dgrid[r * C + c] = acc;' in src
+    assert 'acc = __fadd_rn(acc, lfgc::grad_term<BF16>(__fmul_rn(wx, wy), wz, gv[j]));' in src
+    with open(os.path.join(PORT, 'ops', 'grid_sample.py')) as f:
+        wrapper = f.read()
+    body = wrapper[wrapper.index('def _backward_cuda('):wrapper.index(
+        'def grid_sample_channel_minor_backward_cuda(')]
+    assert 'torch.empty((D, H, W, C)' in body and 'zeros' not in body.split('dgrid =')[1]
+
+
+@pytest.mark.parametrize('kernel,entry,argtypes', [
+    (gs.KERNEL, 'lfgc_grid_sample_fwd_bf16', gs._ARGTYPES),
+    (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_bf16', gs.BWD_ARGTYPES)])
+def test_bf16_kernel_entries_match_wrapper_signature(kernel, entry, argtypes):
     """The 'bf16' modes' entries take the 'f32' entries' arguments."""
-    _check_entry(kernel, entry, gs._ARGTYPES)
+    _check_entry(kernel, entry, argtypes)
 
 
-@pytest.mark.parametrize('kernel,entry', [(gs.KERNEL, 'lfgc_grid_sample_fwd_plan'),
-                                          (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_plan'),
-                                          (gs.KERNEL, 'lfgc_grid_sample_fwd_bf16_plan'),
-                                          (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_bf16_plan')])
-def test_grid_sample_plan_entries_match_wrapper_signature(kernel, entry):
-    assert len(gs.PLAN_ARGTYPES) == 7
-    _check_entry(kernel, entry, gs.PLAN_ARGTYPES)
+@pytest.mark.parametrize('kernel,entry,argtypes', [
+    (gs.KERNEL, 'lfgc_grid_sample_fwd_plan', gs.PLAN_ARGTYPES),
+    (gs.BWD_KERNEL, 'lfgc_grid_sample_bwd_plan', gs.BWD_PLAN_ARGTYPES),
+    (gs.KERNEL, 'lfgc_grid_sample_fwd_bf16_plan', gs.PLAN_ARGTYPES)])
+def test_grid_sample_plan_entries_match_wrapper_signature(kernel, entry, argtypes):
+    assert len(argtypes) == 7
+    _check_entry(kernel, entry, argtypes)
 
 
 @pytest.mark.parametrize('plan,routes,report,precision,entry', [
     (gs.fwd_plan, ('scalar', 'float4'), [1, 256, 4, 512, 8, 4, 0], 'f32',
      'lfgc_grid_sample_fwd_plan'),
-    (gs.bwd_plan, ('global', 'shared'), [1, 1024, 1, 132, 2, 1, 4096], 'f32',
-     'lfgc_grid_sample_bwd_plan'),
-    (gs.bwd_plan, ('global', 'shared'), [0, 256, 8, 512, 8, 4, 0], 'f32',
-     'lfgc_grid_sample_bwd_plan'),
+    (gs.fwd_plan, ('scalar', 'float4'), [0, 256, 8, 512, 8, 4, 0], 'f32',
+     'lfgc_grid_sample_fwd_plan'),
     (gs.fwd_plan, ('scalar', 'float4'), [1, 256, 4, 528, 8, 4, 0], 'bf16',
      'lfgc_grid_sample_fwd_bf16_plan'),
     (gs.fwd_plan, ('scalar', 'float4'), [0, 256, 4, 528, 32, 8, 0], 'bf16',
@@ -223,9 +265,9 @@ BF16_SOURCE_MARKS = {
                            '__launch_bounds__(kThreads)\ngrid_sample_fwd_kernel(',
                            'lfgc::fetch_channels<BF16, K>(',
                            'launch(grid, coords, out, n, C, D, H, W, vec4 != 0, true, stream)'),
-    'grid_sample_bwd.cu': ('grid_sample_bwd_kernel<true, BF16>', 'lfgc::grad_term<BF16>(',
-                           'grid_sample_bwd_shared_kernel<BF16>'),
-    'fused_forward.cu': ('fetch_channels<IBF16>(', 'grad_term<IBF16>(', 'if (g.bf16) {'),
+    'grid_sample_bwd.cu': ('grid_sample_bwd_kernel<true>', 'lfgc::grad_term<BF16>(',
+                           'lfgc::cell_of('),
+    'fused_forward.cu': ('fetch_channels<IBF16>(', 'if (g.bf16) {'),
 }
 
 
@@ -251,18 +293,16 @@ def test_bf16_fetch_reads_the_float32_grid():
 
 
 # what each kernel source must show: the fetch sized by occupancy and
-# loading float4 lanes; the gradient's shared route summing dG in the
-# block's shared memory between two barriers, at one block an SM
+# loading float4 lanes; the gradient one cooperative launch whose phases
+# meet at grid barriers, its gather a group of lanes a row of dG
 KERNEL_SOURCE_MARKS = {
     'grid_sample_fwd': ('#include "launch.cuh"',
                         'lfgc::occupancy(kernel_of(vec4, bf16, channels)',
                         'for (int c = K * sub; c < C; c += K * Lw)',
                         'const int64_t next = i + stride;'),
-    'grid_sample_bwd': ('#include "launch.cuh"', '__launch_bounds__(kSharedThreads, 1)',
-                        'extern __shared__', 'kSharedMinAdds',
-                        'atomicAdd(sum + int(r) * pitch + c, lfgc::grad_term<BF16>(wxy, wz, gv));',
-                        '  __syncthreads();\n\n  const int Q = vec4 ? C / 4 : C;',
-                        'lfgc::allow_smem(grid_sample_bwd_shared_kernel'),
+    'grid_sample_bwd': ('#include "launch.cuh"', '#include <cooperative_groups.h>',
+                            'cudaLaunchCooperativeKernel(', 'lfgc::occupancy(kernel_of(bf16)',
+                            'grid.sync();', 'const int Lw = C < 32 ? C : 32, P = 32 / Lw;'),
 }
 
 
@@ -270,8 +310,8 @@ KERNEL_SOURCE_MARKS = {
 def test_grid_sample_kernels_take_their_hopper_designs(kernel):
     """No nvcc here: check statically that each kernel source has its
     design, that every kernel it defines carries the name the profiler
-    reports are read by, and that the gradient's shared route is chosen in
-    one place (plan_of) before the launch."""
+    reports are read by, and that the gradient is one cooperative launch,
+    sized in one place (plan_of) before it."""
     with open(os.path.join(PORT, 'csrc', f'{kernel}.cu')) as f:
         src = f.read()
     for mark in KERNEL_SOURCE_MARKS[kernel]:
@@ -279,8 +319,8 @@ def test_grid_sample_kernels_take_their_hopper_designs(kernel):
     names = re.findall(r'__global__ void __launch_bounds__\([^)]*\)\n(\w+)\(', src)
     assert names and all(kernel in name for name in names), names
     if kernel == gs.BWD_KERNEL:
-        # the route is set in one place (plan_of), from the shape and n
-        assert src.count('p->shared =') == 1
+        assert src.count('cudaLaunchCooperativeKernel(') == 1
+        assert src.count('plan_of(n, C, D, H, W, ') == 2   # the launch's and the report's
 
 
 def _ablation_cases():
