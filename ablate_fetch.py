@@ -2,7 +2,8 @@
 """Variants of the trilinear fetch and grid-gradient kernels, timed in turns
 on one NVIDIA card.
 
-    python3 ablate_fetch.py [--parent DIR] [--variants whole,bwd_batch_8,...]
+    python3 ablate_fetch.py [--parent DIR] [--variants whole,bwd_unroll_4,...]
+                            [--cases 'bwd trainer,bwd uniform C16 G4',...]
 
 Builds csrc/grid_sample_fwd.cu and csrc/grid_sample_bwd.cu (the gradient
 kernel) as they are ('whole') and once for each variant below, a copy of
@@ -23,16 +24,18 @@ reads a bf16 copy of the grid, as PR 9's does, is timed with the copy made
 before its launch, as its fetch made it); the gradient at one train step's
 batch on the trainer positions (C = 16, grid 15; C 22 on grid 17) and on
 uniform coordinates at grids 4, 5, 6, 8, 10, 12, 22, 23, 32 and 62, C 5, C
-32 on grid 13 and C 64 on grid 10, and at grid 4 with 4,096 and 262,144
-samples, and in 'bf16' at the flagship (a parent whose gradient adds with
-atomics, as PR 13's does, is timed through its own entries, with the
-torch.zeros of dG its wrapper ran before the launch).  A fetch variant
+32 on grid 13 and C 64 on grid 10, at grid 4 with 4,096 and 262,144
+samples and on 32,768 samples clustered in 8 cells of grid 15, and in
+'bf16' at the flagship, C 22 on grid 17, grids 4 and 23, C 5 and both
+crowded cases (a parent whose gradient is one cooperative launch with grid
+barriers, as the previous design's, is timed through its own entries with
+the torch.empty of its own, larger scratch).  A fetch variant
 ('fwd_*') is timed on the fetch cases of both modes, a gradient variant
 ('bwd_*') on the gradient cases, 'whole' and 'parent' on all.  Each
 variant is held against the plain versions first (max |diff|; the 'bf16'
 fetch and the gradient kernel must equal their plain versions, the
-gradient's run on the CPU, bit for bit, or the script raises; an atomics
-parent's gradient is reported relative to max |dG|), reports whether each
+gradient's run on the CPU, bit for bit, or the script raises; a cut
+variant's gradient is reported relative to max |dG|), reports whether each
 fetch's output is bit for bit the first variant's, its ptxas registers and
 spill stores, its launch plan at each case, and the host's time to
 enqueue a call of the trainer cases behind a busy card (``enqueue_ms``).
@@ -50,11 +53,19 @@ a corner, or 8 scalar loads) in place of 4: those of every fetch
 on the float4 route (fwd_8_a_lane_scalar), of none (fwd_4_a_lane); and its
 roundings one value at a time, by a conversion (fwd_bf16_round_each) or by
 integer operations (fwd_bf16_round_int), in place of a packed conversion a
-pair.  Gradient variants: bwd_blocks_2 (two blocks an SM: 64 registers a
-thread, twice the blocks at each grid barrier), bwd_batch_8 and
-bwd_batch_2 (the gather's terms loaded 8 or 2 a step in place of 4), and
-two cuts that time the phases, their dG wrong and reported, not raised:
-bwd_cut_rank (no sort within a bucket), bwd_cut_gather (no gather).
+pair.  Gradient variants: bwd_per_corner (every box takes the corners one
+at a time, the route of crowded boxes), bwd_unroll_4 and bwd_unroll_16
+(a lane's terms loaded 4 or 16 together in place of 8), bwd_table_1k (a
+quarter of the sort's (bucket, warp) table: fewer warps sort),
+bwd_tile_256 and bwd_tile_512 (tiles of at least 256 or 512 samples in
+place of 128: fewer tiles, longer shares), bwd_lane_1 and bwd_lane_2 (at
+most 1 or 2 channels a lane in the gather), and four
+cuts that time the phases by difference, their dG wrong and reported, not
+raised: bwd_cut_gather (no gather), bwd_cut_stage (no staging or gather),
+bwd_cut_sort (no sort, staging or gather: the tiles' segments and the
+compaction), bwd_cut_box (no box kernel: the tile kernel alone); and
+bwd_no_early_launch (the box kernel launched only once the tile kernel
+has ended).
 """
 
 from __future__ import annotations
@@ -124,6 +135,13 @@ ROUND_INT = '''  for (int k = 0; k < K; ++k) {
     if (v[k] == v[k]) v[k] = __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
   }
 '''
+BWD_CUT_GATHER = (BWD, 'for (int u = threadIdx.x >> 5; u < units; u += kWarps) {',
+                  'for (int u = units; u < units; u += kWarps) {')
+BWD_CUT_STAGE = (BWD, '  const int ws = weight_stride(BF16), gw = scale_words(cb);\n',
+                 '  m = 0;\n  const int ws = weight_stride(BF16), gw = scale_words(cb);\n')
+BWD_CUT_SORT = (BWD, '  const int lo = warp < nwp ? int(int64_t(m) * warp / nwp) : 0;\n'
+                     '  const int hi = warp < nwp ? int(int64_t(m) * (warp + 1) / nwp) : 0;',
+                '  const int lo = 0, hi = 0;')
 VARIANTS = {
     'whole': [],
     'fwd_cell_shfl': [(FWD, CELL, CELL_SHFL)],
@@ -139,13 +157,28 @@ VARIANTS = {
     'fwd_4_a_lane': [(FWD, WIDE_STEPS, WIDE_STEPS.replace('4;', '(1 << 30);'))],
     'fwd_bf16_round_each': [(TRI, ROUND_PAIRS, ROUND_EACH)],
     'fwd_bf16_round_int': [(TRI, ROUND_PAIRS, ROUND_INT)],
-    'bwd_blocks_2': [(BWD, 'constexpr int kBlocksPerSm = 1;', 'constexpr int kBlocksPerSm = 2;')],
-    'bwd_batch_8': [(BWD, 'constexpr int kBatch = 4;', 'constexpr int kBatch = 8;')],
-    'bwd_batch_2': [(BWD, 'constexpr int kBatch = 4;', 'constexpr int kBatch = 2;')],
-    # cuts, to time the phases (their dG is not the gradient)
-    'bwd_cut_rank': [(BWD, 'for (int q = lo; q < hi; ++q)', 'for (int q = hi; q < hi; ++q)')],
-    'bwd_cut_gather': [(BWD, 'for (int64_t u = tid >> 5; u < units;',
-                        'for (int64_t u = units; u < units;')],
+    # the gradient: every box a corner at a time (the crowded route);
+    # 2 or 8 terms of a chain loaded together; a quarter of the sort's
+    # (bucket, warp) table, so fewer warps sort
+    'bwd_per_corner': [(BWD, 'bool per_corner = b.per_corner != 0;',
+                        'bool per_corner = true;')],
+    'bwd_unroll_4': [(BWD, 'constexpr int kUnroll = 8;', 'constexpr int kUnroll = 4;')],
+    'bwd_unroll_16': [(BWD, 'constexpr int kUnroll = 8;', 'constexpr int kUnroll = 16;')],
+    'bwd_table_1k': [(BWD, 'constexpr int kTableInts = 4096;', 'constexpr int kTableInts = 1024;')],
+    'bwd_tile_256': [(BWD, 'constexpr int kMinTile = 128;', 'constexpr int kMinTile = 256;')],
+    'bwd_tile_512': [(BWD, 'constexpr int kMinTile = 128;', 'constexpr int kMinTile = 512;')],
+    'bwd_lane_1': [(BWD, 'for (int k = 4; k > 1; k /= 2) {', 'for (int k = 1; k > 1; k /= 2) {')],
+    'bwd_lane_2': [(BWD, 'for (int k = 4; k > 1; k /= 2) {', 'for (int k = 2; k > 1; k /= 2) {')],
+    # cuts, to time the phases (their dG is not the gradient): no gather; no
+    # staging or gather; no sort, staging or gather; no box kernel (the tile
+    # kernel alone)
+    'bwd_cut_gather': [BWD_CUT_GATHER],
+    'bwd_cut_stage': [BWD_CUT_STAGE, BWD_CUT_GATHER],
+    'bwd_cut_sort': [BWD_CUT_SORT, BWD_CUT_STAGE, BWD_CUT_GATHER],
+    'bwd_cut_box': [(BWD, 'err = cudaLaunchKernelEx(&cfg, kernel_of(BF16), args, p.b);', '')],
+    # the box kernel launched only once the tile kernel has ended
+    'bwd_no_early_launch': [(BWD, 'early.val.programmaticStreamSerializationAllowed = 1;',
+                             'early.val.programmaticStreamSerializationAllowed = 0;')],
 }
 SOURCES = ('grid_sample_fwd', 'grid_sample_bwd')
 
@@ -172,6 +205,7 @@ def make_cases(gen):
     def grad(n, C):
         return torch.randn((n, C), device='cuda', generator=gen)
     trainer = cs.trainer_positions(n_step, gen)
+    clustered = cs.clustered_positions(n_step, 15, gen)
     return {
         'fwd lattice C16 G15': ('fwd', 16, 15, n_eval, lattice, grid(16, 15)),
         'fwd trainer C16 G15': ('fwd', 16, 15, n_step, trainer, grid(16, 15)),
@@ -195,7 +229,15 @@ def make_cases(gen):
         'bwd uniform C64 G10': ('bwd', 64, 10, n_step, uniform(n_step), grad(n_step, 64)),
         **{f'bwd uniform C16 G4 n{n}': ('bwd', 16, 4, n, uniform(n), grad(n, 16))
            for n in (4096, 8 * n_step)},
+        'bwd clustered C16 G15': ('bwd', 16, 15, n_step, clustered, grad(n_step, 16)),
         'bwd bf16 trainer C16 G15': ('bwd bf16', 16, 15, n_step, trainer, grad(n_step, 16)),
+        'bwd bf16 trainer C22 G17': ('bwd bf16', 22, 17, n_step, trainer, grad(n_step, 22)),
+        **{f'bwd bf16 uniform C16 G{G}': ('bwd bf16', 16, G, n_step, uniform(n_step),
+                                          grad(n_step, 16)) for G in (4, 23)},
+        'bwd bf16 uniform C5 G15': ('bwd bf16', 5, 15, n_step, uniform(n_step), grad(n_step, 5)),
+        'bwd bf16 uniform C16 G4 n262144': ('bwd bf16', 16, 4, 8 * n_step, uniform(8 * n_step),
+                                            grad(8 * n_step, 16)),
+        'bwd bf16 clustered C16 G15': ('bwd bf16', 16, 15, n_step, clustered, grad(n_step, 16)),
     }
 
 
@@ -218,27 +260,35 @@ def fetch_bf16_from_copy(grid, coords):
     return out
 
 
-def adds_by_atomics(csrc):
-    """Whether the gradient of the sources in ``csrc`` adds dG by float
-    atomics (PR 13's kernel, whose entries take the fetch's arguments and a
-    dG zeroed first), not the one-launch fixed-order gradient kernel."""
-    return 'cudaLaunchCooperativeKernel(' not in (csrc / BWD).read_text()
+def grad_route(csrc):
+    """How the gradient of the sources in ``csrc`` runs: 'cooperative' (one
+    cooperative launch with grid barriers, whose scratch holds sorted copies
+    of the samples) or 'boxes' (the tile and box kernels, whose scratch
+    holds the tiles' items and their bins' first items)."""
+    text = (csrc / BWD).read_text()
+    return 'cooperative' if 'cudaLaunchCooperativeKernel(' in text else 'boxes'
 
 
-def grad_by_atomics(g, coords, G, precision):
-    """The gradient of an entry that adds by atomics: dG zeroed, then the
-    launch, as that entry's wrapper made them."""
+def grad_cooperative(g, coords, G, precision):
+    """The gradient of a cooperative entry: its wrapper's torch.empty of dG
+    and of its scratch ((6 + C) n + 3 (G+1)^3 + 2 + 1024 ints), then the
+    launch."""
     n, C = g.shape
-    dgrid = torch.zeros((G, G, G, C), device=g.device)
-    gs._launch(gs.BWD_KERNEL, f'lfgc_grid_sample_bwd_{precision}', g, coords, dgrid, n, C,
-               G, G, G, gs._vec4(C, g, dgrid))
+    dgrid = torch.empty((G, G, G, C), device=g.device)
+    scratch = torch.empty((6 + C) * n + 3 * (G + 1) ** 3 + 2 + 1024, device=g.device,
+                          dtype=torch.int32)
+    lib, fn = _build.entry(gs.BWD_KERNEL, f'lfgc_grid_sample_bwd_{precision}', gs.BWD_ARGTYPES)
+    err = fn(g.data_ptr(), coords.data_ptr(), dgrid.data_ptr(), scratch.data_ptr(),
+             scratch.numel(), n, C, G, G, G, torch.cuda.current_stream(g.device).cuda_stream)
+    _build.raise_on_error(lib, gs.BWD_KERNEL, err)
     return dgrid
 
 
-def call(case, bf16_copy=False, atomics=False):
+def call(case, bf16_copy=False, route='boxes'):
     """The wrapper's call for a case (the 'bf16' fetch as the bf16 compute
     path calls it; ``bf16_copy``: through a bf16 copy of the grid;
-    ``atomics``: the gradient through an atomics entry)."""
+    ``route``: the gradient through the entries of another tree's kernel,
+    grad_route's 'cooperative')."""
     direction, C, G, _, coords, a = case
     if direction == 'fwd':
         return lambda: gs.grid_sample_channel_minor_cuda(a, coords)
@@ -247,20 +297,20 @@ def call(case, bf16_copy=False, atomics=False):
             return lambda: fetch_bf16_from_copy(a, coords)
         return lambda: gs.fetch(a, coords, 'bf16')
     precision = 'bf16' if direction == 'bwd bf16' else 'f32'
-    if atomics:
-        return lambda: grad_by_atomics(a, coords, G, precision)
+    if route == 'cooperative':
+        return lambda: grad_cooperative(a, coords, G, precision)
     if precision == 'bf16':
         return lambda: gs.grid_sample_channel_minor_backward_bf16_cuda(a, coords, G, G, G)
     return lambda: gs.grid_sample_channel_minor_backward_cuda(a, coords, G, G, G)
 
 
-def error(case, bf16_copy=False, atomics=False, strict=True):
+def error(case, bf16_copy=False, route='boxes', strict=True):
     """max |kernel - plain|; raises where the 'bf16' fetch, or the gradient
     kernel, is not its plain version (the gradient's run on the CPU) bit for
-    bit; an atomics gradient's error (or, with ``strict`` False, a cut
-    variant's) over max |dG| instead."""
+    bit; with ``strict`` False (a cut variant) its error over max |dG|
+    instead."""
     direction, _, G, _, coords, a = case
-    got = call(case, bf16_copy, atomics)()
+    got = call(case, bf16_copy, route)()
     if direction == 'fwd':
         return (got - grid_sample_channel_minor(a, coords)).abs().max().item()
     if direction == 'bf16':
@@ -273,7 +323,7 @@ def error(case, bf16_copy=False, atomics=False, strict=True):
     plain = (grid_sample_channel_minor_backward_bf16 if direction == 'bwd bf16'
              else grid_sample_channel_minor_backward)
     want = plain(a.cpu(), coords.cpu(), G, G, G)
-    if atomics or not strict:
+    if not strict:
         return cs.rel(got.cpu(), want)
     if not torch.equal(got.cpu(), want):
         raise RuntimeError(f'the gradient kernel differs from its plain version on the '
@@ -324,6 +374,8 @@ def main(argv=None):
                     help="another tree's csrc/ directory, built and timed as 'parent'")
     ap.add_argument('--variants', default=None,
                     help='comma-separated variants to build and time (default: all)')
+    ap.add_argument('--cases', default=None,
+                    help='comma-separated prefixes of the cases to time (default: all)')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('ablate_fetch: CUDA is not available', file=sys.stderr)
@@ -338,30 +390,33 @@ def main(argv=None):
     if args.variants is not None:
         variants = {k: variants[k] for k in args.variants.split(',')}
     cases = make_cases(torch.Generator(device='cuda').manual_seed(cs.SEED))
+    if args.cases is not None:
+        prefixes = tuple(args.cases.split(','))
+        cases = {c: case for c, case in cases.items() if c.startswith(prefixes)}
     root = Path(tempfile.mkdtemp(prefix='lfgc_ablate_fetch_'))
     csrc, build_dir = _build.CSRC_DIR, _build.BUILD_DIR
     try:
         logs = build_all(csrc, root, variants, SOURCES)
         ms = {name: {c: [] for c in cases if timed(name, c)} for name in variants}
         copy = {name: takes_bf16_copy(root / name / 'csrc') for name in variants}
-        atomics = {name: adds_by_atomics(root / name / 'csrc') for name in variants}
+        routes = {name: grad_route(root / name / 'csrc') for name in variants}
         first = {}   # the first variant's fetch outputs
         for name in variants:
             use(root / name / 'csrc')
             with torch.no_grad():
-                errs = {c: error(case, copy[name], atomics[name], '_cut_' not in name)
+                errs = {c: error(case, copy[name], routes[name], '_cut_' not in name)
                         for c, case in cases.items() if timed(name, c)}
                 equal = {}
                 for c, case in cases.items():
                     if timed(name, c) and case[0] in ('fwd', 'bf16'):
                         out = call(case, copy[name])()
                         equal[c] = torch.equal(out, first.setdefault(c, out))
-                enqueue = {c: enqueue_ms(call(cases[c], copy[name], atomics[name]))
-                           for c in ENQUEUE_CASES if timed(name, c)}
+                enqueue = {c: enqueue_ms(call(cases[c], copy[name], routes[name]))
+                           for c in ENQUEUE_CASES if c in cases and timed(name, c)}
             plans = ({c: plan(case) for c, case in cases.items() if timed(name, c)}
                      if name != 'parent' else None)
             print(json.dumps({'variant': name, 'ptxas': ptxas_of(logs[name]),
-                              'bf16_grid_copy': copy[name], 'grad_by_atomics': atomics[name],
+                              'bf16_grid_copy': copy[name], 'grad_route': routes[name],
                               'max_err': errs, 'enqueue_ms': enqueue,
                               'equal_to_first': equal, 'plans': plans}), flush=True)
         order = list(variants)
@@ -371,7 +426,7 @@ def main(argv=None):
                 row = {'variant': name, 'round': rnd}
                 with torch.no_grad():
                     for c in ms[name]:
-                        row[c] = cs.time_ms(call(cases[c], copy[name], atomics[name]))
+                        row[c] = cs.time_ms(call(cases[c], copy[name], routes[name]))
                         ms[name][c].append(row[c])
                 print(json.dumps(row), flush=True)
     finally:

@@ -34,9 +34,12 @@ in order:
                  entry summed in the plain version's order) bit for bit
                  equal to its plain version run on the CPU and to itself in
                  a second call, at the flagship shape and at C 22 on 17^3
-                 on the trainer's positions, and at grids 4..62 and C 5, 32
-                 on uniform coordinates; kernel, plain, library (aten
-                 grid_sampler_3d_backward) and bound times, and the plan
+                 on the trainer's positions, at grids 4..62 and C 5, 32 on
+                 uniform coordinates, and on crowded positions (grid 4 under
+                 262,144 samples; 32,768 in the 8 cells of a 2^3 block of
+                 the flagship grid); kernel, plain, library (aten
+                 grid_sampler_3d_backward), bound and latency-floor times
+                 (the longest chain of adds at 4 cycles), and the plan
                  (gs.bwd_plan)
   5. kernel_mlp  the fused MLP kernels (forward, backward) against their
                  plain versions in 'bf16' and 'f32': at the flagship widths
@@ -57,7 +60,8 @@ in order:
                  (from the float32 grid, which it rounds itself) and its
                  gradient at the flagship on a chunk of the 255^3 lattice
                  and on one train step's trainer positions, at grid 23 (the
-                 blocked Pallas kernels' counterpart), C 5, C 22 on 17^3;
+                 blocked Pallas kernels' counterpart), C 5, C 22 on 17^3,
+                 and the gradient on kernel_bwd's crowded positions too;
                  the fetch and the gradient bit for bit (the gradient
                  against the plain version on the CPU, and in a second
                  call); the one-kernel 'bf16'
@@ -326,6 +330,7 @@ BF16_BACKENDS = ('_bf16', '_bf16_fused')
 # host's time to enqueue the calls of one timed run (measured in time_ms)
 SPIN_CYCLES = 20_000_000
 SPIN_CYCLES_PER_MS = 2_000_000   # the SM clock is below 2 GHz
+FADD_CYCLES = 4                  # a dependent float add's latency on Hopper
 
 
 def emit(obj):
@@ -658,17 +663,56 @@ def trainer_positions(n, generator):
     return (pos.to(torch.float32) / (VOLUME_N - 1)) * 2.0 - 1.0
 
 
-def grad_case(C, G, kind, g, timed=True):
-    """The gradient kernel at one train step's batch, on 'trainer' or
-    'uniform' coordinates: bit for bit its plain version run on the CPU and
-    itself in a second call, and aten's grid_sampler_3d_backward within
-    1e-4 of max |dG|; with ``timed`` the kernel's, plain, library and bound
-    times."""
-    n = TRAIN_BATCH
+def clustered_positions(n, G, generator):
+    """(n, 3) coordinates all in the 8 cells of a 2 x 2 x 2 block at the
+    middle of a G^3 grid: uniform pixel positions in [G/2 - 1, G/2 + 1)."""
+    lo = G // 2 - 1
+    pix = lo + 2.0 * torch.rand((n, 3), device='cuda', generator=generator)
+    return (2.0 * pix + 1.0) / G - 1.0
+
+
+def grad_coords(kind, n, G, generator):
+    """(n, 3) coordinates of a gradient case: 'trainer' (one train step's
+    positions), 'clustered' (clustered_positions) or 'uniform' (over the
+    grid and past it)."""
     if kind == 'trainer':
-        coords = trainer_positions(n, g)
-    else:
-        coords = torch.rand((n, 3), device='cuda', generator=g) * 2.4 - 1.2
+        return trainer_positions(n, generator)
+    if kind == 'clustered':
+        return clustered_positions(n, G, generator)
+    return torch.rand((n, 3), device='cuda', generator=generator) * 2.4 - 1.2
+
+
+def longest_chain(coords, D, H, W):
+    """The most float adds one entry of the gradient sums in a row (its
+    samples over all 8 corners) at these coordinates: each sample's lower
+    corner counted on the host, then each row's 8 neighbouring corners."""
+    sizes = torch.tensor([W, H, D], dtype=torch.float32)
+    lo = torch.floor(((coords.cpu() + 1.0) * sizes - 1.0) * 0.5).to(torch.int64) + 1
+    inside = ((lo >= 0) & (lo <= torch.tensor([W, H, D]))).all(1)
+    lo = lo[inside]
+    count = torch.zeros((D + 1, H + 1, W + 1), dtype=torch.int64)
+    count.index_put_((lo[:, 2], lo[:, 1], lo[:, 0]), torch.ones(len(lo), dtype=torch.int64),
+                     accumulate=True)
+    chain = sum(count[1 - dz:D + 1 - dz, 1 - dy:H + 1 - dy, 1 - dx:W + 1 - dx]
+                for dz in (0, 1) for dy in (0, 1) for dx in (0, 1))
+    return int(chain.max())
+
+
+def grad_latency_ms(coords, D, H, W):
+    """The latency floor of one gradient: its longest chain of dependent
+    float adds (longest_chain) at FADD_CYCLES each and the SM clock of
+    SPIN_CYCLES_PER_MS."""
+    return longest_chain(coords, D, H, W) * FADD_CYCLES / SPIN_CYCLES_PER_MS
+
+
+def grad_case(C, G, kind, g, timed=True, n=TRAIN_BATCH):
+    """The gradient kernel at n samples (one train step's batch unless
+    named), on 'trainer', 'uniform' or 'clustered' coordinates
+    (grad_coords): bit for bit its plain version run on the CPU and itself
+    in a second call, and aten's grid_sampler_3d_backward within 1e-4 of
+    max |dG|; with ``timed`` the kernel's, plain, library and bound times,
+    and the longest chain's latency floor."""
+    coords = grad_coords(kind, n, G, g)
     grad = torch.randn((n, C), device='cuda', generator=g)
     out = gs.grid_sample_channel_minor_backward_cuda(grad, coords, G, G, G)
     again = gs.grid_sample_channel_minor_backward_cuda(grad, coords, G, G, G)
@@ -708,22 +752,28 @@ def grad_case(C, G, kind, g, timed=True):
                 grad, coords, G, G, G)),
             plain_ms=time_ms(lambda: grid_sample_channel_minor_backward(
                 grad, coords, G, G, G)),
-            library_ms=time_ms(library), bound_ms=bound, bound_by=bound_by)
+            library_ms=time_ms(library), bound_ms=bound, bound_by=bound_by,
+            latency_floor_ms=grad_latency_ms(coords, G, G, G))
     return row
+
+
+# the crowded gradient cases of both modes: a small grid under a large
+# batch, and positions in few cells
+CROWDED = [(16, 4, 'uniform', 8 * TRAIN_BATCH), (16, 15, 'clustered', TRAIN_BATCH)]
 
 
 def phase_kernel_bwd():
     """Gradient kernel vs its plain version on the CPU, itself and aten's
     grid_sampler_3d_backward, at one train step's batch: the flagship shape
     on the trainer's positions, then the NAS range of grids and C 5 and 32
-    on uniform random coordinates."""
+    on uniform random coordinates; then the crowded cases (CROWDED)."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 2)
     rows = []
-    cases = ([(16, 15, 'trainer'), (22, 17, 'trainer')]
-             + [(16, G, 'uniform') for G in (4, 8, 22, 23, 32, 62)]
-             + [(5, 15, 'uniform'), (32, 15, 'uniform')])
-    for C, G, kind in cases:
-        row = grad_case(C, G, kind, g)
+    cases = ([(16, 15, 'trainer', TRAIN_BATCH), (22, 17, 'trainer', TRAIN_BATCH)]
+             + [(16, G, 'uniform', TRAIN_BATCH) for G in (4, 8, 22, 23, 32, 62)]
+             + [(5, 15, 'uniform', TRAIN_BATCH), (32, 15, 'uniform', TRAIN_BATCH)] + CROWDED)
+    for C, G, kind, n in cases:
+        row = grad_case(C, G, kind, g, n=n)
         emit(row)
         rows.append(row)
     return rows
@@ -933,18 +983,16 @@ def phase_kernel_bf16(model, grid_cl):
                  (22, 17, 'trainer', TRAIN_BATCH)]
     bwd_cases = [(16, 15, 'trainer', TRAIN_BATCH), (16, 4, 'uniform', TRAIN_BATCH),
                  (16, 23, 'uniform', TRAIN_BATCH), (5, 15, 'uniform', TRAIN_BATCH),
-                 (22, 17, 'trainer', TRAIN_BATCH)]
+                 (22, 17, 'trainer', TRAIN_BATCH)] + CROWDED
 
-    def coords_of(kind, n):
+    def coords_of(kind, n, G):
         if kind == 'lattice':
             return lattice
-        if kind == 'trainer':
-            return trainer_positions(n, gen)
-        return torch.rand((n, 3), device='cuda', generator=gen) * 2.4 - 1.2
+        return grad_coords(kind, n, G, gen)
     with torch.no_grad():
         for C, G, kind, n in fwd_cases:
             feats = torch.randn((C, G, G, G), device='cuda', generator=gen)
-            coords = coords_of(kind, n)
+            coords = coords_of(kind, n, G)
             grid = channel_minor(feats)
             out = gs.grid_sample_channel_minor_bf16_cuda(grid, coords)
             plain = grid_sample_channel_minor_bf16(grid, coords)
@@ -969,7 +1017,7 @@ def phase_kernel_bf16(model, grid_cl):
             emit(row)
             rows.append(row)
     for C, G, kind, n in bwd_cases:
-        coords = coords_of(kind, n)
+        coords = coords_of(kind, n, G)
         grad = torch.randn((n, C), device='cuda', generator=gen)
         with torch.no_grad():
             out = gs.grid_sample_channel_minor_backward_bf16_cuda(grad, coords, G, G, G)
@@ -1003,6 +1051,7 @@ def phase_kernel_bf16(model, grid_cl):
                    'plain_ms': time_ms(lambda: grid_sample_channel_minor_backward_bf16(
                        grad, coords, G, G, G))}
         row.update({'library_ms': time_ms(library), 'bound_ms': bound, 'bound_by': bound_by,
+                    'latency_floor_ms': grad_latency_ms(coords, G, G, G),
                     'plan': gs.bwd_plan(n, C, G, G, G, 'bf16')})
         emit(row)
         rows.append(row)
@@ -2607,6 +2656,17 @@ def main(argv=None):
     bf16_lattice = flagship_bf16(bf16_fetch, 'lattice')
     bf16_grad_trainer = flagship_bf16(bf16_grad, 'trainer')
 
+    def case_name(r):
+        return (f"C{r['C']} G{r['grid']} {r['coords']}"
+                + (f" n{r['n']}" if r['n'] != TRAIN_BATCH else ''))
+
+    def crowd_ratio(rows):
+        """The gradient's time at grid 4 with 262,144 uniform samples over
+        its time with 32,768 (linear: about 8)."""
+        at = {r['n']: r['kernel_ms'] for r in rows
+              if r['grid'] == 4 and r['coords'] == 'uniform' and r['C'] == 16}
+        return at[8 * TRAIN_BATCH] / at[TRAIN_BATCH]
+
     def numbers(row, prefix=''):
         return {'ms': row[prefix + 'kernel_ms'], 'plain_ms': row[prefix + 'plain_ms'],
                 'bound_ms': row[prefix + 'bound_ms'], 'bound_by': row[prefix + 'bound_by'],
@@ -2633,8 +2693,9 @@ def main(argv=None):
                      **numbers(flagship_bwd),
                      shape={'n': flagship_bwd['n'], 'C': 16, 'grid': 15,
                             'coords': 'trainer'}, plan=flagship_bwd['plan'],
-                     cases={f"C{r['C']} G{r['grid']} {r['coords']}":
-                            {**numbers(r), 'blocks': r['plan']['blocks']} for r in bwd_rows},
+                     cases={case_name(r): {**numbers(r), 'blocks': r['plan']['blocks']}
+                            for r in bwd_rows},
+                     grid4_262144_over_32768=crowd_ratio(bwd_rows),
                      trainer_c22_grid17={**numbers(bwd_c22), 'n': bwd_c22['n'],
                                          'plan': bwd_c22['plan']},
                      mesh_window=[{k: w[k] for k in ('space_index', 'window', 'grid', 'n',
@@ -2694,8 +2755,8 @@ def main(argv=None):
                      shape={'n': bf16_grad_trainer['n'], 'C': 16, 'grid': 15,
                             'coords': 'trainer', 'precision': 'bf16'},
                      plan=bf16_grad_trainer['plan'],
-                     cases={f"C{r['C']} G{r['grid']} {r['coords']}": numbers(r)
-                            for r in bf16_grad}),
+                     cases={case_name(r): numbers(r) for r in bf16_grad},
+                     grid4_262144_over_32768=crowd_ratio(bf16_grad)),
         kernel_entry('fused_forward_fwd_bf16', 'fused_forward.cu', 'fused_forward.py:113',
                      None, path_counts, 'train_bf16_fused',
                      max_abs_err=bf16_fused['max_abs_err'], **numbers(bf16_fused),

@@ -1,9 +1,9 @@
 // Launch helpers shared by the port's kernels: the opt-in for dynamic shared
-// memory, the occupancy query that sizes persistent grids (the MLP kernels
-// of snake_mlp_tc.cuh, the fetch of grid_sample_fwd.cu, the gradient of
-// grid_sample_bwd.cu), and a cache of what a card's queries give.  Host code
-// only; nothing here allocates or synchronises, so a launch sized by it can
-// be captured in a CUDA graph.
+// memory (the gradient's box kernel of grid_sample_bwd.cu takes nearly all
+// of it), the occupancy query that sizes persistent grids (the MLP kernels
+// of snake_mlp_tc.cuh, the fetch of grid_sample_fwd.cu), and a cache of
+// what a card's queries give.  Host code only; nothing here allocates or
+// synchronises, so a launch sized by it can be captured in a CUDA graph.
 
 #pragma once
 

@@ -159,12 +159,24 @@ __device__ __forceinline__ void fetch_channels(const Cell& c, int D, int H, int 
   });
 }
 
+// The two factors of a gradient term: a corner's weight, which depends on
+// the sample only ('f32' wxy * wz, 'bf16' bf16(wxy)), and the output
+// gradient x scaled for its z plane ('f32' x, 'bf16' bf16(wz * bf16(x))).
+template <bool BF16>
+__device__ __forceinline__ float grad_weight(float wxy, float wz) {
+  return BF16 ? bf16_round(wxy) : __fmul_rn(wxy, wz);
+}
+
+template <bool BF16>
+__device__ __forceinline__ float grad_scale(float wz, float x) {
+  return BF16 ? bf16_round(__fmul_rn(wz, bf16_round(x))) : x;
+}
+
 // The term a corner of weights (wxy, wz) adds to the grid's gradient for the
 // output gradient x: 'f32' ((wxy * wz) * x) or 'bf16' (see the top).
 template <bool BF16>
 __device__ __forceinline__ float grad_term(float wxy, float wz, float x) {
-  return BF16 ? __fmul_rn(bf16_round(wxy), bf16_round(__fmul_rn(wz, bf16_round(x))))
-              : __fmul_rn(__fmul_rn(wxy, wz), x);
+  return __fmul_rn(grad_weight<BF16>(wxy, wz), grad_scale<BF16>(wz, x));
 }
 
 }  // namespace lfgc

@@ -21,9 +21,10 @@ the TPU kernel rounds.  Their plain versions are
 The gradient kernel is deterministic, as the TPU's sequential sums are: it
 buckets the samples by cell and sums each entry of dG in one thread, in the
 plain version's order, so on the card it equals the plain version run on
-the CPU bit for bit, and two calls give the same dG.  It is one cooperative
-launch on ``torch.empty`` buffers (dG and an int32 scratch): nothing is
-zeroed first.
+the CPU bit for bit, and two calls give the same dG.  It is two ordinary
+launches on ``torch.empty`` buffers (dG, and an int32 scratch that holds
+each tile of the sample order sorted by bucket row): nothing is zeroed
+first.
 
 :func:`fetch` is what the model, the trainer and the evaluation call: a
 ``torch.autograd.Function`` whose forward and backward take the plain
@@ -85,20 +86,34 @@ BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void
 # its plan entry: n, C, D, H, W, bf16, out (7 ints)
 BWD_PLAN_ARGTYPES = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-BWD_PLAN_FIELDS = ('threads', 'blocks_per_sm', 'blocks', 'buckets', 'rows_per_warp',
-                   'lanes_per_row', 'smem_bytes')
-# most blocks the gradient kernel launches (its kMaxBlocks): one partial sum
-# a block in the scratch
-BWD_SCRATCH_BLOCKS = 1024
+BWD_PLAN_FIELDS = ('threads', 'blocks', 'box_z', 'box_y', 'box_x', 'channel_groups',
+                   'channels_per_block', 'box_buckets', 'capacity', 'expected_samples',
+                   'per_corner', 'rows_per_warp', 'lanes_per_row', 'channels_per_lane',
+                   'sort_warps', 'smem_bytes', 'buckets')
+# most buckets a block of the gradient kernel reads (its kMaxLocalBuckets):
+# a box of rows is at most this many lower corners
+BWD_MAX_LOCAL_BUCKETS = 4096
+# its tiles of the sample order (kTileThreads, kMinTile, kMaxTiles) and most
+# bins of bucket rows (kMaxBins)
+BWD_TILE_THREADS, BWD_MIN_TILE, BWD_MAX_TILES, BWD_MAX_BINS = 128, 128, 1024, 2048
+
+
+def bwd_tiling(n: int, D: int, H: int):
+    """The gradient kernel's tiles for n samples into a (D, H, W) grid
+    (its tiling_of): samples a tile, tiles, bucket rows a bin, bins."""
+    T = -(-n // BWD_MAX_TILES)
+    T = max(BWD_MIN_TILE, -(-T // BWD_TILE_THREADS) * BWD_TILE_THREADS)
+    rows = (D + 1) * (H + 1)
+    f = -(-rows // BWD_MAX_BINS)
+    return T, -(-n // T), f, -(-rows // f)
 
 
 def bwd_scratch_words(n: int, C: int, D: int, H: int, W: int) -> int:
     """The int32 scratch the gradient kernel takes for n samples of C
-    channels into a (D, H, W) grid: a sorted record of 4 and a sorted row of
-    g of C a sample, a bucket and a placed index a sample, the bucket counts,
-    their prefixes and the buckets' first slots ((D+1)(H+1)(W+1) buckets,
-    one more prefix and slot), a partial sum a block."""
-    return (6 + C) * n + 3 * (D + 1) * (H + 1) * (W + 1) + 2 + BWD_SCRATCH_BLOCKS
+    channels into a (D, H, W) grid: each tile's kept samples as (index,
+    bucket) pairs, a whole tile each, and each tile's bins' first items."""
+    T, tiles, _, nb = bwd_tiling(n, D, H)
+    return 2 * tiles * T + tiles * (nb + 1)
 
 
 def _launch(name: str, entry: str, a: torch.Tensor, coords: torch.Tensor,
@@ -244,10 +259,15 @@ def fwd_plan(n: int, C: int, D: int, H: int, W: int, vec4: bool = True,
 
 def bwd_plan(n: int, C: int, D: int, H: int, W: int, precision: str = 'f32') -> dict:
     """How the gradient kernel of the mode ``precision`` launches for n
-    samples into a (D, H, W, C) gradient on the current card: threads a
-    block, blocks an SM, blocks (one cooperative launch), buckets, rows of
-    dG a warp sums at once, lanes a row, shared bytes a block, and the
-    mode."""
+    samples into a (D, H, W, C) gradient on the current card (its second
+    launch, the box kernel; the first sorts tiles of the sample order):
+    threads a block, blocks,
+    rows of a box along z, y and x, channel groups, channels a block,
+    buckets a box reads, samples a block stages at once, samples a box
+    holds on uniform positions, whether it takes the corners one at a time
+    (1) or every corner in one pass (0), rows of dG a warp sums at once,
+    lanes a row, channels a lane, warps that sort, shared bytes a block,
+    buckets of the grid, and the mode."""
     _check_precision(precision)
     lib, fn = _build.entry(BWD_KERNEL, 'lfgc_grid_sample_bwd_plan', BWD_PLAN_ARGTYPES)
     out = (ctypes.c_int * len(BWD_PLAN_FIELDS))()

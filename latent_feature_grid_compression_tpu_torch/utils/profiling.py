@@ -11,13 +11,14 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir: Optional[str], device: str | torch.device = 'cpu'):
+def trace(log_dir: Optional[str], device: str | torch.device = 'cuda'):
     """Trace the enclosed work with ``torch.profiler`` into ``log_dir`` (a
     Chrome trace, ``*.pt.trace.json``, which TensorBoard's profiler plugin
     and Perfetto read) if ``log_dir`` is set; a no-op otherwise.  Records
-    the CPU always and the card's kernels when ``device`` is a CUDA device;
-    the enclosed work must end in a device read for the trace to span its
-    execution."""
+    the CPU always and the card's kernels when ``device`` is a CUDA device
+    (the default, as every entry point of the port; CPU work passes
+    ``'cpu'``); the enclosed work must end in a device read for the trace
+    to span its execution."""
     if not log_dir:
         yield
         return

@@ -179,19 +179,35 @@ def test_bwd_kernel_matches_plain(cuda_device, C, G, kind):
 
 
 def test_bwd_plan_follows_the_shape(cuda_device):
-    """One cooperative launch of 512-thread blocks, at most one an SM, as
-    many as the largest phase needs; (D+1)(H+1)(W+1) buckets."""
+    """The box kernel's 512-thread blocks, one a box of rows and channel
+    group: boxes of whole planes, of a y range in one plane or of an x range
+    in one line, at most BWD_MAX_LOCAL_BUCKETS buckets a box, at most 32
+    channels a block, 1, 2 or 4 a lane, within the card's shared memory;
+    the flagship in one wave and one pass a box, grid 4 under 2^18 samples a
+    corner at a time; grids from 121 to 255 (the container's largest) and
+    lines longer than a box's buckets take y or x ranges."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n, C, D, H, W in [(32768, 16, 15, 15, 15), (32768, 16, 62, 62, 62),
+                          (32768, 22, 17, 17, 17), (1 << 18, 16, 4, 4, 4), (1, 5, 4, 4, 4),
+                          (16384, 16, 15, 15, 8), (1 << 20, 64, 62, 62, 62),
+                          (32768, 16, 121, 121, 121), (32768, 16, 128, 128, 128),
+                          (32768, 16, 255, 255, 255), (4096, 8, 3, 5, 3000)]:
+        for precision in ('f32', 'bf16'):
+            p = gs.bwd_plan(n, C, D, H, W, precision)
+            bz, by, bx = p['box_z'], p['box_y'], p['box_x']
+            boxes = -(-D // bz) * -(-H // by) * -(-W // bx)
+            assert p['threads'] == 512 and p['blocks'] == boxes * p['channel_groups']
+            assert p['box_buckets'] == (bz + 1) * (by + 1) * (bx + 1) <= gs.BWD_MAX_LOCAL_BUCKETS
+            assert (by == H or bz == 1) and (bx == W or bz == by == 1)
+            assert p['channels_per_block'] == -(-C // p['channel_groups']) <= 32
+            assert p['channels_per_lane'] in (1, 2, 4)
+            assert p['lanes_per_row'] == -(-p['channels_per_block'] // p['channels_per_lane'])
+            assert p['rows_per_warp'] == 32 // p['lanes_per_row']
+            assert p['buckets'] == (D + 1) * (H + 1) * (W + 1)
+            assert p['smem_bytes'] <= 232448 and p['capacity'] >= 256
     flagship = gs.bwd_plan(32768, 16, 15, 15, 15)
-    assert flagship['threads'] == 512 and flagship['buckets'] == 16 ** 3
-    # the gather's 1,688 warps (two rows of 16 lanes each) are the most work
-    assert flagship['blocks'] == min(-(-1688 * 32 // 512), sms,
-                                     flagship['blocks_per_sm'] * sms)
-    assert flagship['rows_per_warp'] == 2 and flagship['lanes_per_row'] == 16
-    assert flagship['smem_bytes'] == 4 * flagship['blocks']
-    assert gs.bwd_plan(1, 22, 17, 17, 17, 'bf16')['rows_per_warp'] == 1
-    assert gs.bwd_plan(1, 5, 4, 4, 4)['blocks'] == 1
-    assert gs.bwd_plan(1 << 20, 64, 62, 62, 62)['blocks'] == sms
+    assert flagship['per_corner'] == 0 and flagship['blocks'] <= sms
+    assert gs.bwd_plan(1 << 18, 16, 4, 4, 4)['per_corner'] == 1
 
 
 @pytest.mark.parametrize('n', [0, 1])
@@ -235,7 +251,8 @@ def _grad_coords(kind, n, device):
 # (C, (D, H, W), n, coordinates): the flagship, the NAS range (8..62, C 22 on
 # 17^3, C 5), grid 4 (4,096 adds an entry), C 32 and 64 (more channels than a
 # warp's lanes), the mesh's windowed grid, an anisotropic one, tiny batches,
-# and batches whose buckets are one, or none
+# and batches whose buckets are one, or none; grids 128 and 255 (y-range
+# boxes past 8 waves) and lines of 3,000 (x-range boxes)
 BWD_CASES = [(16, (15, 15, 15), 32768, 'uniform'), (16, (4, 4, 4), 32768, 'uniform'),
              (16, (8, 8, 8), 32768, 'uniform'), (22, (17, 17, 17), 32768, 'uniform'),
              (16, (23, 23, 23), 32768, 'uniform'), (16, (62, 62, 62), 32768, 'uniform'),
@@ -243,7 +260,9 @@ BWD_CASES = [(16, (15, 15, 15), 32768, 'uniform'), (16, (4, 4, 4), 32768, 'unifo
              (64, (10, 10, 10), 32768, 'uniform'), (16, (15, 15, 8), 16384, 'uniform'),
              (3, (5, 7, 9), 4097, 'uniform'), (16, (15, 15, 15), 1, 'uniform'),
              (16, (15, 15, 15), 33, 'uniform'), (16, (15, 15, 15), 20000, 'one_cell'),
-             (8, (6, 6, 6), 5000, 'one_point'), (16, (15, 15, 15), 1000, 'outside')]
+             (8, (6, 6, 6), 5000, 'one_point'), (16, (15, 15, 15), 1000, 'outside'),
+             (16, (128, 128, 128), 32768, 'uniform'), (16, (255, 255, 255), 32768, 'uniform'),
+             (8, (3, 5, 3000), 4096, 'uniform')]
 
 
 @pytest.mark.parametrize('precision', ['f32', 'bf16'])
@@ -267,6 +286,43 @@ def test_gradient_kernel_is_the_cpu_plain_version_bit_for_bit(cuda_device, C, sh
     assert torch.equal(out.cpu(), plain(g.cpu(), coords.cpu(), D, H, W))
     if kind == 'outside':
         assert not out.any()
+
+
+def _clustered(n, G, device):
+    """(n, 3) coordinates in the 8 cells of a 2 x 2 x 2 block at the middle
+    of a G^3 grid."""
+    pix = G // 2 - 1 + 2.0 * torch.rand((n, 3), device=device)
+    return (2.0 * pix + 1.0) / G - 1.0
+
+
+# crowded positions: grid 4 under 2^18 and 2^16 uniform samples (the boxes
+# take the corners one at a time from the start), 8 clustered cells and one
+# cell of the flagship grid (boxes that overflow on the card and turn to a
+# corner at a time there), 8 cells of grid 8 at 2^17 samples
+CROWDED_CASES = [(16, 4, 1 << 18, 'uniform'), (16, 4, 1 << 16, 'uniform'),
+                 (16, 15, 32768, 'clustered'), (16, 15, 32768, 'one_cell'),
+                 (8, 8, 1 << 17, 'clustered')]
+
+
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+@pytest.mark.parametrize('C,G,n,kind', CROWDED_CASES)
+def test_gradient_kernel_on_crowded_positions_bit_for_bit(cuda_device, C, G, n, kind,
+                                                          precision):
+    """Crowded positions take the boxes' windowed passes: still the plain
+    version on the CPU bit for bit and the same dG in a second call, in
+    both modes."""
+    coords = (_clustered(n, G, cuda_device) if kind == 'clustered'
+              else _grad_coords(kind, n, cuda_device))
+    g = torch.randn((n, C), device=cuda_device)
+    call, plain = ((gs.grid_sample_channel_minor_backward_bf16_cuda,
+                    grid_sample_channel_minor_backward_bf16) if precision == 'bf16' else
+                   (gs.grid_sample_channel_minor_backward_cuda,
+                    grid_sample_channel_minor_backward))
+    out = call(g, coords, G, G, G)
+    again = call(g, coords, G, G, G)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), plain(g.cpu(), coords.cpu(), G, G, G))
 
 
 @pytest.mark.parametrize('precision', ['mixed', 'f32', 'bf16'])
@@ -891,7 +947,9 @@ def test_bf16_fetch_unaligned_grid_takes_scalar_path(cuda_device):
                                       (16, 6, 'uniform')])
 def test_bf16_bwd_kernel_matches_plain(cuda_device, C, G, kind):
     """The 'bf16' gradient equals its plain version on the CPU bit for bit,
-    with the launch counted in 'bf16' only; the plan as in 'f32'."""
+    with the launch counted in 'bf16' only; its plan is the 'f32' one's
+    shape of launch (its staged factors take other room, so its boxes may
+    differ)."""
     n = 32768
     coords = (_lattice_positions(n, 255, 1) if kind == 'lattice'
               else torch.rand((n, 3), device=cuda_device) * 2.4 - 1.2)
@@ -903,9 +961,10 @@ def test_bf16_bwd_kernel_matches_plain(cuda_device, C, G, kind):
     assert out.dtype == torch.float32
     assert torch.equal(out.cpu(), grid_sample_channel_minor_backward_bf16(
         g.cpu(), coords.cpu(), G, G, G))
-    plan = {k: v for k, v in gs.bwd_plan(n, C, G, G, G, precision='bf16').items()
-            if k != 'mode'}
-    assert plan == {k: v for k, v in gs.bwd_plan(n, C, G, G, G).items() if k != 'mode'}
+    plan, f32 = gs.bwd_plan(n, C, G, G, G, precision='bf16'), gs.bwd_plan(n, C, G, G, G)
+    assert plan['mode'] == 'bf16' and f32['mode'] == 'f32'
+    assert {k for k in plan} == {k for k in f32}
+    assert plan['threads'] == f32['threads'] and plan['buckets'] == f32['buckets']
 
 
 def test_fetch_bf16_never_runs_the_float32_kernels(cuda_device):

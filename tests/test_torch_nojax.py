@@ -175,7 +175,7 @@ def test_bwd_kernel_entry_matches_wrapper_signature():
 def test_gradient_kernel_plan_reads_the_entrys_report(monkeypatch):
     """No card here: a stand-in entry fills the report, and the wrapper
     names its fields and the mode."""
-    report = [512, 2, 106, 4096, 2, 16, 424]
+    report = [512, 120, 1, 2, 15, 1, 16, 96, 1744, 768, 0, 2, 16, 1, 16, 232368, 4096]
     calls = []
 
     def fn(*args):
@@ -191,14 +191,19 @@ def test_gradient_kernel_plan_reads_the_entrys_report(monkeypatch):
 
 def test_gradient_kernel_adds_no_float_by_atomics():
     """The gradient kernel's float sums are each one thread's, in a fixed
-    order: its only atomics are on the integer bucket counts, and it writes
-    every entry of dG (the wrapper zeroes nothing)."""
+    order: its only atomics are integer adds to the counts of its sorts
+    (the tiles' bins, the boxes' (bucket, warp) table), it uses no library
+    sort or scan, and it writes every entry of dG (the wrapper zeroes
+    nothing)."""
     with open(os.path.join(PORT, 'csrc', 'grid_sample_bwd.cu')) as f:
         src = f.read()
-    atomics = re.findall(r'atomic\w+\(([^,]*),', src)
-    assert atomics and set(atomics) == {'count + k'}, atomics
-    assert 'a.dgrid[r * C + c] = acc;' in src
-    assert 'acc = __fadd_rn(acc, lfgc::grad_term<BF16>(__fmul_rn(wx, wy), wz, gv[j]));' in src
+    atomics = re.findall(r'(atomic\w+)\(([^,]*),', src)
+    assert atomics and {a for a, _ in atomics} == {'atomicAdd'}, atomics
+    assert {t for _, t in atomics} == {'tab + lbs[j] * nwp + warp', 'cursor + bin0',
+                                       'cursor + bin_of(first + s'}, atomics
+    assert not re.search(r'\bcub::|\bthrust::|cooperative_groups', src)
+    assert 'if (on[e]) a.dgrid[at + e * Lw] = acc[e];' in src
+    assert 'acc[e] = __fadd_rn(acc[e], pv[q][e]);' in src
     with open(os.path.join(PORT, 'ops', 'grid_sample.py')) as f:
         wrapper = f.read()
     body = wrapper[wrapper.index('def _backward_cuda('):wrapper.index(
@@ -259,14 +264,14 @@ def test_grid_sample_plan_reads_the_entrys_report(monkeypatch, plan, routes, rep
 # plane-by-plane routines (trilinear.cuh), through which the fetch, the
 # gradient and the one-kernel forward round alike
 BF16_SOURCE_MARKS = {
-    'trilinear.cuh': ('for_each_plane(', 'fetch_channels(', 'grad_term(',
-                      '__float2bfloat16_rn'),
+    'trilinear.cuh': ('for_each_plane(', 'fetch_channels(', 'grad_term(', 'grad_weight(',
+                      'grad_scale(', '__float2bfloat16_rn'),
     'grid_sample_fwd.cu': ('template <bool VEC4, bool BF16, int K>\n__global__ void '
                            '__launch_bounds__(kThreads)\ngrid_sample_fwd_kernel(',
                            'lfgc::fetch_channels<BF16, K>(',
                            'launch(grid, coords, out, n, C, D, H, W, vec4 != 0, true, stream)'),
-    'grid_sample_bwd.cu': ('grid_sample_bwd_kernel<true>', 'lfgc::grad_term<BF16>(',
-                           'lfgc::cell_of('),
+    'grid_sample_bwd.cu': ('grid_sample_bwd_kernel<true>', 'lfgc::grad_weight<BF16>(',
+                           'lfgc::grad_scale<BF16>(', 'lfgc::cell_of('),
     'fused_forward.cu': ('fetch_channels<IBF16>(', 'if (g.bf16) {'),
 }
 
@@ -293,16 +298,17 @@ def test_bf16_fetch_reads_the_float32_grid():
 
 
 # what each kernel source must show: the fetch sized by occupancy and
-# loading float4 lanes; the gradient one cooperative launch whose phases
-# meet at grid barriers, its gather a group of lanes a row of dG
+# loading float4 lanes; the gradient's box kernel opted into its shared
+# memory, its sorts ranking equal keys by __match_any_sync, its staging by
+# asynchronous copies, its gather a group of lanes a row of dG
 KERNEL_SOURCE_MARKS = {
     'grid_sample_fwd': ('#include "launch.cuh"',
                         'lfgc::occupancy(kernel_of(vec4, bf16, channels)',
                         'for (int c = K * sub; c < C; c += K * Lw)',
                         'const int64_t next = i + stride;'),
-    'grid_sample_bwd': ('#include "launch.cuh"', '#include <cooperative_groups.h>',
-                            'cudaLaunchCooperativeKernel(', 'lfgc::occupancy(kernel_of(bf16)',
-                            'grid.sync();', 'const int Lw = C < 32 ? C : 32, P = 32 / Lw;'),
+    'grid_sample_bwd': ('#include "launch.cuh"', 'lfgc::allow_smem(kernel_of(bf16 != 0)',
+                        '__match_any_sync(', '__pipeline_memcpy_async(',
+                        'const int Lw = (cb + K - 1) / K, P = 32 / Lw;'),
 }
 
 
@@ -310,8 +316,9 @@ KERNEL_SOURCE_MARKS = {
 def test_grid_sample_kernels_take_their_hopper_designs(kernel):
     """No nvcc here: check statically that each kernel source has its
     design, that every kernel it defines carries the name the profiler
-    reports are read by, and that the gradient is one cooperative launch,
-    sized in one place (plan_of) before it."""
+    reports are read by, and that the gradient is two ordinary launches (the
+    tiles, then the boxes, allowed to start early) with no grid barrier,
+    sized in one place (plan_of) before them."""
     with open(os.path.join(PORT, 'csrc', f'{kernel}.cu')) as f:
         src = f.read()
     for mark in KERNEL_SOURCE_MARKS[kernel]:
@@ -319,7 +326,8 @@ def test_grid_sample_kernels_take_their_hopper_designs(kernel):
     names = re.findall(r'__global__ void __launch_bounds__\([^)]*\)\n(\w+)\(', src)
     assert names and all(kernel in name for name in names), names
     if kernel == gs.BWD_KERNEL:
-        assert src.count('cudaLaunchCooperativeKernel(') == 1
+        assert 'cudaLaunchCooperativeKernel(' not in src and 'grid.sync()' not in src
+        assert src.count('<<<') == 1 and src.count('cudaLaunchKernelEx(') == 1
         assert src.count('plan_of(n, C, D, H, W, ') == 2   # the launch's and the report's
 
 
