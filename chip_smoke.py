@@ -88,11 +88,19 @@ in order:
                  both phases, bake, prune, evaluation and export; each
                  kernel of the path launched once a step (the fetch also
                  once an evaluation chunk), the loss falls, PSNR finite, the
-                 exported container restores; the device idle share of 50
-                 steps under torch.profiler.  Then train_mlp_pallas and
-                 train_fused: the same under each kernel backend, PSNR
-                 within 1 dB of train's, samples/s beside train's; and
-                 (phase train_bf16) train_bf16 and train_bf16_fused, the
+                 exported container restores.  The phases' steps are
+                 replays of the step's CUDA graph (solve_phase on a card),
+                 the launches counted a replay as the capture counted them.
+                 A chunk (draws, loads, steps, the one device read) under
+                 torch.profiler, graphed (200 steps) and then eager (50):
+                 ms and samples/s, the device idle share, device kernels a
+                 step (each kernel of the path as often as the step's
+                 graph has nodes of it; a trace that lost kernel records
+                 is set aside and the next chunk traced, up to 4 times)
+                 and host launch calls a step (graphed: at most 1.5).
+                 Then train_mlp_pallas and train_fused: the same under
+                 each kernel backend, PSNR within 1 dB of train's,
+                 samples/s beside train's; and (phase train_bf16) train_bf16 and train_bf16_fused, the
                  same under --compute_dtype bfloat16 (the 'bf16' fetch and
                  gradient, the bf16 MLP chain on cuBLAS), and with
                  --interp_backend fused (the one-kernel 'bf16' pair): each
@@ -114,6 +122,15 @@ in order:
                  phase 1's second chunk names the fetch and gradient
                  kernels); the TensorBoard writer the machine has, and with
                  one, train-3 phase-1 samples/s without and with it
+12b. graphs      each backend and each other gate family at the flagship's
+                 widths: 2 chunks of 50 phase-1 steps through solve_phase
+                 with the step's CUDA graph and with eager steps from the
+                 same state and generators, the losses and states bit for
+                 bit, the launch counts equal (each kernel once a step);
+                 the gradient kernel's two launches captured alone in a
+                 graph kept for inspection: its nodes and its edges' types
+                 through libcuda (a programmatic edge: the capture kept
+                 the box kernel's early launch), the replay bit for bit
  13. train_families  train_torch.py on each other gate family's published
                  config, cut to max_pass = 3, default backend: train_
                  straight_through (mhd_p_masked_st.txt with --drop_type
@@ -123,8 +140,8 @@ in order:
                  gradient once a step, the volume loss (MSE; the variational
                  loss carries the rising KL weight) falls in both phases,
                  PSNR finite, the container restores; PSNR, ratio, zeros and
-                 samples/s a phase; the dynamic family also the profile of 50
-                 steps
+                 samples/s a phase; the dynamic family also the profiles of
+                 a chunk, eager and graphed
  14. quant       the post-training quantization study (mock_quantization_study:
                  coefficients through int8 at scale 0.02, the MLP through
                  int32 at 1e-4) on train's model.npz over the 255^3 volume:
@@ -189,21 +206,26 @@ in order:
                  --interp_backend xla on that volume.  Each run: samples/s
                  per rank and summed, ms a step, a profiled 50 steps' share
                  in collectives, the bytes comm_volume_per_step predicts
-                 against the bytes the step moves
+                 against the bytes the step moves; mesh_windows also the
+                 library's times (F.grid_sample, its aten backward)
  18. step_rates  the flagship step time of each backend (the bf16 paths
-                 too) without the profiler, 5 rounds of 100 steps, the
-                 backends in turns
+                 too) and of dynamic variational, eager and graphed, without
+                 the profiler: 3 rounds of a 200-step chunk each, the paths
+                 and modes in turns; then each of those paths' train-3
+                 through train_torch.py with eager steps (solve_phase's
+                 graphs=False), its PSNR equal to the graphed run's
  19. kernels     one line {"kernels": [...]} for every ported kernel
 
 Every count of launches is set to 0 just before a path is driven and read
-just after it.  Every failure raises, so the script exits non-zero and
+just after it.  Each phase row carries ``at_s``, the seconds since the
+script started.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
 
 ``--only`` takes a comma-separated list of phases 2-18 (build, kernel,
 kernel_bwd, kernel_mlp, kernel_fused, kernel_bf16, checkpoint, binary,
-queries, queries_bf16, train, train_bf16, resume, train_families, quant,
-readers, native, nas, mesh, step_rates) and runs the device phase and
+queries, queries_bf16, train, train_bf16, resume, graphs, train_families,
+quant, readers, native, nas, mesh, step_rates) and runs the device phase and
 those, in the order above, with the same checks (train_bf16 and mesh
 without train compare no PSNR; resume, quant and native run train's default
 run first, whose experiment they read); the
@@ -214,6 +236,7 @@ neither (a quick loop on one kernel, never the smoke).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import math
@@ -333,15 +356,25 @@ SPIN_CYCLES_PER_MS = 2_000_000   # the SM clock is below 2 GHz
 FADD_CYCLES = 4                  # a dependent float add's latency on Hopper
 
 
+# the smoke's start on the host clock: each phase row carries its seconds
+# since (``at_s``), so a run's time can be split by phase
+STARTED = time.perf_counter()
+
+
 def emit(obj):
+    if 'phase' in obj:
+        obj = {**obj, 'at_s': time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
 def reset_counts():
-    """Every kernel wrapper's launch count to 0."""
+    """Every kernel wrapper's launch count to 0, and the trainer's count of
+    warm-up steps (taken on scratch states before a capture; their
+    launches are not counted)."""
     gs.launches = gs.bwd_launches = gs.bf16_launches = gs.bf16_bwd_launches = 0
     mf.launches = mf.bwd_launches = 0
     ff.launches = ff.bwd_launches = ff.bf16_launches = ff.bf16_bwd_launches = 0
+    tr.warmup_steps = 0
 
 
 def read_counts():
@@ -1264,14 +1297,40 @@ PROFILED_KERNELS = ('grid_sample_fwd_kernel',
                     'fused_fwd_kernel', 'fused_bwd_kernel', 'reduce_slots_kernel')
 
 
-def flagship_steps(suffix, steps, warmup=5, config=FLAGSHIP_CONFIG):
-    """A flagship phase-1 state of the gate family of ``config`` (smallify
-    by default) under the backend ``suffix`` of BACKENDS (a fresh model, and
-    variance model for the dynamic family; the step's work does not depend
-    on the values) after ``warmup`` steps, and a function that takes the
-    next step (with its gate noise, drawn beforehand as the trainer draws
-    it)."""
+# the steps of a chunk of the chunk runner's timings and profiles: the
+# flagship config's steps_per_chunk
+GRAPH_CHUNK = 200
+# host calls that launch device work: a kernel (the CUDA runtime's entries
+# and libcuda's) or a CUDA graph
+LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cudaLaunchKernelEx',
+                'cuLaunchKernel', 'cuLaunchKernelEx', 'cudaGraphLaunch', 'cuGraphLaunch')
+# at most this many host launch calls a graphed step, over a whole chunk
+# (its draws, loads and device read included)
+MAX_GRAPHED_LAUNCH_CALLS = 1.5
+# the steps of an eager profiled chunk: the profiler's events of an eager
+# step (its operators and their launches) take the host seconds to collect
+EAGER_PROFILE_STEPS = 50
+# traces of a mode's profiled chunk before a trace that lacks kernel
+# records of the step's graph fails the phase (``profile_modes``)
+PROFILE_ATTEMPTS = 4
+# the training paths timed with and without the step's CUDA graph: each
+# backend under smallify, and dynamic variational (the most launches)
+STEP_PATHS = {**{'train' + suffix: (suffix, FLAGSHIP_CONFIG) for suffix in BACKENDS},
+              'train_dynamic_variational': (
+                  '', os.path.join(CONFIGS, FAMILIES['dynamic_variational'][0]))}
+MODES = ('eager', 'graphed')
+
+
+def flagship_state(suffix, config=FLAGSHIP_CONFIG, vol=None, drop_type=None):
+    """A fresh flagship phase-1 state of the gate family of ``config``
+    (smallify by default; ``drop_type`` in its place where given, as
+    FAMILIES' straight-through) under the backend ``suffix`` of BACKENDS (a fresh
+    model, and variance model for the dynamic family; the step's work does
+    not depend on the values), at the config's published max_pass: (phase
+    spec, state, volume on the card: ``vol`` or a random 255^3 one)."""
     cfg = load_config(config)
+    if drop_type is not None:
+        cfg = dataclasses.replace(cfg, drop_type=drop_type)
     spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type,
                             drop_momentum=cfg.drop_momentum,
                             drop_threshold=cfg.drop_threshold), **BACKENDS[suffix][0])
@@ -1280,40 +1339,48 @@ def flagship_steps(suffix, steps, warmup=5, config=FLAGSHIP_CONFIG):
     variance = None
     if is_dynamic(spec.drop_type):
         variance = tuple([t.cuda() for t in ts] for ts in init_variance_model(gen))
-    vol = torch.rand((VOLUME_N,) * 3, device='cuda') * 2 - 1
-    ph = tr.make_phase_spec(cfg, spec, VolumeMeta((VOLUME_N,) * 3), phase=1)
+    if vol is None:
+        vol = torch.rand((VOLUME_N,) * 3, device='cuda') * 2 - 1
+    ph = tr.make_phase_spec(cfg, spec, VolumeMeta(tuple(vol.shape)), phase=1)
     st = tr.init_train_state(model, cfg.lr, cfg.lr, train_gates=True, variance=variance,
                              weight_dkl=cfg.lambda_drop_loss)
+    return ph, st, vol
+
+
+def flagship_chunks(suffix, graphs, config=FLAGSHIP_CONFIG, steps=GRAPH_CHUNK):
+    """solve_phase's chunk machinery (``trainer.ChunkRunner``) over a fresh
+    flagship phase-1 state (``flagship_state``), with the step's CUDA graph
+    or eager steps: a function that runs the next chunk of ``steps`` steps
+    (its positions and noise drawn from the phase's generators, then
+    ``ChunkRunner.chunk``: the loads, the steps, the one device read) and
+    returns its host seconds.  One chunk (kernel builds, warm-up and
+    capture) runs before it is returned."""
+    ph, st, vol = flagship_state(suffix, config)
     c = tr.PhaseConstants(ph, vol)
-    g = torch.Generator(device='cuda').manual_seed(SEED)
-    norm, gt = tr.chunk_inputs(c, tr.draw_positions(c, steps + warmup, ph.batch_n, g))
-    noise = tr.draw_noise(ph, steps + warmup, g, vol.device)
-    taken = iter(range(steps + warmup))
+    runner = tr.ChunkRunner(ph, st, c, ph.batch_n, steps, graphs=graphs)
+    gens = [torch.Generator(device='cuda').manual_seed(SEED + i) for i in range(2)]
 
-    def step():
-        i = next(taken)
-        tr.train_step(ph, st, c, norm[i], gt[i],
-                      noise=None if noise is None else [a[i] for a in noise])
-    for _ in range(warmup):
-        step()
-    torch.cuda.synchronize()
-    return step
+    def chunk():
+        t0 = time.perf_counter()
+        pos = tr.draw_positions(c, steps, ph.batch_n, gens[0])
+        runner.chunk(pos, tr.draw_noise(ph, steps, gens[1], vol.device))
+        return time.perf_counter() - t0
+    chunk()
+    return chunk
 
 
-def profile_train_steps(suffix='', steps=50, config=FLAGSHIP_CONFIG):
-    """Device busy and idle share of ``steps`` flagship phase-1 steps of the
-    family of ``config`` under the backend ``suffix`` of BACKENDS, host
-    clock around work that ends in a synchronise; each of PROFILED_KERNELS'
-    device time and launches a step."""
+def profile_train_steps(chunk, steps, graphs):
+    """One chunk of ``steps`` flagship phase-1 steps (``chunk``, from
+    ``flagship_chunks``: its draws, the steps, its device read) under
+    torch.profiler, with the step's CUDA graph or eager steps: the host
+    clock around the chunk (it ends in a device read), the device's busy
+    and idle share, device kernels a step, host calls that launch device
+    work (LAUNCH_CALLS) a step, and each of PROFILED_KERNELS' device time,
+    records and records a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step = flagship_steps(suffix, steps, config=config)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = chunk() * 1e3
     events = prof.key_averages()
     rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
                    for e in events if e.device_type == DeviceType.CUDA), reverse=True)
@@ -1321,44 +1388,154 @@ def profile_train_steps(suffix='', steps=50, config=FLAGSHIP_CONFIG):
     # the rest of the wall time is Python between them
     host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
                    for e in events if e.device_type == DeviceType.CPU), reverse=True)
+    launch_calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
     busy_ms = sum(r[0] for r in rows)
-    return {'steps': steps, 'wall_ms': wall_ms, 'ms_per_step': wall_ms / steps,
+    calls = {name: sum(r[2] for r in rows if name in r[1]) for name in PROFILED_KERNELS}
+    return {'steps': steps, 'graphs': graphs, 'wall_ms': wall_ms,
+            'ms_per_step': wall_ms / steps,
+            'samples_per_sec': steps * TRAIN_BATCH / (wall_ms / 1e3),
             'device_busy_ms': busy_ms,
             'device_idle_share': 1.0 - busy_ms / wall_ms if busy_ms else None,
+            'host_launch_calls_per_step': sum(launch_calls.values()) / steps,
+            'host_launch_calls': launch_calls,
             'host_op_ms': sum(r[0] for r in host),
             'top_host_ops': [{'ms': ms, 'name': k[:60], 'calls': n}
                              for ms, k, n in host[:10]],
             'kernel_launches_per_step': sum(r[2] for r in rows) / steps,
             'kernel_ms': {name: sum(r[0] for r in rows if name in r[1])
                           for name in PROFILED_KERNELS},
-            'kernel_calls_per_step': {name: sum(r[2] for r in rows if name in r[1]) / steps
-                                      for name in PROFILED_KERNELS},
+            'kernel_calls': calls,
+            'kernel_calls_per_step': {name: n / steps for name, n in calls.items()},
             'top_kernels': [{'ms': ms, 'name': k[:80], 'calls': n}
                             for ms, k, n in rows[:10]]}
 
 
-def phase_step_rates(rounds=5, steps=100):
-    """Steady flagship phase-1 step time of each backend, without the
-    profiler: host clock around ``steps`` steps that end in a synchronise,
-    the backends in turns and the order reversed every other round, so that
-    a drift of the shared host falls on all of them alike."""
-    order = list(BACKENDS)
-    runs = {suffix: flagship_steps(suffix, rounds * steps) for suffix in order}
-    ms = {suffix: [] for suffix in order}
-    for r in range(rounds):
-        for suffix in (order if r % 2 == 0 else order[::-1]):
+def profile_modes(suffix='', config=FLAGSHIP_CONFIG):
+    """The flagship phase-1 step of the family of ``config`` under the
+    backend ``suffix`` of BACKENDS, profiled (``profile_train_steps``)
+    graphed (a whole chunk, GRAPH_CHUNK), then eager (a chunk of
+    EAGER_PROFILE_STEPS).  The step's graph, captured for the graphed
+    chunks by trainer.capture_graph and kept for inspection
+    (``CUDAGraph(keep_graph=True)``), gives each of PROFILED_KERNELS'
+    launches a step: its kernel nodes (``graph_kernel_names``; a replay
+    runs each node once).  The profiler now and then loses kernel records
+    of a graphed chunk (on an H100 under torch 2.11, a smoke run's trace
+    once held the fetch kernel 0.87 times a step): a trace whose records of PROFILED_KERNELS are not the step's nodes
+    times its steps is set aside, with each kernel's records missing under
+    'incomplete_traces', and the next chunk is profiled in its place, up to
+    PROFILE_ATTEMPTS traces a mode.  The kept trace of each mode has each
+    of PROFILED_KERNELS a step as often as the graph has nodes of it, and
+    the graphed one at most MAX_GRAPHED_LAUNCH_CALLS host launch calls a
+    step."""
+    graphs = []
+    real = torch.cuda.CUDAGraph
+
+    def kept():
+        graphs.append(real(keep_graph=True))
+        return graphs[-1]
+    with mock.patch.object(torch.cuda, 'CUDAGraph', kept):
+        chunks = {'graphed': flagship_chunks(suffix, True, config, GRAPH_CHUNK)}
+    check(len(graphs) == 1, f'{len(graphs)} graphs captured for one phase')
+    nodes = graph_kernel_names(graphs[0])
+    per_step = {name: sum(n for k, n in nodes.items() if name in k)
+                for name in PROFILED_KERNELS}
+    chunks['eager'] = flagship_chunks(suffix, False, config, EAGER_PROFILE_STEPS)
+    out = {}
+    for mode, steps in (('graphed', GRAPH_CHUNK), ('eager', EAGER_PROFILE_STEPS)):
+        lost = []
+        for _ in range(PROFILE_ATTEMPTS):
+            prof = profile_train_steps(chunks[mode], steps, mode == 'graphed')
+            missing = {name: per_step[name] * steps - prof['kernel_calls'][name]
+                       for name in PROFILED_KERNELS}
+            if not any(missing.values()):
+                break
+            lost.append({name: n for name, n in missing.items() if n})
+        prof['incomplete_traces'] = lost
+        out[mode] = prof
+        check(not any(missing.values()),
+              f'{mode}: every one of {PROFILE_ATTEMPTS} traces lacked kernels of the '
+              f"step's graph {per_step}: {lost}")
+    out['graph_nodes'] = {'kernel': sum(n for k, n in nodes.items() if not k.startswith('<')),
+                          **{k: n for k, n in nodes.items() if k.startswith('<')},
+                          'profiled_kernels': per_step}
+    calls = out['graphed']['host_launch_calls_per_step']
+    check(calls <= MAX_GRAPHED_LAUNCH_CALLS,
+          f'{calls} host launch calls a graphed step ({out["graphed"]["host_launch_calls"]})')
+    for name in PROFILED_KERNELS:
+        got = [out[mode]['kernel_calls_per_step'][name] for mode in MODES]
+        check(got[0] == got[1] == per_step[name],
+              f"{name} a step eager and graphed: {got}, the step's graph {per_step[name]}")
+    return out
+
+
+def run_train3(tmp, vol_path, path, graphs):
+    """train_torch.py at max_pass 3 on ``path`` of STEP_PATHS, its phases
+    with or without the step's CUDA graph (solve_phase's keyword, which the
+    CLI does not take): (info, seconds of the call)."""
+    import functools
+    import train_torch
+    from latent_feature_grid_compression_tpu_torch.train import run as run_mod
+    suffix, config = STEP_PATHS[path]
+    flags = BACKENDS[suffix][1] + (FAMILIES['dynamic_variational'][1]
+                                   if config != FLAGSHIP_CONFIG else [])
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        with mock.patch.object(run_mod, 'solve_phase',
+                               functools.partial(tr.solve_phase, graphs=graphs)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(steps):
-                runs[suffix]()
+            info = train_torch.main(['--config', config, '--data', vol_path,
+                                     '--max_pass', str(TRAIN_MAX_PASS), '--basedir', '/',
+                                     '--expname', path + '_turns', *flags])
             torch.cuda.synchronize()
-            ms[suffix].append((time.perf_counter() - t0) * 1e3 / steps)
-    row = {'phase': 'step_rates', 'rounds': rounds, 'steps': steps,
-           'batch': TRAIN_BATCH, 'ms_per_step': {}, 'median_samples_per_sec': {}}
-    for suffix in order:
-        name = 'train' + suffix
-        row['ms_per_step'][name] = ms[suffix]
-        row['median_samples_per_sec'][name] = TRAIN_BATCH / (statistics.median(ms[suffix]) / 1e3)
+            seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(os.path.join(tmp, path + '_turns'))
+    return info, seconds
+
+
+def phase_step_rates(rounds=3, steps=GRAPH_CHUNK, modes=MODES, tmp=None, vol_path=None,
+                     trained=None):
+    """Steady flagship phase-1 step time of every path of STEP_PATHS with
+    the step's CUDA graph and with eager steps, without the profiler: host
+    clock around chunks of ``steps`` steps (``flagship_chunks``: the draws,
+    the loads, the steps, the one device read), the paths and modes in
+    turns and the order reversed every other round, so that a drift of the
+    shared host falls on all of them alike.  With ``tmp``: each path's
+    train-3 through train_torch.py with eager steps, against ``trained``
+    (path: the info of its graphed run in this call): the PSNR equal to
+    every digit (the steps are bit for bit), and both calls' seconds."""
+    order = [(path, mode) for path in STEP_PATHS for mode in modes]
+    runs = {(path, mode): flagship_chunks(STEP_PATHS[path][0], mode == 'graphed',
+                                          STEP_PATHS[path][1], steps)
+            for path, mode in order}
+    ms = {key: [] for key in order}
+    for r in range(rounds):
+        for key in (order if r % 2 == 0 else order[::-1]):
+            ms[key].append(runs[key]() * 1e3 / steps)
+    del runs
+    row = {'phase': 'step_rates', 'rounds': rounds, 'steps': steps, 'batch': TRAIN_BATCH,
+           'ms_per_step': {}, 'median_samples_per_sec': {}}
+    for (path, mode), v in ms.items():
+        row['ms_per_step'][f'{path}_{mode}'] = v
+        row['median_samples_per_sec'][f'{path}_{mode}'] = \
+            TRAIN_BATCH / (statistics.median(v) / 1e3)
+    if tmp is not None:
+        row['train3'] = {}
+        for path in STEP_PATHS:
+            info, seconds = run_train3(tmp, vol_path, path, graphs=False)
+            graphed = (trained or {}).get(path)
+            if graphed is not None:
+                check(info['psnr'] == graphed['psnr'],
+                      f"{path}: train-3 PSNR eager {info['psnr']}, graphed {graphed['psnr']}")
+            row['train3'][path] = {
+                'eager_cli_s': seconds, 'eager_psnr': info['psnr'],
+                'eager_phase_s': [info[f'train_phase{p}_seconds'] for p in (1, 2)],
+                **({} if graphed is None else {
+                    'graphed_cli_s': graphed['train_cli_s'], 'graphed_psnr': graphed['psnr'],
+                    'graphed_phase_s': [graphed[f'train_phase{p}_seconds'] for p in (1, 2)]})}
     emit(row)
     return row
 
@@ -1388,6 +1565,7 @@ def phase_train(tmp, vol_path, suffix='', default=None, family=None, keep=False)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         counts = read_counts()
+        warmup_steps = tr.warmup_steps
     finally:
         os.chdir(cwd)
     exp = os.path.join(tmp, path)
@@ -1438,13 +1616,16 @@ def phase_train(tmp, vol_path, suffix='', default=None, family=None, keep=False)
         check(name in files, f'{path} did not write {name}')
     if not keep:
         shutil.rmtree(exp)
+    info['train_cli_s'] = train_s
     prof = None
     if family is None or family == 'dynamic_variational':
-        prof = profile_train_steps(suffix, config=config)
+        prof = profile_modes(suffix, config)
     if suffix == '_bf16':
         # the 'bf16' fetch reads the float32 grid: one kernel a step, no cast
-        calls = prof['kernel_calls_per_step']['grid_sample_fwd_kernel']
-        check(calls == 1.0, f'{path}: the fetch kernel ran {calls} times a profiled step')
+        for mode in MODES:
+            calls = prof[mode]['kernel_calls_per_step']['grid_sample_fwd_kernel']
+            check(calls == 1.0,
+                  f'{path}: the fetch kernel ran {calls} times a profiled {mode} step')
 
     def rates(i):
         return {ph: i[f'train_phase{ph}_samples_per_sec'] for ph in (1, 2)}
@@ -1461,11 +1642,12 @@ def phase_train(tmp, vol_path, suffix='', default=None, family=None, keep=False)
           'default_steady_samples_per_sec': (None if default is None
                                              else default.get('train_samples_per_sec')),
           'train_cli_s': train_s, 'launches': counts,
+          'warmup_steps_not_counted': warmup_steps,
           'psnr': info['psnr'], 'default_psnr': None if default is None else default['psnr'],
           'compression_ratio': info['compression_ratio'],
           'num_zeros': info['num_zeros'], 'num_parameters': info['num_parameters'],
           'psnr_binary_restored': psnr_binary, 'files': files,
-          'profile_50_steps': prof})
+          'profile_chunk': prof})
     return info, counts
 
 
@@ -1577,6 +1759,147 @@ def state_round_trip(config, vol_dev, tmp):
             'continued_first_loss_equal': bool(l_live[0] == l_loaded[0]),
             'continued_losses_equal': True, 'continued_states_equal': True,
             'continued_max_rel_loss_diff': float(rel_diff.max())}
+
+
+# the paths the graphs phase runs with and without the step's CUDA graph:
+# every backend under smallify, and every other gate family (backend,
+# config, drop_type in the config's place)
+GRAPH_PATHS = {**{'train' + suffix: (suffix, FLAGSHIP_CONFIG, None) for suffix in BACKENDS},
+               **{'train_' + family: ('', os.path.join(CONFIGS, config),
+                                      flags[1] if flags else None)
+                  for family, (config, flags) in FAMILIES.items()}}
+# CUgraphNodeType and CUgraphDependencyType (cuda.h)
+NODE_TYPES = {0: 'kernel', 1: 'memcpy', 2: 'memset', 3: 'host', 4: 'graph', 5: 'empty'}
+EDGE_TYPES = {0: 'default', 1: 'programmatic'}
+
+
+def graph_nodes(graph):
+    """libcuda, and the nodes of a CUDA graph kept for inspection
+    (``CUDAGraph(keep_graph=True)``) with their types (cuGraphGetNodes,
+    cuGraphNodeGetType): (libcuda, graph handle, [(node, type)])."""
+    import ctypes
+    cu = ctypes.CDLL('libcuda.so.1')
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0, 'cuGraphGetNodes')
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0, 'cuGraphGetNodes')
+    typed = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              'cuGraphNodeGetType')
+        typed.append((ctypes.c_void_p(node), kind.value))
+    return cu, handle, typed
+
+
+def graph_kernel_names(graph):
+    """The nodes of a CUDA graph kept for inspection, counted by name: each
+    kernel node by its function's (mangled) name (cuGraphKernelNodeGetParams,
+    then cuFuncGetName, or cuKernelGetName where the node holds a library
+    kernel), each other node as '<type>' (NODE_TYPES)."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [('func', ctypes.c_void_p),
+                    *[(f, ctypes.c_uint) for f in ('gx', 'gy', 'gz', 'bx', 'by', 'bz',
+                                                   'shared_bytes')],
+                    ('params', ctypes.c_void_p), ('extra', ctypes.c_void_p),
+                    ('kern', ctypes.c_void_p), ('ctx', ctypes.c_void_p)]
+    cu, _, nodes = graph_nodes(graph)
+    names = {}
+    for node, kind in nodes:
+        key = f'<{NODE_TYPES.get(kind, kind)}>'
+        if kind == 0:
+            p = KernelNodeParams()
+            check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)) == 0,
+                  'cuGraphKernelNodeGetParams')
+            name = ctypes.c_char_p()
+            got = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)) if p.func
+                   else cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)))
+            check(got == 0 and bool(name.value), 'a kernel node without a name')
+            key = name.value.decode()
+        names[key] = names.get(key, 0) + 1
+    return names
+
+
+def gradient_graph_edges():
+    """The gradient kernel's call at one train step's shape (flagship grid,
+    trainer positions) captured alone in a CUDA graph kept for inspection
+    (``CUDAGraph(keep_graph=True)``), its nodes and edges read through
+    libcuda (``graph_nodes``, cuGraphGetEdges_v2): each edge's type
+    (programmatic: the capture kept the box kernel's early launch,
+    ``cudaLaunchAttributeProgrammaticStreamSerialization``; default: it
+    made an ordinary dependency of it) and ports; the replay's dG bit for
+    bit the eager call's."""
+    import ctypes
+    g = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    coords = trainer_positions(TRAIN_BATCH, g)
+    grad = torch.randn((TRAIN_BATCH, 16), device='cuda', generator=g)
+    want = gs.grid_sample_channel_minor_backward_cuda(grad, coords, 15, 15, 15)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        got = gs.grid_sample_channel_minor_backward_cuda(grad, coords, 15, 15, 15)
+    cu, handle, nodes = graph_nodes(graph)
+    kinds = [NODE_TYPES.get(kind, kind) for _, kind in nodes]
+
+    class EdgeData(ctypes.Structure):
+        _fields_ = [('from_port', ctypes.c_ubyte), ('to_port', ctypes.c_ubyte),
+                    ('type', ctypes.c_ubyte), ('reserved', ctypes.c_ubyte * 5)]
+    edges = ctypes.c_size_t(0)
+    check(cu.cuGraphGetEdges_v2(handle, None, None, None, ctypes.byref(edges)) == 0,
+          'cuGraphGetEdges_v2')
+    src, dst = (ctypes.c_void_p * edges.value)(), (ctypes.c_void_p * edges.value)()
+    data = (EdgeData * edges.value)()
+    check(cu.cuGraphGetEdges_v2(handle, src, dst, data, ctypes.byref(edges)) == 0,
+          'cuGraphGetEdges_v2')
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "the captured gradient's replay differs from the eager call")
+    return {'nodes': kinds,
+            'edges': [{'type': EDGE_TYPES.get(d.type, d.type), 'from_port': d.from_port,
+                       'to_port': d.to_port} for d in data],
+            'replay_equal_to_eager': True}
+
+
+def phase_graphs(vol_path):
+    """Each path of GRAPH_PATHS at the flagship's widths on the 255^3
+    volume: 2 chunks of RESUME_CHUNK phase-1 steps through solve_phase with
+    the step's CUDA graph and with eager steps, from the same state and
+    generators: the losses, the steps and every tensor of the states bit
+    for bit, the launch counts equal and each kernel of the path once a
+    step (a replay counts the launches its capture counted); each mode's
+    seconds (the graphed ones with the warm-up and the capture).  Then the
+    gradient kernel captured alone (``gradient_graph_edges``)."""
+    vol_dev = torch.from_numpy(load_volume(vol_path)).cuda()
+    paths = {}
+    for path, (suffix, config, drop_type) in GRAPH_PATHS.items():
+        got = {}
+        for mode in MODES:
+            ph, st, vol = flagship_state(suffix, config, vol_dev, drop_type)
+            gens = tuple(torch.Generator(device='cuda').manual_seed(SEED + i)
+                         for i in range(2))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, _, _ = run_chunks(ph, st, vol, gens, 2, graphs=mode == 'graphed')
+            torch.cuda.synchronize()
+            got[mode] = (losses, st, read_counts(), time.perf_counter() - t0)
+        (l0, s0, c0, sec0), (l1, s1, c1, sec1) = got['eager'], got['graphed']
+        check(s0.step == s1.step == 2 * RESUME_CHUNK and np.array_equal(l0, l1),
+              f'{path}: graphed losses differ from eager ones '
+              f'(steps {s0.step}, {s1.step}; {np.abs(l1 - l0).max()})')
+        unequal = [name for name in TENSOR_FIELDS
+                   if not same_draws(getattr(s0, name), getattr(s1, name))]
+        check(not unequal, f'{path}: the graphed state differs from the eager one in {unequal}')
+        check(c0 == c1 and {v for v in c1.values() if v} == {s1.step},
+              f'{path}: launches eager {c0}, graphed {c1}, {s1.step} steps')
+        paths[path] = {'steps': s1.step, 'launches': c1, 'eager_s': sec0, 'graphed_s': sec1,
+                       'losses_equal': True, 'states_equal': True}
+    row = {'phase': 'graphs', 'chunk': RESUME_CHUNK, 'paths': paths,
+           'gradient_graph': gradient_graph_edges()}
+    emit(row)
+    return row
 
 
 def writer_kind():
@@ -2358,6 +2681,16 @@ def mesh_windows():
                    dout, coords, D, H, W)),
                'grad_plain_ms': time_ms(lambda: grid_sample_channel_minor_backward(
                    dout, coords, D, H, W))}
+        # the library calls on the same inputs: F.grid_sample on the
+        # channel-major grid, and aten's backward of it (the input's
+        # gradient only)
+        feats = grid.permute(3, 0, 1, 2).contiguous()[None]
+        grid5 = coords.view(1, n, 1, 1, 3)
+        grad_out = dout.t().reshape(1, C, n, 1, 1).contiguous()
+        row['fetch_library_ms'] = time_ms(lambda: F.grid_sample(
+            feats, grid5, mode='bilinear', padding_mode='zeros', align_corners=False))
+        row['grad_library_ms'] = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+            grad_out, feats, grid5, 0, 0, False, [True, False]))
         row['fetch_bound_ms'], row['fetch_bound_by'] = fetch_bound_ms(n, C, D, H, W)
         row['grad_bound_ms'], row['grad_bound_by'] = grad_bound_ms(n, C, D, H, W)
         rows.append(row)
@@ -2527,7 +2860,7 @@ def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
 
 PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'kernel_bf16',
           'checkpoint', 'binary', 'queries', 'queries_bf16', 'train', 'train_bf16',
-          'resume', 'train_families', 'quant', 'readers', 'native', 'nas', 'mesh',
+          'resume', 'graphs', 'train_families', 'quant', 'readers', 'native', 'nas', 'mesh',
           'step_rates')
 # run only when --only names them
 ON_REQUEST = ('nccl_probe',)
@@ -2587,8 +2920,9 @@ def main(argv=None):
     try:
         vol_path = os.path.join(tmp, 'mhd_like.npy')
         if want('checkpoint') or want('train') or want('train_bf16') or \
-                want('resume') or want('train_families') or want('quant') or \
-                want('readers') or want('native') or want('nas') or want('mesh'):
+                want('resume') or want('graphs') or want('train_families') or \
+                want('quant') or want('readers') or want('native') or want('nas') or \
+                want('mesh') or want('step_rates'):
             np.save(vol_path, synth_volume(VOLUME_N, seed=1, octaves=6))
         if want('checkpoint'):
             _, model, path_counts['decompress'] = phase_checkpoint(tmp, vol_path)
@@ -2600,23 +2934,27 @@ def main(argv=None):
                 for suffix in suffixes:
                     path_counts['queries' + suffix] = phase_queries(model, suffix)
         default = None
+        trained = {}   # each train-3 path's info (graphed steps)
         if want('train') or want('resume') or want('quant') or want('native'):
             default, path_counts['train'] = phase_train(
                 tmp, vol_path, keep=want('resume') or want('quant') or want('native'))
+            trained['train'] = default
         if want('train'):
             for suffix in ('_mlp_pallas', '_fused'):
-                _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
-                                                               default)
+                trained['train' + suffix], path_counts['train' + suffix] = phase_train(
+                    tmp, vol_path, suffix, default)
         if want('train_bf16'):
             for suffix in BF16_BACKENDS:
-                _, path_counts['train' + suffix] = phase_train(tmp, vol_path, suffix,
-                                                               default)
+                trained['train' + suffix], path_counts['train' + suffix] = phase_train(
+                    tmp, vol_path, suffix, default)
         if want('resume'):
             phase_resume(tmp, vol_path, default)
+        if want('graphs'):
+            phase_graphs(vol_path)
         if want('train_families'):
             for family in FAMILIES:
-                _, path_counts['train_' + family] = phase_train(tmp, vol_path,
-                                                                family=family)
+                trained['train_' + family], path_counts['train_' + family] = phase_train(
+                    tmp, vol_path, family=family)
         if want('quant'):
             path_counts['quant'] = phase_quant(tmp, vol_path, default)
         if want('readers'):
@@ -2629,10 +2967,10 @@ def main(argv=None):
             path_counts['mesh'], windows = phase_mesh(tmp, vol_path, default)
         if args.only is not None and 'nccl_probe' in args.only:
             phase_nccl_probe(tmp)
+        if want('step_rates'):
+            phase_step_rates(tmp=tmp, vol_path=vol_path, trained=trained)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if want('step_rates'):
-        phase_step_rates()
     if args.only is not None:
         return 0   # a partial run: no kernels line, no result
 
@@ -2682,6 +3020,7 @@ def main(argv=None):
                      trainer_c22_grid17={**numbers(trainer_c22), 'n': trainer_c22['n']},
                      mesh_window=[{k: w[k] for k in ('space_index', 'window', 'grid', 'n',
                                                      'fetch_ms', 'fetch_plain_ms',
+                                                     'fetch_library_ms',
                                                      'fetch_bound_ms', 'fetch_max_abs_err')}
                                   for w in windows]),
         kernel_entry(gs.BWD_KERNEL, 'grid_sample_bwd.cu', 'pallas_kernels.py:142',
@@ -2700,7 +3039,7 @@ def main(argv=None):
                                          'plan': bwd_c22['plan']},
                      mesh_window=[{k: w[k] for k in ('space_index', 'window', 'grid', 'n',
                                                      'grad_ms', 'grad_plain_ms',
-                                                     'grad_bound_ms',
+                                                     'grad_library_ms', 'grad_bound_ms',
                                                      'grad_max_abs_err_relative')}
                                   for w in windows]),
         kernel_entry('mlp_fused_fwd', 'mlp_fused.cu', 'mlp_pallas.py:103', None,

@@ -25,13 +25,25 @@ device): boundaries, the Neurcomp lr decay, and both budget stop rules are
 known to the host before it launches a step, and it launches no step after
 such a stop.  lr, shadow lr and the SmallifyDecayStrategy's plateau state
 live on the device; that strategy's stop flag (the only stop that depends on
-the data) is read once per ``steps_per_chunk`` steps, and the steps launched
-after a boundary step in the same chunk are guarded so that a stopped step
-changes nothing, as the JAX trainer's idle branch.  Positions for a chunk
-are drawn at once from an explicit ``torch.Generator`` on the device, or
-taken from an iterator of (N, 3) integer arrays (the tests replay the JAX
+the data) is read once per ``steps_per_chunk`` steps, and a step launched
+after it changes nothing, as the JAX trainer's idle branch.  Positions for a
+chunk are drawn at once from an explicit ``torch.Generator`` on the device,
+or taken from an iterator of (N, 3) integer arrays (the tests replay the JAX
 trainer's stream that way); the gate noise likewise, one draw a level from a
 generator of its own, or from an iterator of per-level lists.
+
+The chunk runner (``ChunkRunner``, the counterpart of the JAX trainer's
+``_scan_chunk`` and ``make_chunk_runner``): a chunk's draws go into static
+buffers, and each step is the same launches on the same addresses: its row
+of the buffers and its per-step constants (bias corrections, boundary flag,
+Neurcomp factor: ``PhaseConstants.steps``) are selected by a step counter
+on the device, every update of the state is written in place and guarded
+by the stop flag (as JAX's ``lax.cond(state.stop, idle, step)``), the lr
+strategy runs at every step where its boundary flag says (as JAX's
+``where(boundary, ...)``), and the losses go into per-chunk buffers at the
+step's row.  On a card without a mesh the step is captured once a phase as
+a CUDA graph and each step is one replay; on the CPU and on a mesh the same
+step runs eagerly.
 
 Reference quirk kept: in phase 2 the lr strategy's decays reach only the
 shadow lr (the reference's strategy still points at the phase-1 optimizer),
@@ -70,11 +82,12 @@ import torch
 
 from ..config import TrainConfig
 from ..data.volume import VolumeMeta
-from ..io.train_state_io import atomic_save_train_state
+from ..io.train_state_io import TENSOR_FIELDS, atomic_save_train_state
 from ..models import gates as G
 from ..models.feature_grid import (FeatureGridModel, ModelSpec, Params, apply_model,
                                    check_local_decode, coeff_shapes)
 from ..models.variance import apply_variance_model
+from ..ops import launch_counts
 from ..utils.profiling import trace
 from . import losses as L
 from ..parallel import mesh as pm
@@ -84,6 +97,13 @@ _F32 = np.float32
 # the least seconds between two mid-phase saves of the state (a save copies
 # the whole state to the host), as the JAX trainer
 SAVE_EVERY_S = 60.0
+# steps taken on a scratch copy of the state before a capture, so that
+# PyTorch's lazy initialisation (autograd, cuBLAS, the kernels' libraries)
+# happens outside it
+WARMUP_STEPS = 3
+# warm-up steps taken since the last reset; their launches are not counted
+# (the wrappers' counts are set back after them): they are no step of a phase
+warmup_steps = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +152,20 @@ class PhaseSpec:
         prior = np.floor(_F32(t - 1) * n * inv)
         cur = np.floor(_F32(t) * n * inv)
         return float(cur), bool(prior != cur)
+
+    def step_flags(self) -> Tuple[np.ndarray, np.ndarray]:
+        """For t = 1 .. t_max + 1: whether step t crosses a pass boundary
+        (``passes``), and the factor the Neurcomp strategy multiplies the
+        lrs by after it (lr_decay in float32 where it decays, else 1)."""
+        t = np.arange(1, self.t_max + 2)
+        n, inv = _F32(self.batch_n), _F32(1.0 / float(self.n_voxels))
+        prior = np.floor((t - 1).astype(_F32) * n * inv)
+        cur = np.floor(t.astype(_F32) * n * inv)
+        boundary = prior != cur
+        decay = boundary & ((cur.astype(np.float64) + 1) % self.pass_decay == 0)
+        if self.use_smallify_decay:
+            decay[:] = False
+        return boundary, np.where(decay, _F32(self.lr_decay), _F32(1.0)).astype(_F32)
 
     def budget_stop(self, t: int, cur: float) -> bool:
         """The two budget stop rules after step t: the per-step break once
@@ -320,7 +354,9 @@ class PhaseConstants:
     volume (the rank's x-slab under a space axis: ``x_offset`` is its first
     slice, ``draw_res`` the extent positions are drawn in), and 1 - b**t
     for every step of the phase (so that step t's bias corrections are
-    views, not launches)."""
+    views, not launches).  ``steps``: row t - 1 holds step t's (1 - b1**t,
+    1 - b2**t, boundary flag, Neurcomp factor) (``PhaseSpec.step_flags``),
+    which the chunk runner's step selects on the device."""
 
     def __init__(self, ph: PhaseSpec, volume: torch.Tensor, x_offset: int = 0):
         dev = volume.device
@@ -337,6 +373,10 @@ class PhaseConstants:
         ts = torch.arange(1, ph.t_max + 2, dtype=torch.float32, device=dev)
         self.bc1 = 1.0 - 0.9 ** ts
         self.bc2 = 1.0 - 0.999 ** ts
+        boundary, factor = ph.step_flags()
+        self.steps = torch.stack([self.bc1, self.bc2,
+                                  torch.from_numpy(boundary.astype(_F32)).to(dev),
+                                  torch.from_numpy(factor).to(dev)], dim=1)
 
 
 def chunk_inputs(c: PhaseConstants, pos: torch.Tensor):
@@ -446,20 +486,45 @@ def _mesh_mean(sc: ShardCtx, zc: Optional[ZeroCtx], g: torch.Tensor,
     return local[:size], local[size:]
 
 
+def _put(old: torch.Tensor, new: torch.Tensor, hold: Optional[torch.Tensor]):
+    """``new`` written into ``old`` in place, except where ``hold`` is set
+    (None: everywhere)."""
+    if new is old:
+        return
+    if hold is None:
+        old.copy_(new)
+    else:
+        torch.where(hold, old, new, out=old)
+
+
 def train_step(ph: PhaseSpec, st: TrainState, c: PhaseConstants,
                norm: torch.Tensor, gt: torch.Tensor, masks=None,
                guard: bool = False, noise=None, terms: Optional[dict] = None,
                sc: Optional[ShardCtx] = None, zc: Optional[ZeroCtx] = None,
-               x_window: Optional[Tuple[int, int]] = None):
-    """One step in place on ``st``; returns (loss, volume loss) on the
-    device.  ``guard``: the stop flag may be set, so every update is taken
-    only where it is not (a stopped step changes nothing).  ``noise``: the
-    step's per-level gate noise.  ``terms``: receives the loss's other
-    terms (``loss_and_grad``).  ``sc``: the mesh (the gradient, the loss
-    and its terms averaged over it); ``zc``: ``st`` holds this rank's
-    slices of the ZeRO-sharded vectors; ``x_window``: the tile-local
-    decode's window."""
+               x_window: Optional[Tuple[int, int]] = None,
+               at: Optional[torch.Tensor] = None):
+    """One step in place on ``st`` (every state tensor is written in place);
+    returns (loss, volume loss) on the device.  ``guard``: the stop flag may
+    be set, so every update is taken only where it is not (a stopped step
+    changes nothing).  ``noise``: the step's per-level gate noise.
+    ``terms``: receives the loss's other terms (``loss_and_grad``).  ``sc``:
+    the mesh (the gradient, the loss and its terms averaged over it); ``zc``:
+    ``st`` holds this rank's slices of the ZeRO-sharded vectors;
+    ``x_window``: the tile-local decode's window.
+
+    ``at``: the chunk runner's form, which launches the same operators on
+    the same addresses at every step: a 1-element int64 tensor on the
+    device holding t - 1 for this step's t.  Step t's row of ``c.steps``
+    (bias corrections, boundary flag, Neurcomp factor) is selected at it,
+    every update is guarded, the lr strategy runs where the boundary flag
+    says, and ``st.step`` is left to the caller.  Without it the host reads
+    those from ``st.step``, runs the strategy at a boundary only, and
+    advances ``st.step``."""
     t = st.step + 1
+    if at is None:
+        bc1, bc2 = c.bc1[t - 1], c.bc2[t - 1]
+    else:
+        bc1, bc2, boundary, factor = c.steps.index_select(0, at)[0].unbind()
     weight_dkl = None
     if ph.variational:
         # the KL weight is ramped before the loss that uses it
@@ -476,8 +541,7 @@ def train_step(ph: PhaseSpec, st: TrainState, c: PhaseConstants,
         loss, vol_loss = scalars[0], scalars[1]
         if named:
             terms.update(zip(named, scalars[2:]))
-    flat, m, v = adam_update(st.flat, g, st.m, st.v, st.lr, c.bc1[t - 1],
-                             c.bc2[t - 1])
+    flat, m, v = adam_update(st.flat, g, st.m, st.v, st.lr, bc1, bc2)
     ema = ema_var = None
     if ph.drop_type == 'smallify':
         # fed with the pre-update betas (of the gathered vector under ZeRO)
@@ -486,28 +550,34 @@ def train_step(ph: PhaseSpec, st: TrainState, c: PhaseConstants,
         ema = st.ema + mom * phi
         ema_var = (1.0 - mom) * (st.ema_var + mom * phi * phi)
 
-    def take(old, new):
-        return torch.where(st.stop, old, new) if guard else new
+    hold = st.stop if guard or at is not None else None
+    for old, new in ((st.flat, flat), (st.m, m), (st.v, v), (st.ema, ema),
+                     (st.ema_var, ema_var), (st.weight_dkl, weight_dkl)):
+        if new is not None:
+            _put(old, new, hold)
 
-    st.flat, st.m, st.v = take(st.flat, flat), take(st.m, m), take(st.v, v)
-    if ema is not None:
-        st.ema, st.ema_var = take(st.ema, ema), take(st.ema_var, ema_var)
-    if weight_dkl is not None:
-        st.weight_dkl = take(st.weight_dkl, weight_dkl)
-
-    cur, boundary = ph.passes(t)
-    if boundary:
-        _strategy(ph, st, loss, cur, t, take)
-    st.step = t
+    if at is None:
+        cur, crossed = ph.passes(t)
+        if crossed:
+            decays = not ph.use_smallify_decay and (cur + 1) % ph.pass_decay == 0
+            _strategy(ph, st, loss, t, hold, ph.lr_decay if decays else None)
+        st.step = t
+    elif ph.use_smallify_decay:
+        _strategy(ph, st, loss, at[0] + 1, hold | (boundary == 0.0), None)
+    else:
+        _strategy(ph, st, loss, None, None, factor)
     return loss, vol_loss
 
 
-def _strategy(ph: PhaseSpec, st: TrainState, loss: torch.Tensor, cur: float,
-              t: int, take: Callable):
-    """The lr strategy at a pass boundary."""
+def _strategy(ph: PhaseSpec, st: TrainState, loss: torch.Tensor, t, hold, factor):
+    """The lr strategy after step t (an int, or a 0-dim tensor on the
+    device), its state written in place.  SmallifyDecayStrategy: taken
+    except where ``hold`` (a 0-dim bool tensor, or None) is set.
+    NeurcompDecayStrategy: the lrs multiplied by ``factor`` (None: no
+    decay; it has no stop to hold for)."""
     if ph.use_smallify_decay:
-        # SmallifyDecayStrategy: decay after pass_decay boundaries without a
-        # new best loss; stop once the shadow lr is at lr_stop
+        # decay after pass_decay boundaries without a new best loss; stop
+        # once the shadow lr is at lr_stop
         improved = loss < st.last_loss
         new_last = torch.where(improved, loss, st.last_loss)
         new_no_gain = torch.where(improved, 0, st.no_gain + 1).to(torch.int32)
@@ -520,15 +590,167 @@ def _strategy(ph: PhaseSpec, st: TrainState, loss: torch.Tensor, cur: float,
               if ph.decay_applies_to_lr else st.lr)
         new_no_gain = torch.where(plateau, 0, new_no_gain).to(torch.int32)
         stop = st.stop | stop_now
-        st.stop_step = take(st.stop_step, torch.where(stop_now, t, st.stop_step))
-        st.last_loss, st.no_gain = take(st.last_loss, new_last), take(st.no_gain, new_no_gain)
-        st.lr, st.shadow_lr = take(st.lr, lr), take(st.shadow_lr, shadow)
-        st.stop = take(st.stop, stop)
-    elif (cur + 1) % ph.pass_decay == 0:
-        # NeurcompDecayStrategy: decay every pass_decay passes (host-known)
-        st.shadow_lr = st.shadow_lr * ph.lr_decay
+        stop_step = torch.where(stop_now, t, st.stop_step)
+        # the stop flag last: every other write is held by its old value
+        for old, new in ((st.stop_step, stop_step), (st.last_loss, new_last),
+                         (st.no_gain, new_no_gain), (st.lr, lr),
+                         (st.shadow_lr, shadow), (st.stop, stop)):
+            _put(old, new, hold)
+    elif factor is not None:
+        # NeurcompDecayStrategy: decay every pass_decay passes
+        st.shadow_lr.mul_(factor)
         if ph.decay_applies_to_lr:
-            st.lr = st.lr * ph.lr_decay
+            st.lr.mul_(factor)
+
+
+def capture_graph(warm: Callable[[], None], step: Callable[[], None]
+                  ) -> Callable[[], None]:
+    """``warm`` run on a side stream, then ``step`` captured as one CUDA
+    graph, whose allocations come from its own memory pool; returns the
+    graph's replay.  The one seam between the chunk runner and CUDA graphs:
+    a capture that fails (a host synchronisation, an allocation outside the
+    pool) raises, and nothing falls back to eager steps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return graph.replay
+
+
+class ChunkRunner:
+    """The steps of a phase, a chunk at a time (the counterpart of the JAX
+    trainer's ``_scan_chunk`` and ``make_chunk_runner``).  ``load`` writes
+    a chunk's coordinates, ground truth and gate noise into static buffers
+    of ``steps`` rows; ``step`` takes the next step through ``train_step``'s
+    ``at`` form, whose row and t - 1 are one int64 pair on the device that
+    the step advances, and writes its losses (and the loss's other terms
+    with ``terms``) into a static (values, steps) buffer at its row;
+    ``read`` is the chunk's one device read.  ``graphs``: ``capture``
+    records the step as a CUDA graph (``capture_graph``, warmed up on a
+    scratch copy of the state) and every step is then one replay, which
+    adds the launches the capture counted to the wrappers' counts; else
+    each step runs eagerly.  ``step_kw``: ``train_step``'s mesh arguments."""
+
+    def __init__(self, ph: PhaseSpec, st: TrainState, c: PhaseConstants, N: int,
+                 steps: int, masks=None, terms: bool = False, graphs: bool = False,
+                 step_kw: Optional[dict] = None):
+        dev = c.volume.device
+        self.ph, self.st, self.c, self.masks = ph, st, c, masks
+        self.step_kw = step_kw or {}
+        self.norm = torch.zeros((steps, N, 3), device=dev)
+        self.gt = torch.zeros((steps, N), device=dev)
+        self.noise = None
+        if G.noise_kind(ph.drop_type):
+            self.noise = [torch.zeros((steps,) + tuple(s[1:]), device=dev)
+                          for s in coeff_shapes(ph.spec)]
+        self.at = torch.zeros(2, dtype=torch.int64, device=dev)   # (row, t - 1)
+        self.terms = terms
+        # the loss's other terms as the first step gives them: (tag, None
+        # for a tensor read from `out`, else its constant)
+        self.tags: Optional[List[Tuple[str, Optional[float]]]] = None
+        self.out: Optional[torch.Tensor] = None
+        self.graphs = graphs
+        self.replay: Optional[Callable[[], None]] = None
+        self.replay_launches: Optional[Tuple[int, ...]] = None
+
+    def _rewind(self):
+        self.at[:1].zero_()
+        self.at[1:].fill_(self.st.step)
+
+    def load(self, pos: torch.Tensor, noise: Optional[List[torch.Tensor]]):
+        """A chunk's (n, N, 3) positions and per-level (n, ...) gate noise."""
+        norm, gt = chunk_inputs(self.c, pos)
+        n = norm.shape[0]
+        self.norm[:n].copy_(norm)
+        self.gt[:n].copy_(gt)
+        for buf, a in zip(self.noise or (), noise or ()):
+            buf[:n].copy_(a)
+        self._rewind()
+        if self.graphs and self.replay is None:
+            self.capture()
+
+    def _step(self, st: TrainState):
+        row = self.at[:1]
+        noise = None if self.noise is None else \
+            [a.index_select(0, row)[0] for a in self.noise]
+        named = {} if self.terms else None
+        loss, vol_loss = train_step(self.ph, st, self.c, self.norm.index_select(0, row)[0],
+                                    self.gt.index_select(0, row)[0], self.masks, noise=noise,
+                                    terms=named, at=self.at[1:], **self.step_kw)
+        if named is not None and self.tags is None:
+            self.tags = [(k, None if torch.is_tensor(v) else v) for k, v in named.items()]
+        values = [loss, vol_loss] + [named[k] for k, const in self.tags or ()
+                                     if const is None]
+        if self.out is None:
+            self.out = torch.zeros((len(values), self.norm.shape[0]), device=loss.device)
+        self.out.index_copy_(1, row, torch.stack(values)[:, None])
+        self.at.add_(1)
+
+    def capture(self):
+        """Capture the step on the state as a CUDA graph, after
+        ``WARMUP_STEPS`` steps on a scratch copy of it (not counted)."""
+        global warmup_steps
+        st = self.st
+        scratch = dataclasses.replace(st, **{name: getattr(st, name).clone()
+                                             for name in TENSOR_FIELDS
+                                             if getattr(st, name) is not None})
+        mark = launch_counts.read()
+
+        def warm():
+            for _ in range(WARMUP_STEPS):
+                self._rewind()
+                self._step(scratch)
+            launch_counts.write(mark)
+        try:
+            self.replay = capture_graph(warm, lambda: self._step(st))
+            self.replay_launches = launch_counts.since(mark)
+        finally:
+            launch_counts.write(mark)
+        warmup_steps += WARMUP_STEPS
+        self._rewind()
+
+    def step(self):
+        if self.replay is None:
+            self._step(self.st)
+        else:
+            self.replay()
+            launch_counts.add(self.replay_launches)
+        self.st.step += 1
+
+    def chunk(self, pos: torch.Tensor, noise: Optional[List[torch.Tensor]]):
+        """One chunk: ``load``, its steps until the phase's budget stop, and
+        the one device read: (whether the budget stopped the phase, then
+        ``read``'s values)."""
+        start = self.st.step
+        self.load(pos, noise)
+        budget = False
+        for _ in range(pos.shape[0]):
+            self.step()
+            if self.ph.budget_stop(self.st.step, self.ph.passes(self.st.step)[0]):
+                budget = True
+                break
+        return (budget,) + self.read(self.st.step - start)
+
+    def read(self, k: int):
+        """The one device read after ``k`` steps of a chunk: (the stop flag,
+        the step it came at, the k losses, the k volume losses, each step's
+        other terms as {tag: value})."""
+        got = torch.cat([torch.stack([self.st.stop.to(torch.float32),
+                                      self.st.stop_step.to(torch.float32)]),
+                         self.out[:, :k].reshape(-1)]).tolist()
+        rows = [got[2 + i * k:2 + (i + 1) * k] for i in range(self.out.shape[0])]
+        terms = []
+        if self.terms:
+            tensors = iter(rows[2:])
+            cols = [next(tensors) if const is None else [const] * k
+                    for _, const in self.tags]
+            terms = [{tag: col[i] for (tag, _), col in zip(self.tags, cols)}
+                     for i in range(k)]
+        return bool(got[0]), int(got[1]), rows[0], rows[1], terms
 
 
 class StepTimer:
@@ -639,9 +861,11 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 writer=None, state_save_path: str = '',
                 save_every_s: float = SAVE_EVERY_S, profile_dir: str = '',
                 mesh=None, use_space: bool = True, shard_params: bool = False,
-                local_decode: bool = False) -> TrainState:
+                local_decode: bool = False, graphs: Optional[bool] = None) -> TrainState:
     """Run one phase until its pass budget is spent or the plateau stop; a
-    state that has finished its phase (``phase_done``) takes no step.
+    state that has finished its phase (``phase_done``) takes no step.  The
+    steps go through a ``ChunkRunner``: on a card without a mesh each is a
+    replay of the step's CUDA graph, captured before the phase's first step.
 
     volume:           the (X, Y, Z) ground truth on the training device
                       (the rank's x-slab on a mesh with a space axis).
@@ -682,6 +906,11 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                       writes it, with every rank's position-generator state
                       and the mesh shape; a writer, a profile_dir and
                       verbose are rank 0's (the caller passes them there).
+    graphs:           False: eager steps on the card too (the tests, the
+                      smoke and step_rates_turns.py hold graphs against
+                      them); True: graphs required (raises on a mesh, and
+                      without a card at the capture); None: graphs where the
+                      volume is on a card and there is no mesh.
     """
     if positions is None and generator is None:
         raise ValueError("solve_phase needs a generator or a positions iterator")
@@ -689,8 +918,16 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
             and noise_generator is None):
         raise ValueError(f"drop_type {ph.drop_type!r} needs a noise generator "
                          f"or a gate-noise iterator")
+    if graphs and mesh is not None:
+        raise ValueError("the step's CUDA graph takes one device: no mesh")
+    if graphs is None:
+        graphs = mesh is None and volume.device.type == 'cuda'
     state, c, N, step_kw = shard_phase(ph, state, volume, mesh, use_space, shard_params,
                                        local_decode)
+    # on a mesh every rank averages the same terms
+    runner = ChunkRunner(ph, state, c, N, max(1, min(steps_per_chunk, ph.t_max - state.step)),
+                         masks, terms=writer is not None or mesh is not None, graphs=graphs,
+                         step_kw=step_kw)
     zc = step_kw.get('zc')
     generators = (generator, noise_generator)
     stopped = phase_done(ph, state)
@@ -736,38 +973,14 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
             tchunk = timer.chunk(n, first=chunk == 0) if timer is not None \
                 else contextlib.nullcontext()
             with trace(profile_dir if chunk == 1 else '', volume.device), tchunk:
-                norm_all, gt_all = chunk_inputs(c, pos)
-                losses, vol_losses, terms = [], [], []
-                guard = False
-                for i in range(n):
-                    # on a mesh every rank averages the same terms
-                    named = {} if writer is not None or mesh is not None else None
-                    loss, vol_loss = train_step(ph, state, c, norm_all[i], gt_all[i],
-                                                masks, guard,
-                                                None if noise is None else [a[i] for a in noise],
-                                                named, **step_kw)
-                    losses.append(loss)
-                    vol_losses.append(vol_loss)
-                    terms.append(named)
-                    cur, boundary = ph.passes(state.step)
-                    # after a boundary the plateau stop may have come
-                    guard = guard or (boundary and ph.use_smallify_decay)
-                    if ph.budget_stop(state.step, cur):
-                        stopped = True
-                        break
-                # the one device read of the chunk
-                extra = [v for named in terms if named for v in named.values()
-                         if torch.is_tensor(v)]
-                read = torch.stack([state.stop.to(torch.float32),
-                                    state.stop_step.to(torch.float32),
-                                    *losses, *vol_losses, *extra]).tolist()
+                stopped, stop, stop_step, losses, vol_losses, terms = runner.chunk(pos, noise)
             chunk += 1
-            if read[0]:
+            if stop:
                 # the steps launched after the plateau stop were idle
                 stopped = True
-                state.step = int(read[1])
+                state.step = stop_step
             k = state.step - start
-            losses, vol_losses = read[2:2 + k], read[2 + len(losses):][:k]
+            losses, vol_losses, terms = losses[:k], vol_losses[:k], terms[:k]
             save_now = bool(state_save_path) and not stopped and \
                 time.monotonic() - last_save >= save_every_s
             hist_now = writer is not None and ph.variational and \
@@ -787,9 +1000,6 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                          for lvl in range(len(p.log_thetas))]
                 last_hist = time.monotonic()
             if writer is not None:
-                values = iter(read[2 + 2 * len(terms):])
-                terms = [{tag: next(values) if torch.is_tensor(v) else v
-                          for tag, v in named.items()} for named in terms][:k]
                 futures.append(pool.submit(_emit_scalars, writer, start, losses,
                                            vol_losses, terms))
                 if rates is not None:

@@ -1,16 +1,20 @@
 #!/usr/bin/env python
 """Flagship train-step times of two or more trees, in turns, on one card.
 
-    python3 step_rates_turns.py --trees DIR_A,DIR_B [--rounds 4] [--steps 100]
+    python3 step_rates_turns.py --trees DIR_A,DIR_B [--rounds 4] [--steps 200]
+                                [--modes eager,graphed]
 
 Each round runs, for each tree in turn (the order reversed every other
 round: A B, B A, ...), one process that imports that tree's chip_smoke.py
 and package, builds the tree's kernels (into the tree's own build
 directory, so only its first process compiles) and times ``--steps``
-flagship phase-1 steps of every training path of that tree's BACKENDS
+flagship phase-1 steps of every training path of that tree's smoke
 (chip_smoke.phase_step_rates with one round: host clock around steps that
-end in a synchronise).  So two commits are compared on the same card in one
-call, each in processes of its own.  Prints the card's name and power
+end in a device read).  A tree whose smoke runs solve_phase's chunk
+runner times each path with the step's CUDA graph and with eager steps
+(``--modes`` picks them; a tree from before the runner takes no
+``--modes`` and times its eager train_step).  So two commits are compared
+on the same card in one call, each in processes of its own.  Prints the card's name and power
 limit, one JSON line a tree and round, then a last line: for each tree and
 path, the ms a step of each round, their median and their spread (max -
 min).  Exits non-zero without a card.
@@ -33,12 +37,14 @@ from latent_feature_grid_compression_tpu_torch.ops import _build
 cs.disable_tf32()
 _build.build(_build.kernel_sources())
 cs.emit = lambda obj: None
-print('STEP_RATES ' + json.dumps(cs.phase_step_rates(rounds=1, steps={steps})))
+print('STEP_RATES ' + json.dumps(cs.phase_step_rates(rounds=1, steps={steps}{modes})))
 """
 
 
-def run_tree(tree: str, steps: int) -> dict:
-    res = subprocess.run([sys.executable, '-c', CHILD.format(tree=tree, steps=steps)],
+def run_tree(tree: str, steps: int, modes: str = '') -> dict:
+    extra = f', modes={tuple(modes.split(","))!r}' if modes else ''
+    res = subprocess.run([sys.executable, '-c', CHILD.format(tree=tree, steps=steps,
+                                                             modes=extra)],
                          cwd=tree, capture_output=True, text=True, timeout=1800)
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith('STEP_RATES ')]
     if res.returncode != 0 or not lines:
@@ -51,7 +57,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--trees', required=True, help='comma-separated checkouts')
     ap.add_argument('--rounds', type=int, default=4)
-    ap.add_argument('--steps', type=int, default=100)
+    ap.add_argument('--steps', type=int, default=200)
+    ap.add_argument('--modes', default='',
+                    help="comma-separated: eager, graphed (default: the tree's smoke's)")
     args = ap.parse_args(argv)
     trees = [os.path.abspath(t) for t in args.trees.split(',')]
     import torch
@@ -64,7 +72,7 @@ def main(argv=None):
     ms = {t: {} for t in trees}
     for r in range(args.rounds):
         for tree in (trees if r % 2 == 0 else trees[::-1]):
-            got = run_tree(tree, args.steps)
+            got = run_tree(tree, args.steps, args.modes)
             print(json.dumps({'tree': os.path.relpath(tree), 'round': r, 'ms_per_step': got}),
                   flush=True)
             for path, v in got.items():

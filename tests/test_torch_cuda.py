@@ -347,27 +347,78 @@ def test_fused_backward_routes_dx_bit_for_bit(cuda_device, precision):
     assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
 
 
-@pytest.mark.parametrize('backend', ['default', 'fused', 'bf16'])
+# the training paths a graphed phase is held against eager steps on: every
+# backend under smallify, and each other gate family under the default one
+GRAPH_CASES = {'default': ({}, 'smallify'), 'mlp_pallas': (dict(mlp_backend='pallas'), 'smallify'),
+               'fused': (dict(interp_backend='fused'), 'smallify'),
+               'bf16': (dict(compute_dtype='bfloat16'), 'smallify'),
+               'bf16_fused': (dict(interp_backend='fused', compute_dtype='bfloat16'),
+                              'smallify'),
+               **{d: ({}, d) for d in ('straight_through', 'masked_straight_through',
+                                       'static_variational', 'dynamic_variational')}}
+
+
+def _phase_run(device, backend, graphs, phase, state_in=None):
+    """A phase of GRAPH_CASES[backend] at the flagship's widths on the 64^3
+    volume, in chunks of 8 steps from fixed generators: phase 1 from a
+    fresh model (and variance model), phase 2 from ``state_in``, phase 1's
+    final state, baked.  (losses, volume losses, the final state)."""
+    from latent_feature_grid_compression_tpu_torch.models.variance import init_variance_model
+    kw, drop_type = GRAPH_CASES[backend]
+    cfg_kw = FAMILY_CFG.get(drop_type, {})
+    tr, ph, model, vol = _train_setup(device, drop_type=drop_type, max_pass=6,
+                                      cfg_kw=cfg_kw, phase=phase, **kw)
+    masks = None
+    if phase == 1:
+        variance = None
+        if 'dynamic' in drop_type:
+            variance = tuple([t.to(device) for t in ts]
+                             for ts in init_variance_model(torch.Generator().manual_seed(4)))
+        st = tr.init_train_state(model, 0.008, 0.008, train_gates=True, variance=variance,
+                                 weight_dkl=cfg_kw.get('lambda_drop_loss', 0.0))
+    else:
+        model, masks, _ = fg.save_dropvalues_on_grid(tr.state_to_model(state_in, model))
+        st = tr.init_train_state(model, 0.0008, 0.008, train_gates=False)
+    gens = [torch.Generator(device=device).manual_seed(2 + phase + i) for i in range(2)]
+    losses, vol_losses = [], []
+    st = tr.solve_phase(ph, st, vol, 8, masks, generator=gens[0], noise_generator=gens[1],
+                        verbose=False, metric_cb=losses.append, volume_cb=vol_losses.append,
+                        graphs=graphs)
+    return np.concatenate(losses), np.concatenate(vol_losses), st
+
+
+@pytest.mark.parametrize('backend', sorted(GRAPH_CASES))
 def test_train_steps_on_card_are_bitwise_reproducible(cuda_device, backend):
-    """The same state, positions and generators give the same losses and
-    parameters bit for bit after a chunk of steps on the card."""
-    kw = {'default': {}, 'fused': dict(interp_backend='fused'),
-          'bf16': dict(compute_dtype='bfloat16')}[backend]
-    runs = []
-    for _ in range(2):
-        tr, ph, model, vol = _train_setup(cuda_device, max_pass=6, **kw)
-        st = tr.init_train_state(model, 0.008, 0.008, train_gates=True)
-        losses = []
-        st = tr.solve_phase(ph, st, vol, 8, generator=torch.Generator(
-            device=cuda_device).manual_seed(2), verbose=False, metric_cb=losses.append)
-        runs.append((np.concatenate(losses), st.flat.cpu(), st.m.cpu(), st.v.cpu()))
-    (l0, *t0), (l1, *t1) = runs
-    np.testing.assert_array_equal(l0, l1)
-    assert all(torch.equal(a, b) for a, b in zip(t0, t1))
+    """Both phases of each training path through ``solve_phase`` with the
+    step's CUDA graph and with eager steps, from the same state, positions
+    and generators: every loss and volume loss, the steps and every tensor
+    of the final states bit for bit, and each phase's launch counts equal
+    (the replays count the capture's launches, a step each)."""
+    from latent_feature_grid_compression_tpu_torch.io.train_state_io import TENSOR_FIELDS
+    from latent_feature_grid_compression_tpu_torch.ops import launch_counts
+    runs = {}
+    for graphs in (False, True):
+        state = None
+        for phase in (1, 2):
+            launch_counts.write((0,) * len(launch_counts.COUNTERS))
+            losses, vol_losses, state = _phase_run(cuda_device, backend, graphs, phase,
+                                                   state)
+            torch.cuda.synchronize()
+            runs[graphs, phase] = (losses, vol_losses, state, launch_counts.read())
+    for phase in (1, 2):
+        (l0, v0, s0, c0), (l1, v1, s1, c1) = runs[False, phase], runs[True, phase]
+        assert s0.step == s1.step == {1: 32, 2: 16}[phase]
+        np.testing.assert_array_equal(l1, l0)
+        np.testing.assert_array_equal(v1, v0)
+        for name in TENSOR_FIELDS:
+            a, b = getattr(s0, name), getattr(s1, name)
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+        assert c0 == c1 and max(c0) == s0.step, (c0, c1)
+    assert np.isfinite(runs[True, 1][0]).all()
 
 
 def _train_setup(device, res=64, drop_type='smallify', max_pass=60, cfg_kw=None,
-                 **backends):
+                 phase=1, **backends):
     """A phase at the flagship's widths and batch on a smaller volume."""
     from latent_feature_grid_compression_tpu_torch.config import TrainConfig
     from latent_feature_grid_compression_tpu_torch.data.synthetic import synth_volume
@@ -378,7 +429,7 @@ def _train_setup(device, res=64, drop_type='smallify', max_pass=60, cfg_kw=None,
     spec = fg.make_spec(**dict(FLAGSHIP, drop_type=drop_type), **backends)
     model = fg.init_model(spec, torch.Generator().manual_seed(3), device=device)
     vol = torch.from_numpy(synth_volume(res, seed=1)).to(device)
-    ph = tr.make_phase_spec(cfg, spec, VolumeMeta((res,) * 3), phase=1)
+    ph = tr.make_phase_spec(cfg, spec, VolumeMeta((res,) * 3), phase=phase)
     return tr, ph, model, vol
 
 
@@ -467,12 +518,13 @@ def _run_chunks(tr, ph, st, vol, gens, n_chunks, drawn, **kw):
 
 @pytest.mark.parametrize('drop_type', ['smallify', 'straight_through'])
 def test_train_state_round_trip_on_card(cuda_device, drop_type, tmp_path):
-    """A flagship-width phase-1 state on the card after 2 chunks, saved by
-    solve_phase with both CUDA generators (Philox seed and offset): loaded
-    back bit for bit.  One more chunk from the loaded state and generators
-    and from the live ones: the positions (and the gate noise's
-    generator), the losses and the states they end in bit for bit (the
-    gradient kernel sums in a fixed order)."""
+    """A flagship-width phase-1 state on the card after 2 chunks of graphed
+    steps, saved by solve_phase with both CUDA generators (Philox seed and
+    offset): loaded back bit for bit.  One more chunk of graphed steps from
+    the loaded state and generators and from the live ones, and one of
+    eager steps from the file loaded again: the positions (and the gate
+    noise's generator), the losses and the states they end in bit for bit
+    (the gradient kernel sums in a fixed order)."""
     from latent_feature_grid_compression_tpu_torch.io.train_state_io import (
         TENSOR_FIELDS, load_train_state)
     tr, ph, model, vol = _train_setup(cuda_device, drop_type=drop_type, max_pass=6)
@@ -496,18 +548,79 @@ def test_train_state_round_trip_on_card(cuda_device, drop_type, tmp_path):
         assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
     for a, b in zip(loaded_gens, live_gens):
         assert torch.equal(a.get_state(), b.get_state())
-    drawn = ([], [])
+    eager_gens = gens(11)
+    eager = load_train_state(path, fresh(), eager_gens)
+    drawn = ([], [], [])
     losses = []
-    for st, g, d in ((live, live_gens, drawn[0]), (loaded, loaded_gens, drawn[1])):
-        losses.append(_run_chunks(tr, ph, st, vol, g, 1, d))
-    assert len(drawn[0]) == len(drawn[1]) == 1 and torch.equal(drawn[0][0], drawn[1][0])
-    for a, b in zip(loaded_gens, live_gens):
+    for st, g, d, kw in ((live, live_gens, drawn[0], {}), (loaded, loaded_gens, drawn[1], {}),
+                         (eager, eager_gens, drawn[2], dict(graphs=False))):
+        losses.append(_run_chunks(tr, ph, st, vol, g, 1, d, **kw))
+    assert all(len(d) == 1 and torch.equal(d[0], drawn[0][0]) for d in drawn)
+    for a, b, c in zip(loaded_gens, live_gens, eager_gens):
         assert torch.equal(a.get_state(), b.get_state())
+        assert torch.equal(c.get_state(), b.get_state())
     assert losses[0][0] == losses[1][0]
     np.testing.assert_array_equal(losses[1], losses[0])
-    for name in TENSOR_FIELDS:
-        a, b = getattr(loaded, name), getattr(live, name)
-        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+    np.testing.assert_array_equal(losses[2], losses[0])
+    for other in (loaded, eager):
+        for name in TENSOR_FIELDS:
+            a, b = getattr(other, name), getattr(live, name)
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+
+
+def _capture_with_a_host_sync(_, out):
+    """A phase whose step reads a value to the host, in a process of its
+    own: a failed capture leaves PyTorch's CUDA generator registered with
+    the dead capture, so the process's later draws on the default
+    generator raise."""
+    from latent_feature_grid_compression_tpu_torch.io.train_state_io import TENSOR_FIELDS
+    from latent_feature_grid_compression_tpu_torch.ops import launch_counts
+    tr, ph, model, vol = _train_setup(torch.device('cuda'), max_pass=6)
+    st = tr.init_train_state(model, 0.008, 0.008, train_gates=True)
+    before = {name: getattr(st, name).clone() for name in TENSOR_FIELDS
+              if getattr(st, name) is not None}
+    adam = tr.adam_update
+    syncs = []
+
+    def syncing(flat, g, *a, **k):
+        syncs.append(float(g.abs().max()))
+        return adam(flat, g, *a, **k)
+    tr.adam_update = syncing
+    launch_counts.write((0,) * len(launch_counts.COUNTERS))
+    warm = tr.warmup_steps
+    try:
+        tr.solve_phase(ph, st, vol, 8, generator=torch.Generator(device='cuda').manual_seed(0),
+                       verbose=False)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        tr.adam_update = adam
+    x = torch.arange(4.0, device='cuda')
+    torch.save({'raised': raised, 'syncs': len(syncs), 'warmup_steps': tr.warmup_steps - warm,
+                'step': st.step, 'counts': launch_counts.read(),
+                'unchanged': [name for name, t in before.items()
+                              if torch.equal(getattr(st, name), t)],
+                'fields': list(before), 'card_works': float((x * 2).sum())}, out)
+
+
+def test_a_capture_that_meets_a_host_sync_raises(cuda_device, tmp_path):
+    """A step that reads a value to the host (a synchronisation, which a
+    CUDA graph cannot hold) makes the phase's capture raise, after the
+    warm-up has run it on a scratch copy of the state: solve_phase raises,
+    the state has taken no step and is unchanged, no launch was counted
+    (no eager step ran after it), and the card goes on working.  Run in a
+    spawned process (``_capture_with_a_host_sync``)."""
+    import torch.multiprocessing as mp
+    from latent_feature_grid_compression_tpu_torch.ops import launch_counts
+    from latent_feature_grid_compression_tpu_torch.train import trainer as tr
+    mp.spawn(_capture_with_a_host_sync, args=(str(tmp_path / 'out.pt'),), nprocs=1)
+    r = torch.load(tmp_path / 'out.pt')
+    assert r['raised'] is not None
+    assert r['syncs'] == tr.WARMUP_STEPS and r['warmup_steps'] == 0
+    assert r['step'] == 0 and r['unchanged'] == r['fields']
+    assert r['counts'] == (0,) * len(launch_counts.COUNTERS)
+    assert r['card_works'] == 12.0
 
 
 def test_apply_model_on_card_matches_cpu(cuda_device):
