@@ -183,30 +183,49 @@ in order:
                  trainer's positions; each trial's parameters, grid size,
                  PSNR, ratio and seconds, the QC runs' ratios against their
                  targets
- 17. mesh        multi-device training, 2 ranks through python -m
-                 torch.distributed.run (this script as each rank's worker,
-                 driving train_torch.py): NCCL with a card a rank, else gloo
-                 with both ranks on the one card, asked for by name (the
+ 17. mesh        multi-device training, 2 ranks (--mesh-ranks N: N) through
+                 python -m torch.distributed.run (this script as each
+                 rank's worker, driving train_torch.py): NCCL with a card
+                 a rank, each rank's steps replays of its CUDA graph (the
+                 step's collectives captured with it), else gloo with the
+                 ranks on the one card, asked for by name, eager (the
                  port's refusal without gloo, recorded; what NCCL does
                  with both ranks on card 0, --only nccl_probe, is not run
                  by default).
                  mesh_dp: 20 flagship steps of one global position stream
-                 on one rank and on 2 ranks (each its contiguous half):
+                 on one rank and on N ranks (each its contiguous part):
                  losses within 1e-5, parameters within 1e-5 where the
                  gradient is clear of Adam's eps, the ranks bit for bit
-                 equal.  mesh_dp2: train-3 at --mesh_data 2: the fetch and
+                 equal.  mesh_dp2: train-3 at --mesh_data N: the fetch and
                  gradient kernels once a step on each rank (rank 0 the
-                 fetch also once an evaluation chunk), PSNR within 1 dB of
-                 train's, the container restores.  mesh_windows: on the
-                 256^3 synth_volume (255 does not divide 2), each rank's
-                 window of the grid (15, 15, W', 16): fetch and gradient
-                 kernels against their plain versions, the windowed forward
-                 against the full one.  mesh_space2_zero_local: train-3 at
-                 --mesh_space 2 --mesh_shard_params 1 --mesh_local_decode 1
-                 --interp_backend xla on that volume.  Each run: samples/s
-                 per rank and summed, ms a step, a profiled 50 steps' share
-                 in collectives, the bytes comm_volume_per_step predicts
-                 against the bytes the step moves; mesh_windows also the
+                 fetch also once an evaluation chunk), one all-reduce a
+                 step, PSNR within 1 dB of train's, the container
+                 restores.  mesh_windows: on the 256^3 synth_volume (255
+                 does not divide 2), each rank's window of the grid (15,
+                 15, W', 16): fetch and gradient kernels against their
+                 plain versions, the windowed forward against the full
+                 one.  mesh_graphs: graphs=True on a gloo mesh raises;
+                 with a card a rank, both runs' phase-1 state through
+                 solve_phase for 3 chunks of 50 steps graphed and eager,
+                 saving after every chunk, then the graphed run resumed
+                 after its second chunk: on every rank the losses, the
+                 states, the launches and the collective counts equal,
+                 the step graph's kernel nodes (NCCL's among them); on
+                 fewer cards a row saying that it did not run.
+                 (train_torch.py's mesh steps run eagerly; the graphed
+                 ones only where graphs=True is asked for.)
+                 mesh_space2_zero_local: train-3 at --mesh_space N
+                 --mesh_shard_params 1 --mesh_local_decode 1
+                 --interp_backend xla on that volume (an all-gather and a
+                 reduce-scatter a step).  Each run: samples/s per rank and
+                 summed (and over train's), ms a step, a profiled chunk of
+                 50 steps eager and, under NCCL, graphed (ms a step, host
+                 launch calls, idle share, NCCL's kernels and device ms, the
+                 collectives' host share; the fetch, gradient and NCCL
+                 kernels of the eager trace a step those of the step's
+                 graph), the collective calls a step and the bytes the ring
+                 model gives them, equal in both modes, against those
+                 comm_volume_per_step predicts; mesh_windows also the
                  library's times (F.grid_sample, its aten backward)
  18. step_rates  the flagship step time of each backend (the bf16 paths
                  too) and of dynamic variational, eager and graphed, without
@@ -222,7 +241,8 @@ script started.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
 
-``--only`` takes a comma-separated list of phases 2-18 (build, kernel,
+``--mesh-ranks`` sets the mesh phase's ranks (2; 4 on a machine of 4
+cards).  ``--only`` takes a comma-separated list of phases 2-18 (build, kernel,
 kernel_bwd, kernel_mlp, kernel_fused, kernel_bf16, checkpoint, binary,
 queries, queries_bf16, train, train_bf16, resume, graphs, train_families,
 quant, readers, native, nas, mesh, step_rates) and runs the device phase and
@@ -250,6 +270,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from unittest import mock
 
 import numpy as np
@@ -1391,6 +1412,7 @@ def profile_train_steps(chunk, steps, graphs):
     launch_calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
     busy_ms = sum(r[0] for r in rows)
     calls = {name: sum(r[2] for r in rows if name in r[1]) for name in PROFILED_KERNELS}
+    nccl = [r for r in rows if 'nccl' in r[1].lower()]
     return {'steps': steps, 'graphs': graphs, 'wall_ms': wall_ms,
             'ms_per_step': wall_ms / steps,
             'samples_per_sec': steps * TRAIN_BATCH / (wall_ms / 1e3),
@@ -1406,6 +1428,12 @@ def profile_train_steps(chunk, steps, graphs):
                           for name in PROFILED_KERNELS},
             'kernel_calls': calls,
             'kernel_calls_per_step': {name: n / steps for name, n in calls.items()},
+            # the mesh's: NCCL's kernels, and the host's time inside the
+            # collectives' calls (mesh::*, their record_function spans)
+            'nccl_kernels_per_step': sum(r[2] for r in nccl) / steps,
+            'nccl_device_ms_per_step': sum(r[0] for r in nccl) / steps,
+            'collective_host_ms_per_step': sum(
+                e.cpu_time_total for e in events if e.key.startswith('mesh::')) / 1e3 / steps,
             'top_kernels': [{'ms': ms, 'name': k[:80], 'calls': n}
                             for ms, k, n in rows[:10]]}
 
@@ -1427,12 +1455,7 @@ def profile_modes(suffix='', config=FLAGSHIP_CONFIG):
     of PROFILED_KERNELS a step as often as the graph has nodes of it, and
     the graphed one at most MAX_GRAPHED_LAUNCH_CALLS host launch calls a
     step."""
-    graphs = []
-    real = torch.cuda.CUDAGraph
-
-    def kept():
-        graphs.append(real(keep_graph=True))
-        return graphs[-1]
+    graphs, kept = kept_graphs()
     with mock.patch.object(torch.cuda, 'CUDAGraph', kept):
         chunks = {'graphed': flagship_chunks(suffix, True, config, GRAPH_CHUNK)}
     check(len(graphs) == 1, f'{len(graphs)} graphs captured for one phase')
@@ -2432,15 +2455,16 @@ def phase_nas(tmp, vol_path):
 
 
 # ---------------------------------------------------------------------------
-# mesh: multi-device training, two ranks through torch.distributed.run
+# mesh: multi-device training, MESH_RANKS ranks through torch.distributed.run
 # ---------------------------------------------------------------------------
 
+# ranks of the mesh phase's runs (--mesh-ranks: 4 on a machine of 4 cards)
 MESH_RANKS = 2
 MESH_DP_STEPS = 20
-# the space-2 run's volume: 255 does not divide 2, and the batch 32,768
-# divides only powers of two
+# the space axis' runs' volume: 255 does not divide 2 or 4, and the batch
+# 32,768 divides only powers of two
 MESH_SPACE_N = 256
-PSNR_MESH_DB = 1.0     # the data-2 run's train-3 PSNR against train's
+PSNR_MESH_DB = 1.0     # the data axis' train-3 PSNR against train's
 WINDOW_TOL = 2e-5      # the windowed forward against the full one (the JAX test's)
 MESH_PROFILE_STEPS = 50
 # where Adam's step depends on a gradient's last bits (|g| within a few
@@ -2448,6 +2472,10 @@ MESH_PROFILE_STEPS = 50
 # parameters are held to ATOMICS_TOL where the first moment is above this
 # share of its max
 ADAM_SURE_SHARE = 1e-4
+# chunks of RESUME_CHUNK steps of the mesh_graphs runs: the eager and the
+# graphed run, each saving after every chunk; the graphed run resumed after
+# the second
+MESH_GRAPH_CHUNKS = 3
 
 
 def mesh_backend():
@@ -2456,34 +2484,67 @@ def mesh_backend():
     return 'nccl' if torch.cuda.device_count() >= MESH_RANKS else 'gloo'
 
 
+def mesh_names():
+    """The mesh phase's run names at MESH_RANKS ranks."""
+    return f'mesh_dp{MESH_RANKS}', f'mesh_space{MESH_RANKS}_zero_local'
+
+
+def mesh_flags():
+    """train_torch.py's flags of the two mesh runs: the data axis, and the
+    space axis with the state sharded and tile-local decode."""
+    return (['--mesh_data', str(MESH_RANKS)],
+            ['--mesh_space', str(MESH_RANKS), '--mesh_shard_params', '1',
+             '--mesh_local_decode', '1', '--interp_backend', 'xla'])
+
+
+# a mesh worker prints every thread's stack and exits this many seconds
+# before its launch's time limit (faulthandler), so that a hang shows where
+DUMP_BEFORE_S = 30
+
+
 def mesh_launch(tmp, kind, *argv, backend=None, timeout=300, may_fail=False):
     """This script's mesh worker ``kind`` on MESH_RANKS ranks through
     torch.distributed.run, from ``tmp``: (each rank's result, None for a
     rank that wrote none, seconds).  ``backend`` None: :func:`mesh_backend`;
-    a failed launch raises unless ``may_fail``."""
+    a failed launch raises unless ``may_fail``, printing the end of its
+    output.  Past ``timeout`` the launcher is sent SIGTERM, which it passes
+    to its ranks (each in a session of its own), then SIGKILL."""
     out = os.path.join(tmp, 'mesh_' + kind)
     os.makedirs(out, exist_ok=True)
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
            '--nproc_per_node', str(MESH_RANKS), os.path.abspath(__file__),
-           '--mesh-worker', kind, '--mesh-out', out,
+           '--mesh-worker', kind, '--mesh-out', out, '--mesh-ranks', str(MESH_RANKS),
            '--mesh-backend', backend or mesh_backend(), *argv]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [REPO] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
+        [REPO] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]),
+        CHIP_SMOKE_DUMP_AFTER_S=str(max(timeout - DUMP_BEFORE_S, 10)))
     t0 = time.perf_counter()
-    # a session of its own, so that a launch past its time limit is ended
-    # with every rank it started
-    proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
-    try:
-        out_text, err_text = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
+    log = os.path.join(out, 'launch.log')
+    # the output into a file (a rank left running cannot hold a pipe open),
+    # the launcher in a session of its own
+    timed_out = False
+    with open(log, 'w') as sink:
+        proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=sink, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    if timed_out:
+        print(text[-16000:], file=sys.stderr)
         raise RuntimeError(f'chip_smoke check failed: mesh worker {kind} ran past '
                            f'{timeout} s')
-    seconds = time.perf_counter() - t0
     if proc.returncode and not may_fail:
-        print(out_text[-6000:], err_text[-12000:], sep='\n', file=sys.stderr)
+        print(text[-16000:], file=sys.stderr)
         raise RuntimeError(f'chip_smoke check failed: mesh worker {kind} exited '
                            f'{proc.returncode}')
     results = [torch.load(os.path.join(out, f'rank{r}.pt'), weights_only=False)
@@ -2520,15 +2581,10 @@ def dp_steps(ph, st, vol, pos, sc=None):
     return {'losses': losses.cpu(), 'flat': st.flat.cpu(), 'm': st.m.cpu()}
 
 
-def mesh_profile(cfg, dev, steps=MESH_PROFILE_STEPS, warmup=5):
-    """``steps`` phase-1 steps of ``cfg``'s mesh run on this rank under
-    torch.profiler (a fresh model; the work does not depend on the values):
-    ms a step, the host and device time inside the mesh's collectives, and
-    the bytes the ring model gives the step's collective calls (their
-    count and sizes, not a measurement of what the backend moves) against
-    comm_volume_per_step's prediction."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def mesh_inputs(cfg, dev):
+    """``cfg``'s mesh run on this rank at the flagship's widths (a model
+    from the seed): (phase-1 spec, a function making a fresh state, the
+    rank's slab of the volume on its card, solve_phase's mesh keywords)."""
     from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
     spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type, drop_momentum=cfg.drop_momentum,
                             drop_threshold=cfg.drop_threshold),
@@ -2537,56 +2593,232 @@ def mesh_profile(cfg, dev, steps=MESH_PROFILE_STEPS, warmup=5):
     vol_np = load_volume(cfg.data)
     use_space = cfg.mesh_space > 1 and vol_np.shape[0] % cfg.mesh_space == 0
     ph = tr.make_phase_spec(cfg, spec, VolumeMeta(vol_np.shape), phase=1)
-    st = tr.init_train_state(init_model(spec, torch.Generator().manual_seed(SEED), device=dev),
-                             cfg.lr, cfg.lr, train_gates=True, weight_dkl=cfg.lambda_drop_loss)
-    n_params = st.flat.numel()
-    st, c, N, kw = tr.shard_phase(ph, st, pm.shard_volume(mesh, vol_np, use_space), mesh,
-                                  use_space, bool(cfg.mesh_shard_params),
-                                  bool(cfg.mesh_local_decode))
-    g = torch.Generator(device=dev).manual_seed(SEED + mesh.rank)
-    norm, gt = tr.chunk_inputs(c, tr.draw_positions(c, steps + warmup, N, g))
-    for i in range(warmup):
-        tr.train_step(ph, st, c, norm[i], gt[i], terms={}, **kw)
-    torch.cuda.synchronize()
-    pm.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    model = init_model(spec, torch.Generator().manual_seed(SEED), device=dev)
+
+    def fresh():
+        return tr.init_train_state(model, cfg.lr, cfg.lr, train_gates=True,
+                                   weight_dkl=cfg.lambda_drop_loss)
+    return ph, fresh, pm.shard_volume(mesh, vol_np, use_space), dict(
+        mesh=mesh, use_space=use_space, shard_params=bool(cfg.mesh_shard_params),
+        local_decode=bool(cfg.mesh_local_decode))
+
+
+def mesh_generators(dev, rank, seed=SEED):
+    """A rank's position generator (its own) and gate-noise generator (the
+    same on every rank), on its card."""
+    return (torch.Generator(device=dev).manual_seed(seed + 1 + rank),
+            torch.Generator(device=dev).manual_seed(seed + 100))
+
+
+def mesh_chunks(ph, fresh, vol, kw, graphs, steps):
+    """solve_phase's chunk machinery on the mesh (``trainer.shard_phase``,
+    then ``trainer.ChunkRunner`` with the mesh's step arguments), as
+    ``flagship_chunks`` on one card: (a function that runs the next chunk
+    of ``steps`` steps and returns its host seconds, the samples a rank
+    takes a step).  One chunk (warm-up and capture) runs before it is
+    returned."""
+    mesh = kw['mesh']
+    st, c, N, step_kw = tr.shard_phase(ph, fresh(), vol, mesh, kw['use_space'],
+                                       kw['shard_params'], kw['local_decode'])
+    runner = tr.ChunkRunner(ph, st, c, N, steps, terms=True, graphs=graphs, step_kw=step_kw)
+    gens = mesh_generators(vol.device, mesh.rank)
+
+    def chunk():
         t0 = time.perf_counter()
-        for i in range(warmup, warmup + steps):
-            tr.train_step(ph, st, c, norm[i], gt[i], terms={}, **kw)
+        pos = tr.draw_positions(c, steps, N, gens[0])
+        runner.chunk(pos, tr.draw_noise(ph, steps, gens[1], vol.device))
+        return time.perf_counter() - t0
+    chunk()
+    return chunk, N
+
+
+def kept_graphs():
+    """(a list that receives every CUDA graph made, a stand-in for
+    torch.cuda.CUDAGraph that keeps each for inspection)."""
+    graphs, real = [], torch.cuda.CUDAGraph
+
+    def kept():
+        graphs.append(real(keep_graph=True))
+        return graphs[-1]
+    return graphs, kept
+
+
+def step_graph_nodes(graph):
+    """The kernel nodes of a mesh step's graph: in all, the fetch's and the
+    gradient's (PROFILED_KERNELS' names), NCCL's (with their names), and
+    the other nodes by type."""
+    nodes = graph_kernel_names(graph)
+    kernels = {k: n for k, n in nodes.items() if not k.startswith('<')}
+    return {'kernel': sum(kernels.values()),
+            'profiled_kernels': {name: sum(n for k, n in kernels.items() if name in k)
+                                 for name in PROFILED_KERNELS},
+            'nccl': {k: n for k, n in kernels.items() if 'nccl' in k.lower()},
+            **{k: n for k, n in nodes.items() if k.startswith('<')}}
+
+
+def mesh_profile(cfg, dev, steps=MESH_PROFILE_STEPS):
+    """A chunk of ``steps`` phase-1 steps of ``cfg``'s mesh run on this rank
+    (``mesh_chunks``: a fresh model, the work does not depend on the
+    values) under torch.profiler (``profile_train_steps``), eager and, under
+    NCCL, graphed: ms a step, host launch calls a step, the device's idle
+    share, NCCL's kernels and device ms a step, the host's time inside the
+    collectives' calls; and the collective calls a step and the bytes the
+    ring model gives them (their count and sizes, not a measurement of what
+    the backend moves) against comm_volume_per_step's prediction, which
+    must read the same in both modes (a replay counts what its capture
+    counted).  The step's graph, kept for inspection, gives the kernels a
+    step (``step_graph_nodes``, NCCL's included; the profiler loses records
+    of replays): the eager trace's fetch, gradient and NCCL kernels a step
+    must be its nodes."""
+    from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
+    ph, fresh, vol, kw = mesh_inputs(cfg, dev)
+    mesh = kw['mesh']
+    n_params = fresh().flat.numel()
+    modes = ('eager', 'graphed') if mesh.backend == 'nccl' else ('eager',)
+    out = {'steps': steps, 'n_params': n_params,
+           'bytes_predicted_per_step': pm.comm_volume_per_step(
+               n_params, cfg.mesh_data, cfg.mesh_space, bool(cfg.mesh_shard_params))}
+    for mode in modes:
+        graphs, kept = kept_graphs()
+        with mock.patch.object(torch.cuda, 'CUDAGraph', kept):
+            chunk, N = mesh_chunks(ph, fresh, vol, kw, mode == 'graphed', steps)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    called = dict(pm.counts)
-    events = prof.key_averages()
-    host_ms = sum(e.cpu_time_total for e in events if e.key.startswith('mesh::')) / 1e3
-    nccl_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA and 'nccl' in e.key.lower()) / 1e3
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA) / 1e3
-    predicted = pm.comm_volume_per_step(n_params, cfg.mesh_data, cfg.mesh_space,
-                                        bool(cfg.mesh_shard_params))
-    return {'steps': steps, 'samples_per_rank_step': N, 'wall_ms': wall_ms,
-            'ms_per_step': wall_ms / steps,
-            'collective_host_ms_per_step': host_ms / steps,
-            'collective_host_share': host_ms / wall_ms,
-            'nccl_device_ms_per_step': nccl_ms / steps,
-            'device_busy_share': busy_ms / wall_ms,
+        pm.reset_counts()
+        prof = profile_train_steps(chunk, steps, mode == 'graphed')
+        called = dict(pm.counts)
+        prof.update({
+            'samples_per_rank_step': N,
+            'collective_host_share': prof['collective_host_ms_per_step'] / prof['ms_per_step'],
             'collective_calls_per_step': {k: v / steps for k, v in called.items()
                                           if k != 'modelled_bytes'},
-            'n_params': n_params, 'bytes_predicted_per_step': predicted,
-            'bytes_modelled_from_calls_per_step': called['modelled_bytes'] / steps}
+            'bytes_modelled_from_calls_per_step': called['modelled_bytes'] / steps})
+        if graphs:
+            check(len(graphs) == 1, f'{len(graphs)} graphs captured for one chunk runner')
+            prof['graph_nodes'] = step_graph_nodes(graphs[0])
+        out[mode] = prof
+    if 'graphed' in out:
+        nodes = out['graphed']['graph_nodes']
+        eager = out['eager']
+        for key in ('collective_calls_per_step', 'bytes_modelled_from_calls_per_step'):
+            check(out['graphed'][key] == eager[key],
+                  f"{key} graphed {out['graphed'][key]}, eager {eager[key]}")
+        for name in PROFILED_KERNELS[:2]:   # the fetch and the gradient
+            check(eager['kernel_calls_per_step'][name] == nodes['profiled_kernels'][name],
+                  f"{name} a step eager {eager['kernel_calls_per_step'][name]}, the "
+                  f"step's graph {nodes['profiled_kernels'][name]}")
+        step_calls = sum(eager['collective_calls_per_step'].values())
+        check(sum(nodes['nccl'].values()) == eager['nccl_kernels_per_step'] == step_calls,
+              f"NCCL kernels a step: the graph's {nodes['nccl']}, eager "
+              f"{eager['nccl_kernels_per_step']}, collective calls {step_calls}")
+    return out
+
+
+def mesh_graph_check(cfg, dev, out):
+    """``cfg``'s mesh run on this rank (``mesh_inputs``), a fresh phase-1
+    state through solve_phase for MESH_GRAPH_CHUNKS chunks of RESUME_CHUNK
+    steps with eager steps and with the step's CUDA graph, from the same
+    generators, each saving the state after every chunk (the eager
+    collectives of a save between the replays); then the graphed run's
+    file of its second chunk loaded on every rank and one more chunk
+    graphed.  The losses, every tensor of the runner's state (this rank's
+    shard under ZeRO), the kernel launches and the collective counts of the
+    graphed run equal the eager run's; the resumed run's losses and state
+    equal the third chunk's.  Returns the step graph's nodes (NCCL's among
+    them), the counts and each run's seconds."""
+    from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
+    ph, fresh, vol, kw = mesh_inputs(cfg, dev)
+    mesh = kw['mesh']
+    runners = []
+
+    class Recording(tr.ChunkRunner):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            runners.append(self)
+
+    def run(mode, n_chunks, state, gens, save='', keep_after=None):
+        losses = []
+
+        def cb(x):
+            losses.append(x)
+            if len(losses) == keep_after and mesh.rank == 0:
+                shutil.copy(save, f'{save}.{keep_after}.npz')
+            if len(losses) == n_chunks:
+                raise _Killed
+        graphs, kept = kept_graphs()
+        reset_counts()
+        pm.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(tr, 'ChunkRunner', Recording), \
+                mock.patch.object(torch.cuda, 'CUDAGraph', kept):
+            try:
+                tr.solve_phase(ph, state, vol, RESUME_CHUNK, generator=gens[0],
+                               noise_generator=gens[1], verbose=False, metric_cb=cb,
+                               state_save_path=save, save_every_s=0.0,
+                               graphs=mode == 'graphed', **kw)
+            except _Killed:
+                pass
+            else:
+                raise RuntimeError('chip_smoke check failed: the phase ended before '
+                                   'its chunks ran')
+        torch.cuda.synchronize()
+        check(len(graphs) == (mode == 'graphed'), f'{mode}: {len(graphs)} graphs captured')
+        return {'losses': np.concatenate(losses), 'state': runners[-1].st,
+                'launches': read_counts(), 'collectives': dict(pm.counts),
+                'seconds': time.perf_counter() - t0, 'graphs': graphs}
+
+    def equal_states(a, b):
+        return [name for name in TENSOR_FIELDS if not same_draws(getattr(a, name),
+                                                                 getattr(b, name))]
+    runs = {mode: run(mode, MESH_GRAPH_CHUNKS, fresh(), mesh_generators(dev, mesh.rank),
+                      os.path.join(out, f'{mode}.npz'), keep_after=2)
+            for mode in MODES}
+    eager, graphed = runs['eager'], runs['graphed']
+    steps = MESH_GRAPH_CHUNKS * RESUME_CHUNK
+    check(np.array_equal(eager['losses'], graphed['losses']) and len(eager['losses']) == steps,
+          f'rank {mesh.rank}: graphed losses differ from eager ones by '
+          f"{np.abs(eager['losses'] - graphed['losses']).max()}")
+    unequal = equal_states(eager['state'], graphed['state'])
+    check(not unequal, f'rank {mesh.rank}: the graphed state differs in {unequal}')
+    for key in ('launches', 'collectives'):
+        check(eager[key] == graphed[key],
+              f'rank {mesh.rank}: {key} eager {eager[key]}, graphed {graphed[key]}')
+    check({v for v in graphed['launches'].values() if v} == {steps},
+          f"rank {mesh.rank}: launches {graphed['launches']} in {steps} steps")
+    # resume: the file rank 0 kept after the graphed run's second chunk
+    pm.barrier(mesh)
+    gens = mesh_generators(dev, mesh.rank, seed=SEED + 1000)
+    state = load_train_state(os.path.join(out, 'graphed.npz.2.npz'), fresh(), gens,
+                             mesh_shape=(mesh.data, mesh.space), rank=mesh.rank)
+    resumed = run('graphed', 1, state, gens)
+    check(np.array_equal(resumed['losses'], graphed['losses'][2 * RESUME_CHUNK:]),
+          f'rank {mesh.rank}: the resumed losses differ from the third chunk')
+    unequal = equal_states(resumed['state'], graphed['state'])
+    check(not unequal, f'rank {mesh.rank}: the resumed state differs in {unequal}')
+    pm.barrier(mesh)
+    return {'steps': steps, 'losses_equal': True, 'states_equal': True,
+            'resumed_equal': True, 'launches': graphed['launches'],
+            'collectives': graphed['collectives'],
+            'graph_nodes': step_graph_nodes(graphed['graphs'][0]),
+            'eager_s': eager['seconds'], 'graphed_s': graphed['seconds'],
+            'resumed_s': resumed['seconds']}
 
 
 def mesh_worker(kind, out, backend, argv):
     """One rank of a mesh run (under torch.distributed.run): 'train'
     (train_torch.py with ``argv``, then the profile), 'dp_train' (the
-    data-parallel exactness steps on ``argv``'s --data volume first) or
+    data-parallel exactness steps on ``argv``'s --data volume first),
+    'graphs' (``mesh_graph_check`` of ``argv``'s run, NCCL only) or
     'nccl_probe' (NCCL with every rank on card 0); writes the rank's result
     into ``out``."""
+    import faulthandler
     import torch.distributed as dist
     from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
     from latent_feature_grid_compression_tpu_torch.parallel.distributed import (
-        initialize_distributed, rank_device)
+        initialize_distributed, rank_device, shutdown_distributed)
     disable_tf32()
+    faulthandler.dump_traceback_later(float(os.environ.get('CHIP_SMOKE_DUMP_AFTER_S', 270)),
+                                      exit=True)
     if kind == 'nccl_probe':
         torch.cuda.set_device(0)
         result = {}
@@ -2603,55 +2835,64 @@ def mesh_worker(kind, out, backend, argv):
     initialize_distributed(backend=backend, device='cuda')
     dev = rank_device('cuda', backend)
     rank = dist.get_rank()
+    status = 1
     try:
-        import train_torch
         from latent_feature_grid_compression_tpu_torch.config import config_from_args
         cfg = config_from_args(argv)
-        result = {}
-        if kind == 'dp_train':
-            ph, st, vol, pos = dp_inputs(cfg.data)
-            mesh = pm.make_mesh(MESH_RANKS, 1, device=dev)
-            half = pos.shape[1] // MESH_RANKS
-            result['dp'] = dp_steps(ph, st, vol, pos[:, rank * half:(rank + 1) * half],
-                                    pm.make_shard_ctx(mesh, use_space=False))
-            del st, vol
-        reset_counts()
-        pm.reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        info = train_torch.main(argv + ['--dist_backend', backend])
-        torch.cuda.synchronize()
-        result.update({'info': info, 'seconds': time.perf_counter() - t0,
-                       'launches': read_counts(), 'collectives': dict(pm.counts),
-                       'device': str(dev), 'backend': backend})
-        result['profile'] = mesh_profile(cfg, dev)
+        result = {'device': str(dev), 'backend': backend}
+        if kind == 'graphs':
+            result['graphs'] = mesh_graph_check(cfg, dev, out)
+        else:
+            import train_torch
+            if kind == 'dp_train':
+                ph, st, vol, pos = dp_inputs(cfg.data)
+                mesh = pm.make_mesh(MESH_RANKS, 1, device=dev)
+                part = pos.shape[1] // MESH_RANKS
+                result['dp'] = dp_steps(ph, st, vol, pos[:, rank * part:(rank + 1) * part],
+                                        pm.make_shard_ctx(mesh, use_space=False))
+                del st, vol
+            reset_counts()
+            pm.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = train_torch.main(argv + ['--dist_backend', backend])
+            torch.cuda.synchronize()
+            result.update({'info': info, 'seconds': time.perf_counter() - t0,
+                           'launches': read_counts(), 'collectives': dict(pm.counts)})
+            result['profile'] = mesh_profile(cfg, dev)
         torch.save(result, os.path.join(out, f'rank{rank}.pt'))
-    finally:
-        dist.destroy_process_group()
-    return 0
+        status = 0
+    except BaseException:
+        traceback.print_exc()
+    # the step graphs this worker kept for inspection (keep_graph=True) are
+    # out of reach here, and solve_phase closed its runners' graphs: the
+    # group ends as train_torch.py ends it
+    shutdown_distributed()
+    return status
 
 
 @torch.no_grad()
 def mesh_windows():
-    """The space-2 run's tile-local decode on the card before it runs: each
-    rank's window of the flagship grid over the 256^3 volume, the fetch and
-    gradient kernels against their plain versions on the windowed (15, 15,
-    W', 16) grid at the rank's trainer positions (fetch within KERNEL_TOL,
-    gradient bit for bit the plain version on the CPU), and the windowed
-    forward against the full forward at those positions (WINDOW_TOL of max
-    |.|)."""
+    """The space axis' run's tile-local decode on the card before it runs:
+    each rank's window of the flagship grid over the 256^3 volume, the
+    fetch and gradient kernels against their plain versions on the
+    windowed (15, 15, W', 16) grid at the rank's trainer positions (fetch
+    within KERNEL_TOL, gradient bit for bit the plain version on the CPU),
+    and the windowed forward against the full forward at those positions
+    (WINDOW_TOL of max |.|)."""
     cfg = load_config(FLAGSHIP_CONFIG)
     spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type), interp_backend='xla')
     meta = VolumeMeta((MESH_SPACE_N,) * 3)
     ph = tr.make_phase_spec(cfg, spec, meta, phase=1)
-    starts, length = tr.x_windows(ph, 2)
+    starts, length = tr.x_windows(ph, MESH_RANKS)
     model = init_model(spec, torch.Generator().manual_seed(SEED), device='cuda')
-    vol = torch.zeros((MESH_SPACE_N // 2, MESH_SPACE_N, MESH_SPACE_N), device='cuda')
+    slab = MESH_SPACE_N // MESH_RANKS
+    vol = torch.zeros((slab, MESH_SPACE_N, MESH_SPACE_N), device='cuda')
     g = torch.Generator(device='cuda').manual_seed(SEED + 3)
     rows = []
     for s, start in enumerate(starts):
-        c = tr.PhaseConstants(ph, vol, s * MESH_SPACE_N // 2)
-        norm, _ = tr.chunk_inputs(c, tr.draw_positions(c, 1, TRAIN_BATCH // 2, g))
+        c = tr.PhaseConstants(ph, vol, s * slab)
+        norm, _ = tr.chunk_inputs(c, tr.draw_positions(c, 1, TRAIN_BATCH // MESH_RANKS, g))
         norm = norm[0]
         grid = channel_minor(decode_volume(model, x_window=(start, length)))
         D, H, W, C = grid.shape
@@ -2695,15 +2936,26 @@ def mesh_windows():
         row['grad_bound_ms'], row['grad_bound_by'] = grad_bound_ms(n, C, D, H, W)
         rows.append(row)
     emit({'phase': 'mesh_windows', 'volume': list(meta.resolution),
-          'volume_note': 'synth_volume(256, seed=1, octaves=6): 255 does not divide 2',
+          'volume_note': f'synth_volume(256, seed=1, octaves=6): 255 does not divide {MESH_RANKS}',
           'rows': rows})
     return rows
 
 
-def mesh_train_row(name, tmp, vol_path, results, seconds, flags, default=None):
+
+
+# the collective calls of a train-3 mesh run's steps, a step: the data
+# axis' replicated state all-reduces; the space axis' ZeRO state
+# all-gathers and reduce-scatters (no data axis to average over)
+MESH_STEP_CALLS = ({'all_reduce': 1, 'reduce_scatter': 0, 'all_gather': 0},
+                   {'all_reduce': 0, 'reduce_scatter': 1, 'all_gather': 1})
+
+
+def mesh_train_row(name, tmp, vol_path, results, seconds, flags, step_calls, default=None):
     """Checks of a train-3 mesh run's ranks and its row: each rank launched
     the fetch and gradient kernels once a step (rank 0 the fetch also once
-    an evaluation chunk, and nothing else), every rank returns the same
+    an evaluation chunk, and nothing else), every rank made ``step_calls``
+    collective calls a step (at least: a phase's end and a save gather the
+    ZeRO state), whether replayed or eager, every rank returns the same
     evaluation, the loss fell, PSNR finite (within PSNR_MESH_DB of train's
     when given), the exported container restores."""
     info0 = results[0]['info']
@@ -2720,6 +2972,10 @@ def mesh_train_row(name, tmp, vol_path, results, seconds, flags, default=None):
                      gs.BWD_KERNEL: steps})
         check(r['launches'] == want, f"{name}: rank {rank} launched {r['launches']}, "
                                      f'expected {want}')
+        for op, n in step_calls.items():
+            got = r['collectives'][op]
+            check(got == n * steps if op != 'all_gather' else got >= n * steps,
+                  f'{name}: rank {rank} made {got} {op} calls in {steps} steps')
     check(info0['train_phase1_last_loss'] < info0['train_phase1_first_loss'],
           f'{name}: phase 1 loss did not fall')
     check(math.isfinite(info0['psnr']), f"{name}: non-finite PSNR {info0['psnr']}")
@@ -2734,11 +2990,13 @@ def mesh_train_row(name, tmp, vol_path, results, seconds, flags, default=None):
                                        torch.from_numpy(load_volume(vol_path)).cuda())[0]
     check(math.isfinite(psnr_binary), f'{name}: non-finite PSNR of the exported container')
     shutil.rmtree(exp)
-    per_rank = [r['info']['train_steps_per_sec'] * r['profile']['samples_per_rank_step']
+    per_rank = [r['info']['train_steps_per_sec'] * r['profile']['eager']['samples_per_rank_step']
                 for r in results]
     row = {'phase': name, 'flags': flags, 'ranks': MESH_RANKS,
            'backend': results[0]['backend'], 'devices': [r['device'] for r in results],
            'ranks_share_a_card': len({r['device'] for r in results}) < MESH_RANKS,
+           # train_torch.py's mesh steps run eagerly (solve_phase's graphs=None)
+           'steps_graphed': False,
            'collectives': 'torch.distributed on CUDA tensors (no host staging)',
            'volume': list(meta.resolution), 'max_pass': TRAIN_MAX_PASS, 'batch': TRAIN_BATCH,
            'steps': steps, 'launches_by_rank': [r['launches'] for r in results],
@@ -2753,26 +3011,84 @@ def mesh_train_row(name, tmp, vol_path, results, seconds, flags, default=None):
            'psnr_gap_db': gap, 'psnr_binary_restored': psnr_binary,
            'compression_ratio': info0['compression_ratio'], 'num_zeros': info0['num_zeros'],
            'profile_by_rank': [r['profile'] for r in results]}
+    if default is not None and default.get('train_samples_per_sec'):
+        row['summed_over_train'] = sum(per_rank) / default['train_samples_per_sec']
+    emit(row)
+    return row
+
+
+def gloo_graphs_raise():
+    """``solve_phase(graphs=True)`` on a gloo mesh (a world of one on the
+    card, this process's own group) raises before any step, naming gloo:
+    the message."""
+    import torch.distributed as dist
+    from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
+    ph, st, vol = flagship_state('')
+    with tempfile.TemporaryDirectory() as rendezvous:
+        dist.init_process_group('gloo', init_method=f'file://{rendezvous}/file',
+                                world_size=1, rank=0)
+        try:
+            mesh = pm.make_mesh(1, 1)
+            tr.solve_phase(ph, st, vol, RESUME_CHUNK, generator=torch.Generator(
+                device='cuda'), verbose=False, mesh=mesh, graphs=True)
+        except ValueError as e:
+            message = str(e)
+        else:
+            message = None
+        finally:
+            dist.destroy_process_group()
+    check(message is not None and 'gloo' in message and st.step == 0,
+          f'graphs=True on a gloo mesh gave {message!r} after {st.step} steps')
+    return message
+
+
+def phase_mesh_graphs(tmp, vol_path, vol256):
+    """The step's CUDA graph on the mesh: where every rank has a card
+    (NCCL), ``mesh_graph_check`` on every rank of both mesh runs (the data
+    axis on the flagship volume; the space axis with ZeRO and tile-local
+    decode on the 256^3 one); on fewer cards (NCCL refuses two ranks on one
+    card) a row saying so.  Both: graphs=True on a gloo mesh raises."""
+    refusal = gloo_graphs_raise()
+    cards = torch.cuda.device_count()
+    row = {'phase': 'mesh_graphs', 'cards': cards, 'ranks': MESH_RANKS,
+           'gloo_graphs_true_raises': refusal}
+    if cards < MESH_RANKS:
+        row.update(ran=False, reason=f'NCCL graphs need a card a rank: {MESH_RANKS} ranks, '
+                                     f'{cards} card(s) (NCCL refuses two ranks on one card; '
+                                     f'the mesh runs eagerly under gloo)')
+        emit(row)
+        return row
+    common = ['--config', FLAGSHIP_CONFIG, '--basedir', '/']
+    row.update(ran=True, chunks=MESH_GRAPH_CHUNKS, chunk=RESUME_CHUNK, runs={})
+    for name, path, flags in zip(mesh_names(), (vol_path, vol256), mesh_flags()):
+        ranks, seconds = mesh_launch(tmp, 'graphs', *common, '--data', path, *flags,
+                                     timeout=180)
+        check(all(r is not None for r in ranks), f'{name}: a rank wrote no result')
+        row['runs'][name] = {'flags': flags, 'torchrun_s': seconds,
+                             'by_rank': [r['graphs'] for r in ranks]}
     emit(row)
     return row
 
 
 def phase_mesh(tmp, vol_path, default=None):
     """Multi-device training on this machine's cards: MESH_RANKS ranks
-    through torch.distributed.run (NCCL with a card a rank, else gloo with
-    the ranks on one card, which the port refuses without gloo by name).
-    The data-parallel step against one rank on the same global stream, and
-    train-3 at data 2 on the flagship, in one launch; the windowed kernels
-    and forward, then train-3 at space 2 with the state sharded and tile-local
-    decode on a 256^3 volume.  Returns rank 0's launch counts of the data-2
-    run (the mesh path)."""
+    through torch.distributed.run (NCCL with a card a rank; else gloo with
+    the ranks on one card, which the port refuses without gloo by name);
+    train_torch.py's mesh steps run eagerly, the graphed ones are driven
+    with graphs=True.  The data-parallel
+    step against one rank on the same global stream, and train-3 on the
+    data axis on the flagship, in one launch; the windowed kernels and
+    forward; the graphed steps against eager ones (``phase_mesh_graphs``);
+    then train-3 on the space axis with the state sharded and tile-local
+    decode on a 256^3 volume.  Returns rank 0's launch counts of the data
+    axis' run (the mesh path) and the windows' rows."""
     from latent_feature_grid_compression_tpu_torch.parallel.distributed import rank_device
     cards, backend = torch.cuda.device_count(), mesh_backend()
     refused = None
     if cards < MESH_RANKS:
         # the port refuses more ranks than cards unless gloo is named ...
         env = {k: os.environ.get(k) for k in ('LOCAL_RANK', 'LOCAL_WORLD_SIZE')}
-        os.environ.update(LOCAL_RANK='1', LOCAL_WORLD_SIZE=str(MESH_RANKS))
+        os.environ.update(LOCAL_RANK=str(MESH_RANKS - 1), LOCAL_WORLD_SIZE=str(MESH_RANKS))
         try:
             rank_device('cuda', None, verbose=False)
             refused = None
@@ -2787,18 +3103,18 @@ def phase_mesh(tmp, vol_path, default=None):
             torch.cuda.set_device(0)
         check(refused is not None, 'two ranks on one card were not refused without gloo')
     emit({'phase': 'mesh_backend', 'cards': cards, 'ranks': MESH_RANKS, 'backend': backend,
-          'ranks_share_a_card': cards < MESH_RANKS,
+          'ranks_share_a_card': cards < MESH_RANKS, 'cli_steps_graphed': False,
           'port_refuses_without_gloo': refused})
 
-    # 1. data-parallel exactness, then 2. train-3 at data 2 on the flagship,
-    # in one launch
+    # 1. data-parallel exactness, then 2. train-3 on the data axis on the
+    # flagship, in one launch
     ph, st, vol, pos = dp_inputs(vol_path)
     single = dp_steps(ph, st, vol, pos)
     del st, vol
     common = ['--config', FLAGSHIP_CONFIG, '--max_pass', str(TRAIN_MAX_PASS), '--basedir', '/']
-    flags = ['--mesh_data', str(MESH_RANKS)]
+    (dp_name, space_name), (dp_flags, space_flags) = mesh_names(), mesh_flags()
     train_ranks, seconds = mesh_launch(tmp, 'dp_train', *common, '--data', vol_path,
-                                          '--expname', 'mesh_dp2', *flags)
+                                       '--expname', dp_name, *dp_flags)
     ranks = [r['dp'] for r in train_ranks]
     loss_err = max(rel(r['losses'], single['losses']) for r in ranks)
     check(loss_err <= ATOMICS_TOL, f'data-parallel losses off one rank by {loss_err}')
@@ -2818,18 +3134,19 @@ def phase_mesh(tmp, vol_path, default=None):
           'losses_single': single['losses'].tolist(),
           'losses_ranks': ranks[0]['losses'].tolist()})
 
-    mesh_train_row('mesh_dp2', tmp, vol_path, train_ranks, seconds, flags, default)
+    mesh_train_row(dp_name, tmp, vol_path, train_ranks, seconds, dp_flags,
+                   MESH_STEP_CALLS[0], default)
     counts = {k: train_ranks[0]['launches'][k] for k in (gs.KERNEL, gs.BWD_KERNEL)}
 
-    # 3. the windows, then train-3 at space 2, ZeRO and tile-local decode
+    # 3. the windows, 4. graphed steps against eager ones, then 5. train-3
+    # on the space axis, ZeRO and tile-local decode
     windows = mesh_windows()
     vol256 = os.path.join(tmp, 'synth256.npy')
     np.save(vol256, synth_volume(MESH_SPACE_N, seed=1, octaves=6))
-    flags = ['--mesh_space', str(MESH_RANKS), '--mesh_shard_params', '1',
-             '--mesh_local_decode', '1', '--interp_backend', 'xla']
+    phase_mesh_graphs(tmp, vol_path, vol256)
     ranks, seconds = mesh_launch(tmp, 'train', *common, '--data', vol256,
-                                    '--expname', 'mesh_space2_zero_local', *flags)
-    mesh_train_row('mesh_space2_zero_local', tmp, vol256, ranks, seconds, flags)
+                                 '--expname', space_name, *space_flags)
+    mesh_train_row(space_name, tmp, vol256, ranks, seconds, space_flags, MESH_STEP_CALLS[1])
     os.remove(vol256)
     return counts, windows
 
@@ -2842,6 +3159,8 @@ def phase_nccl_probe(tmp):
                                  may_fail=True)
     emit({'phase': 'nccl_probe', 'ranks': MESH_RANKS, 'card': 0, 'seconds': seconds,
           'results': probe})
+
+
 
 
 def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
@@ -2877,6 +3196,9 @@ def parse_args(argv):
     ap.add_argument('--mesh-worker', default=None, help=argparse.SUPPRESS)
     ap.add_argument('--mesh-out', default=None, help=argparse.SUPPRESS)
     ap.add_argument('--mesh-backend', default=None, help=argparse.SUPPRESS)
+    ap.add_argument('--mesh-ranks', type=int, default=MESH_RANKS,
+                    help='ranks of the mesh phase (default %(default)s; a card a rank '
+                         'runs them under NCCL)')
     args, rest = ap.parse_known_args(argv)
     if rest and args.mesh_worker is None:
         ap.error(f'unrecognized arguments: {" ".join(rest)}')
@@ -2891,7 +3213,9 @@ def parse_args(argv):
 
 
 def main(argv=None):
+    global MESH_RANKS
     args = parse_args(argv)
+    MESH_RANKS = args.mesh_ranks
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1

@@ -54,9 +54,11 @@ def _planes(coords: torch.Tensor, D: int, H: int, W: int):
     range) and its 4 corners in the order y, x, each the (N,) flat row index
     into the (D*H*W, C) grid (clamped into range) and the (N,) xy weight
     wxy = wx * wy (zero for an out-of-range corner)."""
-    sizes = torch.tensor([W, H, D], dtype=coords.dtype, device=coords.device)
-    # align_corners=False: pix = ((coord + 1) * size - 1) / 2
-    pix = ((coords + 1.0) * sizes - 1.0) * 0.5
+    # align_corners=False: pix = ((coord + 1) * size - 1) / 2, an axis at a
+    # time with the sizes as Python numbers (no tensor made on the host, so
+    # a CUDA graph can hold the plain versions)
+    pix = torch.stack([((coords[:, k] + 1.0) * size - 1.0) * 0.5
+                       for k, size in enumerate((W, H, D))], dim=1)
     lo = torch.floor(pix)
     frac = pix - lo
     lo = lo.to(torch.int64)

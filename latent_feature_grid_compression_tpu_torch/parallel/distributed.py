@@ -13,6 +13,7 @@ name, the only case in which ranks share a card (and the run says so).
 
 from __future__ import annotations
 
+import gc
 import os
 from typing import Optional
 
@@ -56,9 +57,43 @@ def initialize_distributed(backend: Optional[str] = None,
     else:
         raise ValueError("a multi-process run needs MASTER_ADDR and MASTER_PORT "
                          "(or JAX_COORDINATOR_ADDRESS)")
-    dist.init_process_group(backend or default_backend(device), init_method=init_method,
-                            world_size=world_size, rank=rank)
+    backend = backend or default_backend(device)
+    kw = {}
+    local_rank = _env_int('LOCAL_RANK') or 0
+    if backend == 'nccl' and local_rank < torch.cuda.device_count():
+        # Every rank's training step is captured with its collectives as
+        # one CUDA graph (train/trainer.py::ChunkRunner), and a capture can
+        # record NCCL work only on a communicator that already exists.  The
+        # process group bound to the rank's card makes the default group's
+        # communicator here, and each later group's when the group is made,
+        # not at a first collective (the capture's warm-up issues every
+        # collective of the step besides).  Bound so, torch 2.11 on an H100
+        # machine captured all_reduce, all_gather_into_tensor and
+        # reduce_scatter_tensor in the 'thread_local' capture mode and
+        # replayed them bit for bit between eager collectives; what it
+        # needed at the end is that no graph be left (shutdown_distributed)
+        kw['device_id'] = torch.device('cuda', local_rank)
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                            rank=rank, **kw)
     return True
+
+
+def shutdown_distributed():
+    """Destroy the default process group, if one is running, once no CUDA
+    graph holds NCCL work on it.  NCCL ends a communicator only when no
+    graph holds work on it: on an H100 machine (torch 2.11, NCCL 2.28.9)
+    both the destroy and an abort waited without end while a step's graph
+    was alive, and returned at once after it was released.  The chunk
+    runner drops its graph when a phase ends or raises
+    (``ChunkRunner.close``);
+    here the graphs no object refers to any more are collected and the
+    card finishes their work first."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == 'nccl':
+        gc.collect()
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
 
 
 def rank_device(device: str | torch.device = 'cuda', backend: Optional[str] = None,

@@ -31,6 +31,23 @@ Every collective counts its calls and the bytes that the ring model of
 :func:`comm_volume_per_step` gives its tensor (``counts``): a check that the
 step makes the calls the model assumes, at the sizes it assumes, not a
 measurement of what the backend moves.
+
+Under NCCL, where every rank has a card of its own, the trainer's chunk
+runner can capture each rank's step with its collectives as one CUDA graph
+a phase (``train/trainer.py::ChunkRunner``; ``solve_phase(graphs=True)``,
+while a mesh steps eagerly by default): the step's all-reduce of
+[gradient | scalars], and under ZeRO its all-gather of the parameters, its
+reduce-scatter of the gradient and its all-reduce over 'data', become
+nodes of the graph and run at every replay.  A count is taken where the
+Python call is made, so a replay counts nothing by itself: the runner
+records what the capture counted and adds it at each replay, with the
+kernels' launches (``ops/launch_counts.py``).  Everything around the
+steps stays eager on the same communicators, in the same order on every
+rank: the broadcast of the save and histogram flags after a chunk, the
+gathers of a save, ``unshard_train_state``, ``gather_objects``, the
+barrier and rank 0's evaluation.  Gloo's collectives cannot be captured,
+so a gloo mesh (and ranks that share a card run only under gloo) steps
+eagerly.
 """
 
 from __future__ import annotations

@@ -41,9 +41,13 @@ on the device, every update of the state is written in place and guarded
 by the stop flag (as JAX's ``lax.cond(state.stop, idle, step)``), the lr
 strategy runs at every step where its boundary flag says (as JAX's
 ``where(boundary, ...)``), and the losses go into per-chunk buffers at the
-step's row.  On a card without a mesh the step is captured once a phase as
-a CUDA graph and each step is one replay; on the CPU and on a mesh the same
-step runs eagerly.
+step's row.  On a card without a mesh the step is captured once a phase
+as a CUDA graph and each step is one replay; on a mesh under NCCL (a card
+a rank) the same is done when asked for (``solve_phase(graphs=True)``),
+each rank's graph holding the step's collectives too.  On the CPU and on a
+mesh by default the same step runs eagerly; a gloo mesh (gloo's
+collectives cannot be captured; ranks that share a card run only under
+gloo) always does.
 
 Reference quirk kept: in phase 2 the lr strategy's decays reach only the
 shadow lr (the reference's strategy still points at the phase-1 optimizer),
@@ -603,20 +607,28 @@ def _strategy(ph: PhaseSpec, st: TrainState, loss: torch.Tensor, t, hold, factor
             st.lr.mul_(factor)
 
 
-def capture_graph(warm: Callable[[], None], step: Callable[[], None]
-                  ) -> Callable[[], None]:
+def capture_graph(warm: Callable[[], None], step: Callable[[], None],
+                  error_mode: str = 'global') -> Callable[[], None]:
     """``warm`` run on a side stream, then ``step`` captured as one CUDA
     graph, whose allocations come from its own memory pool; returns the
     graph's replay.  The one seam between the chunk runner and CUDA graphs:
     a capture that fails (a host synchronisation, an allocation outside the
-    pool) raises, and nothing falls back to eager steps."""
+    pool, a collective of a backend other than NCCL) raises, and nothing
+    falls back to eager steps.  On a mesh ``step`` holds NCCL collectives,
+    which the capture records as nodes of the graph: their communicators
+    must exist before it starts (``warm`` issues every collective of the
+    step), and PyTorch waits there for the eager NCCL work its watchdog
+    still tracks.  ``error_mode``: the capture's ``capture_error_mode``;
+    on a mesh 'thread_local', so that the NCCL watchdog thread's event
+    queries do not void the capture, while a call of this thread that a
+    graph cannot hold still raises."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         warm()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode=error_mode):
         step()
     return graph.replay
 
@@ -632,8 +644,10 @@ class ChunkRunner:
     ``read`` is the chunk's one device read.  ``graphs``: ``capture``
     records the step as a CUDA graph (``capture_graph``, warmed up on a
     scratch copy of the state) and every step is then one replay, which
-    adds the launches the capture counted to the wrappers' counts; else
-    each step runs eagerly.  ``step_kw``: ``train_step``'s mesh arguments."""
+    adds the launches and the mesh's collective calls the capture counted
+    to their counts (``ops/launch_counts.py``); else each step runs
+    eagerly.  ``step_kw``: ``train_step``'s mesh arguments (every rank of
+    the mesh makes its runner alike, so all capture at the same step)."""
 
     def __init__(self, ph: PhaseSpec, st: TrainState, c: PhaseConstants, N: int,
                  steps: int, masks=None, terms: bool = False, graphs: bool = False,
@@ -655,7 +669,7 @@ class ChunkRunner:
         self.out: Optional[torch.Tensor] = None
         self.graphs = graphs
         self.replay: Optional[Callable[[], None]] = None
-        self.replay_launches: Optional[Tuple[int, ...]] = None
+        self.replay_launches: Optional[Tuple[float, ...]] = None
 
     def _rewind(self):
         self.at[:1].zero_()
@@ -692,7 +706,10 @@ class ChunkRunner:
 
     def capture(self):
         """Capture the step on the state as a CUDA graph, after
-        ``WARMUP_STEPS`` steps on a scratch copy of it (not counted)."""
+        ``WARMUP_STEPS`` steps on a scratch copy of it (not counted).  On a
+        mesh the warm-up issues every collective of the step on every
+        process group it uses, on every rank, so that each NCCL
+        communicator exists before the capture starts."""
         global warmup_steps
         st = self.st
         scratch = dataclasses.replace(st, **{name: getattr(st, name).clone()
@@ -705,13 +722,20 @@ class ChunkRunner:
                 self._rewind()
                 self._step(scratch)
             launch_counts.write(mark)
+        mode = 'thread_local' if self.step_kw.get('sc') is not None else 'global'
         try:
-            self.replay = capture_graph(warm, lambda: self._step(st))
+            self.replay = capture_graph(warm, lambda: self._step(st), mode)
             self.replay_launches = launch_counts.since(mark)
         finally:
             launch_counts.write(mark)
         warmup_steps += WARMUP_STEPS
         self._rewind()
+
+    def close(self):
+        """Drop the step's graph: under NCCL a process group ends only once
+        no graph holds work on its communicators
+        (``parallel/distributed.py::shutdown_distributed``)."""
+        self.replay = None
 
     def step(self):
         if self.replay is None:
@@ -864,8 +888,10 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 local_decode: bool = False, graphs: Optional[bool] = None) -> TrainState:
     """Run one phase until its pass budget is spent or the plateau stop; a
     state that has finished its phase (``phase_done``) takes no step.  The
-    steps go through a ``ChunkRunner``: on a card without a mesh each is a
-    replay of the step's CUDA graph, captured before the phase's first step.
+    steps go through a ``ChunkRunner``: on a card without a mesh (and on
+    an NCCL mesh with ``graphs=True``) each is a replay of the step's CUDA
+    graph (on a mesh with its collectives), captured before the phase's
+    first step and dropped when the phase ends or raises.
 
     volume:           the (X, Y, Z) ground truth on the training device
                       (the rank's x-slab on a mesh with a space axis).
@@ -908,9 +934,12 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                       verbose are rank 0's (the caller passes them there).
     graphs:           False: eager steps on the card too (the tests, the
                       smoke and step_rates_turns.py hold graphs against
-                      them); True: graphs required (raises on a mesh, and
-                      without a card at the capture); None: graphs where the
-                      volume is on a card and there is no mesh.
+                      them); True: graphs required (raises on a mesh whose
+                      backend is not NCCL, and without a card at the
+                      capture); None: graphs where the volume is on a card
+                      and there is no mesh; eager on the CPU and on a mesh
+                      (an NCCL mesh's graphed steps are taken only when
+                      asked for).  A resumed phase captures afresh.
     """
     if positions is None and generator is None:
         raise ValueError("solve_phase needs a generator or a positions iterator")
@@ -918,8 +947,11 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
             and noise_generator is None):
         raise ValueError(f"drop_type {ph.drop_type!r} needs a noise generator "
                          f"or a gate-noise iterator")
-    if graphs and mesh is not None:
-        raise ValueError("the step's CUDA graph takes one device: no mesh")
+    capturable = mesh is None or mesh.backend == 'nccl'
+    if graphs and not capturable:
+        raise ValueError(f"the step's CUDA graph takes NCCL's collectives; this mesh "
+                         f"runs {mesh.backend}, whose collectives cannot be captured "
+                         f"(graphs=False, or one card a rank under NCCL)")
     if graphs is None:
         graphs = mesh is None and volume.device.type == 'cuda'
     state, c, N, step_kw = shard_phase(ph, state, volume, mesh, use_space, shard_params,
@@ -948,8 +980,10 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                                     rank_states=rank_states)
 
     chunk = 0
-    # the writer's worker (an executor starts its thread at the first submit)
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    # the writer's worker (an executor starts its thread at the first
+    # submit); the step's graph is closed however the phase ends: under NCCL
+    # a process group ends only once no graph holds work on it
+    with ThreadPoolExecutor(max_workers=1) as pool, contextlib.closing(runner):
         futures = []
         while state.step < ph.t_max and not stopped:
             n = min(steps_per_chunk, ph.t_max - state.step)

@@ -293,7 +293,8 @@ def test_replays_count_the_captured_launches(drop_type, monkeypatch):
 
     captures = []
 
-    def fake_capture(warm, capture_step):
+    def fake_capture(warm, capture_step, error_mode):
+        assert error_mode == 'global'
         warm()
         held = {name: getattr(live, name).clone() for name in TENSOR_FIELDS
                 if getattr(live, name) is not None}
@@ -323,11 +324,39 @@ def test_replays_count_the_captured_launches(drop_type, monkeypatch):
     _assert_states_equal(graph_state, eager_state)
 
 
-def test_graphs_take_no_mesh():
-    ph, fresh, _ = _phase('smallify', 1)
-    with pytest.raises(ValueError, match='no mesh'):
-        ttr.solve_phase(ph, fresh(), torch.from_numpy(_volume()), 4,
-                        generator=torch.Generator(), mesh=object(), graphs=True)
+@pytest.mark.parametrize('backend,graphs', [('gloo', True), ('gloo', None), (None, None)])
+def test_graphs_take_no_mesh(backend, graphs, tmp_path, monkeypatch):
+    """The step's CUDA graph takes a mesh only under NCCL: on a gloo mesh
+    (a world of one, the process group's own) ``graphs=True`` raises,
+    naming gloo, before any step; ``graphs=None`` steps eagerly there and
+    on the CPU without a mesh (no capture is made)."""
+    import torch.distributed as dist
+    from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
+
+    def no_capture(*a, **k):
+        raise AssertionError('a capture was made')
+    monkeypatch.setattr(ttr, 'capture_graph', no_capture)
+    ph, fresh, _ = _phase('smallify', 1, max_pass=2)
+    mesh = None
+    if backend is not None:
+        dist.init_process_group(backend, init_method='file://' + str(tmp_path / 'rendezvous'),
+                                world_size=1, rank=0)
+        mesh = pm.make_mesh(1, 1, 'cpu')
+
+    def run():
+        return ttr.solve_phase(ph, fresh(), torch.from_numpy(_volume()), 4,
+                               generator=torch.Generator().manual_seed(0), verbose=False,
+                               mesh=mesh, graphs=graphs)
+    try:
+        if graphs:
+            with pytest.raises(ValueError, match='runs gloo, whose collectives cannot be '
+                                                 'captured'):
+                run()
+        else:
+            assert run().step > 4
+    finally:
+        if backend is not None:
+            dist.destroy_process_group()
 
 
 def test_launch_counts_read_write_add():

@@ -109,6 +109,7 @@ def _sources():
     yield os.path.join(REPO, 'ablate_mlp.py')
     yield os.path.join(REPO, 'ablate_fetch.py')
     yield os.path.join(REPO, 'resume_noise.py')
+    yield os.path.join(REPO, 'split_fetch_train.py')
     yield os.path.join(REPO, 'infer_torch.py')
     yield os.path.join(REPO, 'train_torch.py')
     yield os.path.join(REPO, 'examples', 'nas_example_torch.py')

@@ -10,6 +10,7 @@ The job carries the inputs the parent made with numpy (and the JAX
 package): models, volumes, position streams.
 """
 
+import copy
 import dataclasses
 import datetime
 import os
@@ -21,7 +22,8 @@ import torch.multiprocessing as mp
 
 from latent_feature_grid_compression_tpu_torch.config import TrainConfig
 from latent_feature_grid_compression_tpu_torch.data.volume import VolumeMeta
-from latent_feature_grid_compression_tpu_torch.io.train_state_io import load_train_state
+from latent_feature_grid_compression_tpu_torch.io.train_state_io import (
+    TENSOR_FIELDS, load_train_state)
 from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
 from latent_feature_grid_compression_tpu_torch.train import run as trun
 from latent_feature_grid_compression_tpu_torch.train import trainer as ttr
@@ -220,6 +222,137 @@ def task_training(rank, job, tmp):
     files = sorted(os.path.relpath(os.path.join(r, f), cwd)
                    for r, _, fs in os.walk(cwd) for f in fs)
     return dict(info=info, flats=flats, files=files)
+
+
+def task_jax_runner(rank, job, tmp):
+    """Each of ``job['runner_cases']`` for this world's size: the port's
+    ``solve_phase`` on the mesh from the JAX state carried across, this
+    rank's positions those of its JAX device (``positions[rank]``) and the
+    gate noise the same on every rank: (the steps taken, lr, shadow lr,
+    stop flag, every step's loss and volume loss)."""
+    out = {}
+    for name, case in job['runner_cases'].items():
+        if case['data'] * case['space'] != dist.get_world_size():
+            continue
+        mesh = pm.make_mesh(case['data'], case['space'], 'cpu')
+        losses, vol_losses = [], []
+        noise = case['noise']
+        st = ttr.solve_phase(case['ph'], case['state'], pm.shard_volume(mesh, job['volume']),
+                             case['chunk'], positions=iter(case['positions'][rank]),
+                             gate_noise=None if noise is None else iter(noise),
+                             verbose=False, metric_cb=losses.append,
+                             volume_cb=vol_losses.append, mesh=mesh,
+                             shard_params=case['shard_params'],
+                             local_decode=case['local_decode'])
+        out[name] = dict(step=st.step, lr=float(st.lr), shadow_lr=float(st.shadow_lr),
+                         stop=bool(st.stop), losses=np.concatenate(losses),
+                         vol_losses=np.concatenate(vol_losses))
+    return out
+
+
+def task_graph_stub(rank, job, tmp):
+    """Each of ``job['stub_cases']``: a phase through ``solve_phase`` on the
+    mesh with eager steps, and with graphed steps whose capture is stubbed
+    at ``trainer.capture_graph``: the stub runs the warm-up, then the step
+    once as the capture (its effects on the runner's state taken back) and
+    returns a replay that runs the step with every count held, as a graph's
+    replay calls no wrapper and no collective's Python.  The graphed run's
+    mesh reads 'nccl' (the one change the stub needs to pass solve_phase's
+    backend check; its groups are the gloo ones).  A step stands in for
+    two kernel launches (fetch and gradient).  Returns, a mode each: the
+    final state's tensors, the losses, the launch and collective counts and
+    the warm-up steps; and what each capture added to the counts.  Then a
+    graphed phase whose ``metric_cb`` raises after the first chunk
+    ('raised'): its captures, the steps its runner took, and whether the
+    runner dropped its replay."""
+    from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
+    from latent_feature_grid_compression_tpu_torch.ops import launch_counts
+    step, capture, init = ttr.train_step, ttr.capture_graph, ttr.ChunkRunner.__init__
+    kernels = len(launch_counts.KERNEL_COUNTERS)
+    runners, captures = [], []
+
+    def counted_step(*a, **k):
+        gs.launches += 1
+        gs.bwd_launches += 1
+        return step(*a, **k)
+
+    def recorded_init(self, *a, **k):
+        init(self, *a, **k)
+        runners.append(self)
+
+    def fake_capture(warm, capture_step, error_mode):
+        warm()
+        live = runners[-1].st
+        held = {f: t.clone() for f, t in _state_tensors(live).items()}
+        capture_step()
+        for f, t in held.items():
+            getattr(live, f).copy_(t)
+        captures[-1].append((launch_counts.read()[:kernels], dict(pm.counts), error_mode))
+
+        def replay():
+            mark = launch_counts.read()
+            capture_step()
+            launch_counts.write(mark)
+        return replay
+
+    class Raised(Exception):
+        pass
+
+    def raise_after_chunk(_):
+        raise Raised
+
+    out = {}
+    ttr.train_step, ttr.capture_graph = counted_step, fake_capture
+    ttr.ChunkRunner.__init__ = recorded_init
+    try:
+        for name, case in job['stub_cases'].items():
+            mesh = pm.make_mesh(*case['shape'], 'cpu')
+            got = {}
+            for mode in ('eager', 'graphed'):
+                graphed = mode == 'graphed'
+                captures.append([])
+                launch_counts.write((0,) * len(launch_counts.COUNTERS))
+                pm.reset_counts()
+                warm0 = ttr.warmup_steps
+                losses = []
+                final = ttr.solve_phase(
+                    case['ph'], copy.deepcopy(case['state']),
+                    pm.shard_volume(mesh, job['volume']), 7,
+                    generator=torch.Generator().manual_seed(5 + rank),
+                    noise_generator=torch.Generator().manual_seed(6), verbose=False,
+                    metric_cb=losses.append,
+                    mesh=dataclasses.replace(mesh, backend='nccl') if graphed else mesh,
+                    shard_params=case['shard_params'], graphs=graphed)
+                got[mode] = dict(step=final.step, state=_state_tensors(final),
+                                 losses=np.concatenate(losses),
+                                 launches=launch_counts.read()[:kernels],
+                                 collectives=dict(pm.counts),
+                                 warmup_steps=ttr.warmup_steps - warm0,
+                                 captures=captures[-1])
+            # a graphed phase whose first chunk's callback raises
+            captures.append([])
+            try:
+                ttr.solve_phase(case['ph'], copy.deepcopy(case['state']),
+                                pm.shard_volume(mesh, job['volume']), 7,
+                                generator=torch.Generator().manual_seed(5 + rank),
+                                noise_generator=torch.Generator().manual_seed(6),
+                                verbose=False, metric_cb=raise_after_chunk,
+                                mesh=dataclasses.replace(mesh, backend='nccl'),
+                                shard_params=case['shard_params'], graphs=True)
+            except Raised:
+                runner = runners[-1]
+                got['raised'] = dict(captures=len(captures[-1]), step=runner.st.step,
+                                     replay_dropped=runner.replay is None)
+            out[name] = got
+    finally:
+        ttr.train_step, ttr.capture_graph = step, capture
+        ttr.ChunkRunner.__init__ = init
+    return out
+
+
+def _state_tensors(st):
+    return {name: getattr(st, name).clone() for name in TENSOR_FIELDS
+            if getattr(st, name) is not None}
 
 
 TASKS = {name[5:]: fn for name, fn in globals().items() if name.startswith('task_')}

@@ -41,6 +41,30 @@ def jax_gate_uniform_stream(k_train_phase, steps_per_chunk, shapes, n_chunks=100
                    for k, sh in zip(keys, shapes)]
 
 
+def jax_mesh_pos_stream(k_train_phase, steps_per_chunk, N, local_res, device_index,
+                        n_chunks):
+    """One device's positions under the JAX package's sharded chunk
+    runners (``parallel/mesh.py::make_sharded_chunk_runner``,
+    ``make_zero_sharded_chunk_runner``): per chunk ``key, k_pos, k_gate =
+    split(key, 3)``, then ``fold_in(k_pos, device_index)`` (the device's
+    row-major index on the ('data', 'space') mesh, the port's rank) and one
+    (steps, N, 3) randint below ``local_res``, the device's slab
+    (JAX ``train/trainer.py::_make_step_parts``' ``sample_chunk``).  Returns
+    the ``n_chunks`` chunks' steps as one (n_chunks * steps, N, 3) int32
+    array, local to the slab."""
+    import jax
+    import jax.numpy as jnp
+    key = k_train_phase
+    res = jnp.asarray(local_res, jnp.int32)
+    chunks = []
+    for _ in range(n_chunks):
+        key, k_pos, _k_gate = jax.random.split(key, 3)
+        k_pos = jax.random.fold_in(k_pos, device_index)
+        chunks.append(np.asarray(jax.random.randint(k_pos, (steps_per_chunk, N, 3), 0,
+                                                    res[None, None, :])))
+    return np.concatenate(chunks).astype(np.int32)
+
+
 def prune(jax_params, fraction, seed):
     """Zero about ``fraction`` of every coefficient tensor (a stand-in for a
     pruned model, so the container's mask path is exercised)."""

@@ -25,6 +25,7 @@ import torch.distributed as dist
 
 from latent_feature_grid_compression_tpu_torch.config import config_from_args
 from latent_feature_grid_compression_tpu_torch.device import disable_tf32, resolve_device
+from latent_feature_grid_compression_tpu_torch.parallel.distributed import shutdown_distributed
 from latent_feature_grid_compression_tpu_torch.train import training
 
 
@@ -45,8 +46,8 @@ def main(argv=None):
     try:
         return training(cfg, device=device, dist_backend=args.dist_backend)
     finally:
-        if started and dist.is_initialized():
-            dist.destroy_process_group()
+        if started:
+            shutdown_distributed()
 
 
 if __name__ == '__main__':
