@@ -205,19 +205,29 @@ in order:
                  15, W', 16): fetch and gradient kernels against their
                  plain versions, the windowed forward against the full
                  one.  mesh_graphs: graphs=True on a gloo mesh raises;
-                 with a card a rank, both runs' phase-1 state through
+                 with a card a rank, every run's phase-1 state through
                  solve_phase for 3 chunks of 50 steps graphed and eager,
                  saving after every chunk, then the graphed run resumed
                  after its second chunk: on every rank the losses, the
                  states, the launches and the collective counts equal,
                  the step graph's kernel nodes (NCCL's among them); on
                  fewer cards a row saying that it did not run.
-                 (train_torch.py's mesh steps run eagerly; the graphed
-                 ones only where graphs=True is asked for.)
+                 train_torch.py's mesh steps are replays of each phase's
+                 graph under NCCL and eager under gloo (the trainer's
+                 default; each rank's captures are checked), and every
+                 rank ends its process group through
+                 shutdown_distributed with no step graph left alive.
                  mesh_space2_zero_local: train-3 at --mesh_space N
                  --mesh_shard_params 1 --mesh_local_decode 1
                  --interp_backend xla on that volume (an all-gather and a
-                 reduce-scatter a step).  Each run: samples/s per rank and
+                 reduce-scatter a step); at 4 ranks also
+                 mesh_dp2_space2_zero_local, the same at --mesh_data 2
+                 --mesh_space 2 (and an all-reduce over 'data'), with its
+                 windows.  Under NCCL, mesh_cli: train_torch.py itself
+                 under torch.distributed.run and a time limit at
+                 --mesh_data 2, and at 4 ranks the 2 x 2 mesh: exit 0,
+                 one step graph a phase, PSNR within 1 dB of train's.
+                 Each run: samples/s per rank and
                  summed (and over train's), ms a step, a profiled chunk of
                  50 steps eager and, under NCCL, graphed (ms a step, host
                  launch calls, idle share, NCCL's kernels and device ms, the
@@ -229,10 +239,10 @@ in order:
                  library's times (F.grid_sample, its aten backward)
  18. step_rates  the flagship step time of each backend (the bf16 paths
                  too) and of dynamic variational, eager and graphed, without
-                 the profiler: 3 rounds of a 200-step chunk each, the paths
-                 and modes in turns; then each of those paths' train-3
-                 through train_torch.py with eager steps (solve_phase's
-                 graphs=False), its PSNR equal to the graphed run's
+                 the profiler: 2 rounds of a 200-step chunk each (50
+                 eager), the paths and modes in turns; then each of those paths through
+                 train_torch.py at --max_pass 1, graphed and eager
+                 (solve_phase's graphs=False), the PSNRs equal
  19. kernels     one line {"kernels": [...]} for every ported kernel
 
 Every count of launches is set to 0 just before a path is driven and read
@@ -271,6 +281,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 from unittest import mock
 
 import numpy as np
@@ -374,6 +385,10 @@ BF16_BACKENDS = ('_bf16', '_bf16_fused')
 # host's time to enqueue the calls of one timed run (measured in time_ms)
 SPIN_CYCLES = 20_000_000
 SPIN_CYCLES_PER_MS = 2_000_000   # the SM clock is below 2 GHz
+# time_ms: the host milliseconds after which a measurement stops taking
+# runs, and the fewest runs whose median it takes
+TIME_MS_BUDGET = 500.0
+MIN_REPS = 7
 FADD_CYCLES = 4                  # a dependent float add's latency on Hopper
 
 
@@ -428,7 +443,9 @@ def time_ms(fn, reps=25, inner=10, warmup=3):
     queued behind a spin kernel that lasts at least twice as long as the
     host takes to enqueue the run (measured once), so the card starts it
     only once the host has launched every call: the host's launch time does
-    not show."""
+    not show.  The runs stop early, after at least MIN_REPS, once they have
+    taken TIME_MS_BUDGET of the host's clock (a plain version's take
+    milliseconds a call; a kernel's 25 runs take ~0.3 s)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -438,7 +455,9 @@ def time_ms(fn, reps=25, inner=10, warmup=3):
     host_ms = (time.perf_counter() - t0) * 1e3
     spin = max(SPIN_CYCLES, int(2 * host_ms * SPIN_CYCLES_PER_MS))
     times = []
-    for _ in range(reps):
+    t0 = time.perf_counter()
+    while len(times) < reps and (len(times) < MIN_REPS or
+                                 (time.perf_counter() - t0) * 1e3 < TIME_MS_BUDGET):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
@@ -1390,6 +1409,13 @@ def flagship_chunks(suffix, graphs, config=FLAGSHIP_CONFIG, steps=GRAPH_CHUNK):
     return chunk
 
 
+def is_nccl_kernel(name):
+    """Whether a kernel's name is one of NCCL's (``ncclDevKernel_*``, and
+    ``ncclKernel_*`` in NCCL before 2.19), not an annotation such as
+    'nccl:all_reduce'."""
+    return 'ncclDevKernel' in name or 'ncclKernel' in name
+
+
 def profile_train_steps(chunk, steps, graphs):
     """One chunk of ``steps`` flagship phase-1 steps (``chunk``, from
     ``flagship_chunks``: its draws, the steps, its device read) under
@@ -1403,8 +1429,12 @@ def profile_train_steps(chunk, steps, graphs):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_ms = chunk() * 1e3
     events = prof.key_averages()
+    # the card's kernels, memcpys and memsets; not the spans of host
+    # annotations the trace also puts on the card's timeline (NCCL's
+    # 'nccl:all_reduce', the mesh's 'mesh::all_reduce'), which cover them
     rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
-                   for e in events if e.device_type == DeviceType.CUDA), reverse=True)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False)), reverse=True)
     # host side: time inside PyTorch's operators (exclusive), by operator;
     # the rest of the wall time is Python between them
     host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
@@ -1412,7 +1442,7 @@ def profile_train_steps(chunk, steps, graphs):
     launch_calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
     busy_ms = sum(r[0] for r in rows)
     calls = {name: sum(r[2] for r in rows if name in r[1]) for name in PROFILED_KERNELS}
-    nccl = [r for r in rows if 'nccl' in r[1].lower()]
+    nccl = [r for r in rows if is_nccl_kernel(r[1])]
     return {'steps': steps, 'graphs': graphs, 'wall_ms': wall_ms,
             'ms_per_step': wall_ms / steps,
             'samples_per_sec': steps * TRAIN_BATCH / (wall_ms / 1e3),
@@ -1491,8 +1521,8 @@ def profile_modes(suffix='', config=FLAGSHIP_CONFIG):
     return out
 
 
-def run_train3(tmp, vol_path, path, graphs):
-    """train_torch.py at max_pass 3 on ``path`` of STEP_PATHS, its phases
+def run_train(tmp, vol_path, path, graphs, max_pass):
+    """train_torch.py at ``max_pass`` on ``path`` of STEP_PATHS, its phases
     with or without the step's CUDA graph (solve_phase's keyword, which the
     CLI does not take): (info, seconds of the call)."""
     import functools
@@ -1509,7 +1539,7 @@ def run_train3(tmp, vol_path, path, graphs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             info = train_torch.main(['--config', config, '--data', vol_path,
-                                     '--max_pass', str(TRAIN_MAX_PASS), '--basedir', '/',
+                                     '--max_pass', str(max_pass), '--basedir', '/',
                                      '--expname', path + '_turns', *flags])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -1519,46 +1549,54 @@ def run_train3(tmp, vol_path, path, graphs):
     return info, seconds
 
 
-def phase_step_rates(rounds=3, steps=GRAPH_CHUNK, modes=MODES, tmp=None, vol_path=None,
-                     trained=None):
+# the depth of step_rates' train_torch.py runs, graphed against eager: the
+# published 60 passes cut to 1 (the eager runs are the smoke's slowest
+# training; the train phases run every path graphed at TRAIN_MAX_PASS)
+STEP_RATES_MAX_PASS = 1
+
+
+def phase_step_rates(rounds=2, steps=GRAPH_CHUNK, modes=MODES, tmp=None, vol_path=None,
+                     eager_steps=None):
     """Steady flagship phase-1 step time of every path of STEP_PATHS with
     the step's CUDA graph and with eager steps, without the profiler: host
-    clock around chunks of ``steps`` steps (``flagship_chunks``: the draws,
-    the loads, the steps, the one device read), the paths and modes in
-    turns and the order reversed every other round, so that a drift of the
-    shared host falls on all of them alike.  With ``tmp``: each path's
-    train-3 through train_torch.py with eager steps, against ``trained``
-    (path: the info of its graphed run in this call): the PSNR equal to
-    every digit (the steps are bit for bit), and both calls' seconds."""
+    clock around chunks of ``steps`` steps (``eager_steps`` eager, where
+    given: an eager step is host-bound, the same each step;
+    ``flagship_chunks``: the draws, the loads, the steps, the one device
+    read), the paths and modes in turns and the order reversed every other
+    round, so that a drift of the shared host falls on all of them alike.  With ``tmp``: each path
+    through train_torch.py at STEP_RATES_MAX_PASS, graphed then eager: the
+    PSNR equal to every digit (the steps are bit for bit), and both calls'
+    seconds."""
     order = [(path, mode) for path in STEP_PATHS for mode in modes]
+    n = {'graphed': steps, 'eager': eager_steps or steps}
     runs = {(path, mode): flagship_chunks(STEP_PATHS[path][0], mode == 'graphed',
-                                          STEP_PATHS[path][1], steps)
+                                          STEP_PATHS[path][1], n[mode])
             for path, mode in order}
     ms = {key: [] for key in order}
     for r in range(rounds):
         for key in (order if r % 2 == 0 else order[::-1]):
-            ms[key].append(runs[key]() * 1e3 / steps)
+            ms[key].append(runs[key]() * 1e3 / n[key[1]])
     del runs
-    row = {'phase': 'step_rates', 'rounds': rounds, 'steps': steps, 'batch': TRAIN_BATCH,
+    row = {'phase': 'step_rates', 'rounds': rounds, 'steps': n, 'batch': TRAIN_BATCH,
            'ms_per_step': {}, 'median_samples_per_sec': {}}
     for (path, mode), v in ms.items():
         row['ms_per_step'][f'{path}_{mode}'] = v
         row['median_samples_per_sec'][f'{path}_{mode}'] = \
             TRAIN_BATCH / (statistics.median(v) / 1e3)
     if tmp is not None:
-        row['train3'] = {}
+        row['train_cli'] = {'max_pass': STEP_RATES_MAX_PASS}
         for path in STEP_PATHS:
-            info, seconds = run_train3(tmp, vol_path, path, graphs=False)
-            graphed = (trained or {}).get(path)
-            if graphed is not None:
-                check(info['psnr'] == graphed['psnr'],
-                      f"{path}: train-3 PSNR eager {info['psnr']}, graphed {graphed['psnr']}")
-            row['train3'][path] = {
+            runs = {mode: run_train(tmp, vol_path, path, mode == 'graphed',
+                                    STEP_RATES_MAX_PASS) for mode in ('graphed', 'eager')}
+            (graphed, graphed_s), (info, seconds) = runs['graphed'], runs['eager']
+            check(info['psnr'] == graphed['psnr'],
+                  f"{path}: train-{STEP_RATES_MAX_PASS} PSNR eager {info['psnr']}, graphed "
+                  f"{graphed['psnr']}")
+            row['train_cli'][path] = {
                 'eager_cli_s': seconds, 'eager_psnr': info['psnr'],
                 'eager_phase_s': [info[f'train_phase{p}_seconds'] for p in (1, 2)],
-                **({} if graphed is None else {
-                    'graphed_cli_s': graphed['train_cli_s'], 'graphed_psnr': graphed['psnr'],
-                    'graphed_phase_s': [graphed[f'train_phase{p}_seconds'] for p in (1, 2)]})}
+                'graphed_cli_s': graphed_s, 'graphed_psnr': graphed['psnr'],
+                'graphed_phase_s': [graphed[f'train_phase{p}_seconds'] for p in (1, 2)]}
     emit(row)
     return row
 
@@ -2484,17 +2522,35 @@ def mesh_backend():
     return 'nccl' if torch.cuda.device_count() >= MESH_RANKS else 'gloo'
 
 
-def mesh_names():
-    """The mesh phase's run names at MESH_RANKS ranks."""
-    return f'mesh_dp{MESH_RANKS}', f'mesh_space{MESH_RANKS}_zero_local'
+def cli_steps_graphed(backend):
+    """Whether train_torch.py's mesh steps under ``backend`` are replays of
+    the step's CUDA graph: the trainer's default on a card
+    (``trainer.use_step_graphs``)."""
+    return tr.use_step_graphs(None, types.SimpleNamespace(backend=backend), 'cuda')
 
 
-def mesh_flags():
-    """train_torch.py's flags of the two mesh runs: the data axis, and the
-    space axis with the state sharded and tile-local decode."""
-    return (['--mesh_data', str(MESH_RANKS)],
-            ['--mesh_space', str(MESH_RANKS), '--mesh_shard_params', '1',
-             '--mesh_local_decode', '1', '--interp_backend', 'xla'])
+ZERO_LOCAL = ['--mesh_shard_params', '1', '--mesh_local_decode', '1', '--interp_backend', 'xla']
+
+
+def mesh_runs():
+    """The mesh phase's train-3 runs at MESH_RANKS ranks: (name,
+    train_torch.py's flags, whether on the 256^3 volume, the collective
+    calls a step).  The data axis on the flagship (its replicated state
+    all-reduces); the space axis with the state sharded and tile-local
+    decode (all-gather and reduce-scatter, no data axis to average over);
+    at 4 ranks also the JAX README's layout (--mesh_data 4 --mesh_space 2,
+    8 chips) cut to 2 x 2, whose step all-gathers and reduce-scatters over
+    'space' and all-reduces over 'data'."""
+    r = MESH_RANKS
+    runs = [(f'mesh_dp{r}', ['--mesh_data', str(r)], False,
+             {'all_reduce': 1, 'reduce_scatter': 0, 'all_gather': 0}),
+            (f'mesh_space{r}_zero_local', ['--mesh_space', str(r), *ZERO_LOCAL], True,
+             {'all_reduce': 0, 'reduce_scatter': 1, 'all_gather': 1})]
+    if r == 4:
+        runs.append(('mesh_dp2_space2_zero_local',
+                     ['--mesh_data', '2', '--mesh_space', '2', *ZERO_LOCAL], True,
+                     {'all_reduce': 1, 'reduce_scatter': 1, 'all_gather': 1}))
+    return runs
 
 
 # a mesh worker prints every thread's stack and exits this many seconds
@@ -2502,29 +2558,21 @@ def mesh_flags():
 DUMP_BEFORE_S = 30
 
 
-def mesh_launch(tmp, kind, *argv, backend=None, timeout=300, may_fail=False):
-    """This script's mesh worker ``kind`` on MESH_RANKS ranks through
-    torch.distributed.run, from ``tmp``: (each rank's result, None for a
-    rank that wrote none, seconds).  ``backend`` None: :func:`mesh_backend`;
-    a failed launch raises unless ``may_fail``, printing the end of its
-    output.  Past ``timeout`` the launcher is sent SIGTERM, which it passes
-    to its ranks (each in a session of its own), then SIGKILL."""
-    out = os.path.join(tmp, 'mesh_' + kind)
-    os.makedirs(out, exist_ok=True)
-    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
-           '--nproc_per_node', str(MESH_RANKS), os.path.abspath(__file__),
-           '--mesh-worker', kind, '--mesh-out', out, '--mesh-ranks', str(MESH_RANKS),
-           '--mesh-backend', backend or mesh_backend(), *argv]
+def run_launcher(cmd, cwd, log, timeout, what):
+    """``cmd`` (a torch.distributed.run) from ``cwd`` in a session of its
+    own, with this checkout on the path and the mesh workers' stack dump
+    DUMP_BEFORE_S before ``timeout``, its output into the file ``log`` (a
+    rank left running cannot hold a pipe open): (exit code, the output,
+    seconds).  Past ``timeout`` the launcher is sent SIGTERM, which it
+    passes to its ranks (each in a session of its own), then SIGKILL, and
+    this raises: a hang fails."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]),
         CHIP_SMOKE_DUMP_AFTER_S=str(max(timeout - DUMP_BEFORE_S, 10)))
     t0 = time.perf_counter()
-    log = os.path.join(out, 'launch.log')
-    # the output into a file (a rank left running cannot hold a pipe open),
-    # the launcher in a session of its own
     timed_out = False
     with open(log, 'w') as sink:
-        proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=sink, stderr=subprocess.STDOUT,
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=sink, stderr=subprocess.STDOUT,
                                 start_new_session=True)
         try:
             proc.wait(timeout=timeout)
@@ -2541,15 +2589,43 @@ def mesh_launch(tmp, kind, *argv, backend=None, timeout=300, may_fail=False):
         text = f.read()
     if timed_out:
         print(text[-16000:], file=sys.stderr)
-        raise RuntimeError(f'chip_smoke check failed: mesh worker {kind} ran past '
-                           f'{timeout} s')
-    if proc.returncode and not may_fail:
+        raise RuntimeError(f'chip_smoke check failed: {what} ran past {timeout} s')
+    return proc.returncode, text, seconds
+
+
+def mesh_launch(tmp, kind, *argv, backend=None, timeout=300, may_fail=False):
+    """This script's mesh worker ``kind`` on MESH_RANKS ranks through
+    torch.distributed.run, from ``tmp`` (``run_launcher``): (each rank's
+    result, None for a rank that wrote none, seconds).  ``backend`` None:
+    :func:`mesh_backend`; a failed launch raises unless ``may_fail``,
+    printing the end of its output.  Every rank of a training kind must
+    have ended its process group through shutdown_distributed (its
+    seconds: ``shutdown_s``)."""
+    out = os.path.join(tmp, 'mesh_' + kind)
+    os.makedirs(out, exist_ok=True)
+    for r in range(MESH_RANKS):   # an earlier launch's
+        for stale in (f'rank{r}.pt', f'rank{r}.end.json'):
+            if os.path.exists(os.path.join(out, stale)):
+                os.remove(os.path.join(out, stale))
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', str(MESH_RANKS), os.path.abspath(__file__),
+           '--mesh-worker', kind, '--mesh-out', out, '--mesh-ranks', str(MESH_RANKS),
+           '--mesh-backend', backend or mesh_backend(), *argv]
+    code, text, seconds = run_launcher(cmd, tmp, os.path.join(out, 'launch.log'), timeout,
+                                       f'mesh worker {kind}')
+    if code and not may_fail:
         print(text[-16000:], file=sys.stderr)
-        raise RuntimeError(f'chip_smoke check failed: mesh worker {kind} exited '
-                           f'{proc.returncode}')
+        raise RuntimeError(f'chip_smoke check failed: mesh worker {kind} exited {code}')
     results = [torch.load(os.path.join(out, f'rank{r}.pt'), weights_only=False)
                if os.path.exists(os.path.join(out, f'rank{r}.pt')) else None
                for r in range(MESH_RANKS)]
+    if kind != 'nccl_probe':
+        for r, result in enumerate(results):
+            end = os.path.join(out, f'rank{r}.end.json')
+            check(os.path.exists(end), f'mesh worker {kind}: rank {r} did not end its process '
+                                       f'group through shutdown_distributed')
+            with open(end) as f:
+                result['shutdown_s'] = json.load(f)['shutdown_s']
     return results, seconds
 
 
@@ -2615,8 +2691,8 @@ def mesh_chunks(ph, fresh, vol, kw, graphs, steps):
     then ``trainer.ChunkRunner`` with the mesh's step arguments), as
     ``flagship_chunks`` on one card: (a function that runs the next chunk
     of ``steps`` steps and returns its host seconds, the samples a rank
-    takes a step).  One chunk (warm-up and capture) runs before it is
-    returned."""
+    takes a step, the runner, which the caller closes).  One chunk (warm-up
+    and capture) runs before it is returned."""
     mesh = kw['mesh']
     st, c, N, step_kw = tr.shard_phase(ph, fresh(), vol, mesh, kw['use_space'],
                                        kw['shard_params'], kw['local_decode'])
@@ -2629,7 +2705,7 @@ def mesh_chunks(ph, fresh, vol, kw, graphs, steps):
         runner.chunk(pos, tr.draw_noise(ph, steps, gens[1], vol.device))
         return time.perf_counter() - t0
     chunk()
-    return chunk, N
+    return chunk, N, runner
 
 
 def kept_graphs():
@@ -2652,7 +2728,7 @@ def step_graph_nodes(graph):
     return {'kernel': sum(kernels.values()),
             'profiled_kernels': {name: sum(n for k, n in kernels.items() if name in k)
                                  for name in PROFILED_KERNELS},
-            'nccl': {k: n for k, n in kernels.items() if 'nccl' in k.lower()},
+            'nccl': {k: n for k, n in kernels.items() if is_nccl_kernel(k)},
             **{k: n for k, n in nodes.items() if k.startswith('<')}}
 
 
@@ -2681,7 +2757,7 @@ def mesh_profile(cfg, dev, steps=MESH_PROFILE_STEPS):
     for mode in modes:
         graphs, kept = kept_graphs()
         with mock.patch.object(torch.cuda, 'CUDAGraph', kept):
-            chunk, N = mesh_chunks(ph, fresh, vol, kw, mode == 'graphed', steps)
+            chunk, N, runner = mesh_chunks(ph, fresh, vol, kw, mode == 'graphed', steps)
         torch.cuda.synchronize()
         pm.reset_counts()
         prof = profile_train_steps(chunk, steps, mode == 'graphed')
@@ -2695,6 +2771,8 @@ def mesh_profile(cfg, dev, steps=MESH_PROFILE_STEPS):
         if graphs:
             check(len(graphs) == 1, f'{len(graphs)} graphs captured for one chunk runner')
             prof['graph_nodes'] = step_graph_nodes(graphs[0])
+        # the step's graph destroyed (under NCCL it holds the communicators)
+        runner.close()
         out[mode] = prof
     if 'graphed' in out:
         nodes = out['graphed']['graph_nodes']
@@ -2724,7 +2802,9 @@ def mesh_graph_check(cfg, dev, out):
     shard under ZeRO), the kernel launches and the collective counts of the
     graphed run equal the eager run's; the resumed run's losses and state
     equal the third chunk's.  Returns the step graph's nodes (NCCL's among
-    them), the counts and each run's seconds."""
+    them; read after the first chunk, while the phase holds the graph: its
+    runner destroys it when the phase ends), the counts and each run's
+    seconds."""
     from latent_feature_grid_compression_tpu_torch.parallel import mesh as pm
     ph, fresh, vol, kw = mesh_inputs(cfg, dev)
     mesh = kw['mesh']
@@ -2736,15 +2816,17 @@ def mesh_graph_check(cfg, dev, out):
             runners.append(self)
 
     def run(mode, n_chunks, state, gens, save='', keep_after=None):
-        losses = []
+        losses, nodes = [], []
+        graphs, kept = kept_graphs()
 
         def cb(x):
             losses.append(x)
+            if graphs and not nodes:
+                nodes.append(step_graph_nodes(graphs[0]))
             if len(losses) == keep_after and mesh.rank == 0:
                 shutil.copy(save, f'{save}.{keep_after}.npz')
             if len(losses) == n_chunks:
                 raise _Killed
-        graphs, kept = kept_graphs()
         reset_counts()
         pm.reset_counts()
         torch.cuda.synchronize()
@@ -2763,9 +2845,10 @@ def mesh_graph_check(cfg, dev, out):
                                    'its chunks ran')
         torch.cuda.synchronize()
         check(len(graphs) == (mode == 'graphed'), f'{mode}: {len(graphs)} graphs captured')
+        check(runners[-1].replay is None, f'{mode}: the phase left its step graph alive')
         return {'losses': np.concatenate(losses), 'state': runners[-1].st,
                 'launches': read_counts(), 'collectives': dict(pm.counts),
-                'seconds': time.perf_counter() - t0, 'graphs': graphs}
+                'seconds': time.perf_counter() - t0, 'nodes': nodes}
 
     def equal_states(a, b):
         return [name for name in TENSOR_FIELDS if not same_draws(getattr(a, name),
@@ -2799,7 +2882,7 @@ def mesh_graph_check(cfg, dev, out):
     return {'steps': steps, 'losses_equal': True, 'states_equal': True,
             'resumed_equal': True, 'launches': graphed['launches'],
             'collectives': graphed['collectives'],
-            'graph_nodes': step_graph_nodes(graphed['graphs'][0]),
+            'graph_nodes': graphed['nodes'][0],
             'eager_s': eager['seconds'], 'graphed_s': graphed['seconds'],
             'resumed_s': resumed['seconds']}
 
@@ -2860,39 +2943,44 @@ def mesh_worker(kind, out, backend, argv):
             result.update({'info': info, 'seconds': time.perf_counter() - t0,
                            'launches': read_counts(), 'collectives': dict(pm.counts)})
             result['profile'] = mesh_profile(cfg, dev)
+        # step graphs still alive here (every runner destroys its own when
+        # its phase ends), with what held them; shutdown_distributed would
+        # destroy them before it ends the group
+        result['graphs_alive_at_end'] = tr.release_step_graphs()
         torch.save(result, os.path.join(out, f'rank{rank}.pt'))
         status = 0
     except BaseException:
         traceback.print_exc()
-    # the step graphs this worker kept for inspection (keep_graph=True) are
-    # out of reach here, and solve_phase closed its runners' graphs: the
-    # group ends as train_torch.py ends it
+    # the group ends as train_torch.py ends it; the file says it returned
+    t0 = time.perf_counter()
     shutdown_distributed()
+    with open(os.path.join(out, f'rank{rank}.end.json'), 'w') as f:
+        json.dump({'shutdown_s': time.perf_counter() - t0}, f)
     return status
 
 
 @torch.no_grad()
-def mesh_windows():
-    """The space axis' run's tile-local decode on the card before it runs:
-    each rank's window of the flagship grid over the 256^3 volume, the
-    fetch and gradient kernels against their plain versions on the
-    windowed (15, 15, W', 16) grid at the rank's trainer positions (fetch
-    within KERNEL_TOL, gradient bit for bit the plain version on the CPU),
-    and the windowed forward against the full forward at those positions
-    (WINDOW_TOL of max |.|)."""
+def mesh_windows(space, ranks):
+    """A space axis' run's tile-local decode on the card before it runs
+    (``space`` slabs, ``ranks`` ranks in all): each slab's window of the
+    flagship grid over the 256^3 volume, the fetch and gradient kernels
+    against their plain versions on the windowed (15, 15, W', 16) grid at
+    a rank's trainer positions (fetch within KERNEL_TOL, gradient bit for
+    bit the plain version on the CPU), and the windowed forward against
+    the full forward at those positions (WINDOW_TOL of max |.|)."""
     cfg = load_config(FLAGSHIP_CONFIG)
     spec = make_spec(**dict(FLAGSHIP, drop_type=cfg.drop_type), interp_backend='xla')
     meta = VolumeMeta((MESH_SPACE_N,) * 3)
     ph = tr.make_phase_spec(cfg, spec, meta, phase=1)
-    starts, length = tr.x_windows(ph, MESH_RANKS)
+    starts, length = tr.x_windows(ph, space)
     model = init_model(spec, torch.Generator().manual_seed(SEED), device='cuda')
-    slab = MESH_SPACE_N // MESH_RANKS
+    slab = MESH_SPACE_N // space
     vol = torch.zeros((slab, MESH_SPACE_N, MESH_SPACE_N), device='cuda')
     g = torch.Generator(device='cuda').manual_seed(SEED + 3)
     rows = []
     for s, start in enumerate(starts):
         c = tr.PhaseConstants(ph, vol, s * slab)
-        norm, _ = tr.chunk_inputs(c, tr.draw_positions(c, 1, TRAIN_BATCH // MESH_RANKS, g))
+        norm, _ = tr.chunk_inputs(c, tr.draw_positions(c, 1, TRAIN_BATCH // ranks, g))
         norm = norm[0]
         grid = channel_minor(decode_volume(model, x_window=(start, length)))
         D, H, W, C = grid.shape
@@ -2935,38 +3023,42 @@ def mesh_windows():
         row['fetch_bound_ms'], row['fetch_bound_by'] = fetch_bound_ms(n, C, D, H, W)
         row['grad_bound_ms'], row['grad_bound_by'] = grad_bound_ms(n, C, D, H, W)
         rows.append(row)
-    emit({'phase': 'mesh_windows', 'volume': list(meta.resolution),
-          'volume_note': f'synth_volume(256, seed=1, octaves=6): 255 does not divide {MESH_RANKS}',
+    emit({'phase': 'mesh_windows', 'space': space, 'ranks': ranks,
+          'volume': list(meta.resolution),
+          'volume_note': f'synth_volume(256, seed=1, octaves=6): 255 does not divide {space}',
           'rows': rows})
     return rows
 
 
-
-
-# the collective calls of a train-3 mesh run's steps, a step: the data
-# axis' replicated state all-reduces; the space axis' ZeRO state
-# all-gathers and reduce-scatters (no data axis to average over)
-MESH_STEP_CALLS = ({'all_reduce': 1, 'reduce_scatter': 0, 'all_gather': 0},
-                   {'all_reduce': 0, 'reduce_scatter': 1, 'all_gather': 1})
-
-
-def mesh_train_row(name, tmp, vol_path, results, seconds, flags, step_calls, default=None):
+def mesh_train_row(name, tmp, vol_path, results, seconds, flags, step_calls, default=None,
+                   hold_psnr=False):
     """Checks of a train-3 mesh run's ranks and its row: each rank launched
     the fetch and gradient kernels once a step (rank 0 the fetch also once
     an evaluation chunk, and nothing else), every rank made ``step_calls``
     collective calls a step (at least: a phase's end and a save gather the
-    ZeRO state), whether replayed or eager, every rank returns the same
-    evaluation, the loss fell, PSNR finite (within PSNR_MESH_DB of train's
-    when given), the exported container restores."""
+    ZeRO state), whether replayed or eager, each phase's steps replays of
+    one captured graph on every rank where the backend's default says so
+    (``cli_steps_graphed``) and eager elsewhere, no step graph alive at a
+    rank's end, every rank returns the same evaluation, the loss fell, PSNR
+    finite (within PSNR_MESH_DB of train's, ``default``, with
+    ``hold_psnr``), the exported container restores."""
     info0 = results[0]['info']
     meta = VolumeMeta(tuple(info0['volume_size']))
     n_chunks = math.ceil(meta.n_voxels / CHUNK)
     steps = info0['train_phase1_steps'] + info0['train_phase2_steps']
     check(steps > 0, f'{name} took no step')
+    graphed = cli_steps_graphed(results[0]['backend'])
     for rank, r in enumerate(results):
         info = r['info']
         check(info['train_phase1_steps'] + info['train_phase2_steps'] == steps,
               f'{name}: rank {rank} took another number of steps')
+        captures = [info[f'train_phase{ph}_graph_captures'] for ph in (1, 2)]
+        check(captures == [int(graphed)] * 2,
+              f'{name}: rank {rank} captured {captures} step graphs in its two phases '
+              f'(graphed steps: {graphed})')
+        check(r['graphs_alive_at_end'] == [],
+              f"{name}: rank {rank} ended with step graphs alive, held by "
+              f"{r['graphs_alive_at_end']}")
         check(info['psnr'] == info0['psnr'], f'{name}: rank {rank} returned another PSNR')
         want = only({gs.KERNEL: steps + (n_chunks if rank == 0 else 0),
                      gs.BWD_KERNEL: steps})
@@ -2980,7 +3072,7 @@ def mesh_train_row(name, tmp, vol_path, results, seconds, flags, step_calls, def
           f'{name}: phase 1 loss did not fall')
     check(math.isfinite(info0['psnr']), f"{name}: non-finite PSNR {info0['psnr']}")
     gap = None if default is None else info0['psnr'] - default['psnr']
-    if gap is not None:
+    if gap is not None and hold_psnr:
         check(abs(gap) <= PSNR_MESH_DB, f"{name} PSNR {info0['psnr']} vs train "
                                         f"{default['psnr']}")
     exp = os.path.join(tmp, name)
@@ -2995,8 +3087,8 @@ def mesh_train_row(name, tmp, vol_path, results, seconds, flags, step_calls, def
     row = {'phase': name, 'flags': flags, 'ranks': MESH_RANKS,
            'backend': results[0]['backend'], 'devices': [r['device'] for r in results],
            'ranks_share_a_card': len({r['device'] for r in results}) < MESH_RANKS,
-           # train_torch.py's mesh steps run eagerly (solve_phase's graphs=None)
-           'steps_graphed': False,
+           # train_torch.py's steps: graphed on an NCCL mesh, eager under gloo
+           'steps_graphed': graphed, 'shutdown_s_by_rank': [r['shutdown_s'] for r in results],
            'collectives': 'torch.distributed on CUDA tensors (no host staging)',
            'volume': list(meta.resolution), 'max_pass': TRAIN_MAX_PASS, 'batch': TRAIN_BATCH,
            'steps': steps, 'launches_by_rank': [r['launches'] for r in results],
@@ -3008,7 +3100,8 @@ def mesh_train_row(name, tmp, vol_path, results, seconds, flags, step_calls, def
                            ('steps', 'seconds', 'samples_per_sec', 'first_loss', 'last_loss')}
                       for ph in (1, 2)},
            'psnr': info0['psnr'], 'default_psnr': None if default is None else default['psnr'],
-           'psnr_gap_db': gap, 'psnr_binary_restored': psnr_binary,
+           'psnr_gap_db': gap, 'psnr_gap_held': hold_psnr and gap is not None,
+           'psnr_binary_restored': psnr_binary,
            'compression_ratio': info0['compression_ratio'], 'num_zeros': info0['num_zeros'],
            'profile_by_rank': [r['profile'] for r in results]}
     if default is not None and default.get('train_samples_per_sec'):
@@ -3044,10 +3137,12 @@ def gloo_graphs_raise():
 
 def phase_mesh_graphs(tmp, vol_path, vol256):
     """The step's CUDA graph on the mesh: where every rank has a card
-    (NCCL), ``mesh_graph_check`` on every rank of both mesh runs (the data
-    axis on the flagship volume; the space axis with ZeRO and tile-local
-    decode on the 256^3 one); on fewer cards (NCCL refuses two ranks on one
-    card) a row saying so.  Both: graphs=True on a gloo mesh raises."""
+    (NCCL), ``mesh_graph_check`` on every rank of each of ``mesh_runs`` (the
+    data axis on the flagship volume; the space axis with ZeRO and
+    tile-local decode, and at 4 ranks the 2 x 2 mesh, on the 256^3 one),
+    every rank ending its group through shutdown_distributed; on fewer
+    cards (NCCL refuses two ranks on one card) a row saying so.  Both:
+    graphs=True on a gloo mesh raises."""
     refusal = gloo_graphs_raise()
     cards = torch.cuda.device_count()
     row = {'phase': 'mesh_graphs', 'cards': cards, 'ranks': MESH_RANKS,
@@ -3060,11 +3155,16 @@ def phase_mesh_graphs(tmp, vol_path, vol256):
         return row
     common = ['--config', FLAGSHIP_CONFIG, '--basedir', '/']
     row.update(ran=True, chunks=MESH_GRAPH_CHUNKS, chunk=RESUME_CHUNK, runs={})
-    for name, path, flags in zip(mesh_names(), (vol_path, vol256), mesh_flags()):
-        ranks, seconds = mesh_launch(tmp, 'graphs', *common, '--data', path, *flags,
-                                     timeout=180)
+    for name, flags, on256, _ in mesh_runs():
+        ranks, seconds = mesh_launch(tmp, 'graphs', *common, '--data',
+                                     vol256 if on256 else vol_path, *flags, timeout=180)
         check(all(r is not None for r in ranks), f'{name}: a rank wrote no result')
+        for rank, r in enumerate(ranks):
+            check(r['graphs_alive_at_end'] == [],
+                  f"{name}: rank {rank} ended with step graphs alive, held by "
+                  f"{r['graphs_alive_at_end']}")
         row['runs'][name] = {'flags': flags, 'torchrun_s': seconds,
+                             'shutdown_s_by_rank': [r['shutdown_s'] for r in ranks],
                              'by_rank': [r['graphs'] for r in ranks]}
     emit(row)
     return row
@@ -3072,16 +3172,18 @@ def phase_mesh_graphs(tmp, vol_path, vol256):
 
 def phase_mesh(tmp, vol_path, default=None):
     """Multi-device training on this machine's cards: MESH_RANKS ranks
-    through torch.distributed.run (NCCL with a card a rank; else gloo with
-    the ranks on one card, which the port refuses without gloo by name);
-    train_torch.py's mesh steps run eagerly, the graphed ones are driven
-    with graphs=True.  The data-parallel
-    step against one rank on the same global stream, and train-3 on the
-    data axis on the flagship, in one launch; the windowed kernels and
-    forward; the graphed steps against eager ones (``phase_mesh_graphs``);
-    then train-3 on the space axis with the state sharded and tile-local
-    decode on a 256^3 volume.  Returns rank 0's launch counts of the data
-    axis' run (the mesh path) and the windows' rows."""
+    through torch.distributed.run (NCCL with a card a rank, where
+    train_torch.py's steps are replays of each phase's step graph; else
+    gloo with the ranks on one card, which the port refuses without gloo by
+    name, and eager steps).  The data-parallel step against one rank on the
+    same global stream, and train-3 on the data axis on the flagship, in
+    one launch; the windowed kernels and forward; the graphed steps against
+    eager ones (``phase_mesh_graphs``); then train-3 of each other run of
+    ``mesh_runs`` (the space axis with the state sharded and tile-local
+    decode, and at 4 ranks the 2 x 2 mesh) on a 256^3 volume; under NCCL
+    train_torch.py itself under torch.distributed.run (``phase_mesh_cli``).
+    Returns rank 0's launch counts of the data axis' run (the mesh path)
+    and the windows' rows."""
     from latent_feature_grid_compression_tpu_torch.parallel.distributed import rank_device
     cards, backend = torch.cuda.device_count(), mesh_backend()
     refused = None
@@ -3103,7 +3205,8 @@ def phase_mesh(tmp, vol_path, default=None):
             torch.cuda.set_device(0)
         check(refused is not None, 'two ranks on one card were not refused without gloo')
     emit({'phase': 'mesh_backend', 'cards': cards, 'ranks': MESH_RANKS, 'backend': backend,
-          'ranks_share_a_card': cards < MESH_RANKS, 'cli_steps_graphed': False,
+          'ranks_share_a_card': cards < MESH_RANKS,
+          'cli_steps_graphed': cli_steps_graphed(backend),
           'port_refuses_without_gloo': refused})
 
     # 1. data-parallel exactness, then 2. train-3 on the data axis on the
@@ -3112,7 +3215,7 @@ def phase_mesh(tmp, vol_path, default=None):
     single = dp_steps(ph, st, vol, pos)
     del st, vol
     common = ['--config', FLAGSHIP_CONFIG, '--max_pass', str(TRAIN_MAX_PASS), '--basedir', '/']
-    (dp_name, space_name), (dp_flags, space_flags) = mesh_names(), mesh_flags()
+    (dp_name, dp_flags, _, dp_calls), *others = mesh_runs()
     train_ranks, seconds = mesh_launch(tmp, 'dp_train', *common, '--data', vol_path,
                                        '--expname', dp_name, *dp_flags)
     ranks = [r['dp'] for r in train_ranks]
@@ -3134,21 +3237,74 @@ def phase_mesh(tmp, vol_path, default=None):
           'losses_single': single['losses'].tolist(),
           'losses_ranks': ranks[0]['losses'].tolist()})
 
-    mesh_train_row(dp_name, tmp, vol_path, train_ranks, seconds, dp_flags,
-                   MESH_STEP_CALLS[0], default)
+    mesh_train_row(dp_name, tmp, vol_path, train_ranks, seconds, dp_flags, dp_calls, default,
+                   hold_psnr=True)
     counts = {k: train_ranks[0]['launches'][k] for k in (gs.KERNEL, gs.BWD_KERNEL)}
 
     # 3. the windows, 4. graphed steps against eager ones, then 5. train-3
-    # on the space axis, ZeRO and tile-local decode
-    windows = mesh_windows()
+    # on the space axis, ZeRO and tile-local decode (and 2 x 2)
+    windows = mesh_windows(MESH_RANKS, MESH_RANKS)
+    if MESH_RANKS == 4:
+        mesh_windows(2, MESH_RANKS)   # the 2 x 2 mesh's two slabs
     vol256 = os.path.join(tmp, 'synth256.npy')
     np.save(vol256, synth_volume(MESH_SPACE_N, seed=1, octaves=6))
     phase_mesh_graphs(tmp, vol_path, vol256)
-    ranks, seconds = mesh_launch(tmp, 'train', *common, '--data', vol256,
-                                 '--expname', space_name, *space_flags)
-    mesh_train_row(space_name, tmp, vol256, ranks, seconds, space_flags, MESH_STEP_CALLS[1])
+    for name, flags, _, calls in others:
+        ranks, seconds = mesh_launch(tmp, 'train', *common, '--data', vol256,
+                                     '--expname', name, *flags)
+        mesh_train_row(name, tmp, vol256, ranks, seconds, flags, calls, default)
+    if backend == 'nccl':
+        phase_mesh_cli(tmp, vol_path, vol256, default)
     os.remove(vol256)
     return counts, windows
+
+
+# train_torch.py's mesh runs under torch.distributed.run, as a user starts
+# them: (name, ranks, flags, whether on the 256^3 volume); the 2 x 2 mesh
+# only at 4 ranks
+CLI_RUNS = (('mesh_cli_dp2', 2, ['--mesh_data', '2'], False),
+            ('mesh_cli_dp2_space2_zero_local', 4,
+             ['--mesh_data', '2', '--mesh_space', '2', *ZERO_LOCAL], True))
+CLI_TIMEOUT_S = 180
+
+
+def phase_mesh_cli(tmp, vol_path, vol256, default=None):
+    """train_torch.py itself, a card a rank (NCCL), under
+    torch.distributed.run and a time limit (``run_launcher``): train-3 of
+    each of CLI_RUNS that fits MESH_RANKS.  Each exits 0 (every rank left
+    through train_torch.py's shutdown_distributed, after graphed steps:
+    NCCL's end waits while a graph lives), captured one step graph a phase
+    (its info.txt, rank 0's), and its PSNR is within PSNR_MESH_DB of
+    train's (``default``, where this run has it)."""
+    rows = {}
+    for name, ranks, flags, on256 in CLI_RUNS:
+        if ranks > MESH_RANKS:
+            continue
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', str(ranks), os.path.join(REPO, 'train_torch.py'),
+               '--config', FLAGSHIP_CONFIG, '--data', vol256 if on256 else vol_path,
+               '--max_pass', str(TRAIN_MAX_PASS), '--basedir', '/', '--expname', name, *flags]
+        code, text, seconds = run_launcher(cmd, tmp, os.path.join(tmp, name + '.log'),
+                                           CLI_TIMEOUT_S, name)
+        if code:
+            print(text[-16000:], file=sys.stderr)
+        check(code == 0, f'{name}: torch.distributed.run of train_torch.py exited {code}')
+        exp = os.path.join(tmp, name)
+        info = dict_from_file(os.path.join(exp, 'info.txt'))
+        captures = [info[f'train_phase{ph}_graph_captures'] for ph in (1, 2)]
+        check(captures == [1, 1], f'{name}: {captures} step graphs captured in the two phases')
+        gap = None if default is None else info['psnr'] - default['psnr']
+        check(math.isfinite(info['psnr']) and (gap is None or abs(gap) <= PSNR_MESH_DB),
+              f"{name}: PSNR {info['psnr']}, train's {None if default is None else default['psnr']}")
+        rows[name] = {'ranks': ranks, 'flags': flags, 'exit_code': code, 'torchrun_s': seconds,
+                      'graph_captures': captures, 'psnr': info['psnr'], 'psnr_gap_db': gap,
+                      'compression_ratio': info['compression_ratio'],
+                      'train_ms_per_step': info['train_ms_per_step'],
+                      'phase_seconds': [info[f'train_phase{ph}_seconds'] for ph in (1, 2)]}
+        shutil.rmtree(exp)
+    emit({'phase': 'mesh_cli', 'backend': 'nccl', 'time_limit_s': CLI_TIMEOUT_S,
+          'default_psnr': None if default is None else default['psnr'], 'runs': rows})
+    return rows
 
 
 def phase_nccl_probe(tmp):
@@ -3258,18 +3414,16 @@ def main(argv=None):
                 for suffix in suffixes:
                     path_counts['queries' + suffix] = phase_queries(model, suffix)
         default = None
-        trained = {}   # each train-3 path's info (graphed steps)
         if want('train') or want('resume') or want('quant') or want('native'):
             default, path_counts['train'] = phase_train(
                 tmp, vol_path, keep=want('resume') or want('quant') or want('native'))
-            trained['train'] = default
         if want('train'):
             for suffix in ('_mlp_pallas', '_fused'):
-                trained['train' + suffix], path_counts['train' + suffix] = phase_train(
+                _, path_counts['train' + suffix] = phase_train(
                     tmp, vol_path, suffix, default)
         if want('train_bf16'):
             for suffix in BF16_BACKENDS:
-                trained['train' + suffix], path_counts['train' + suffix] = phase_train(
+                _, path_counts['train' + suffix] = phase_train(
                     tmp, vol_path, suffix, default)
         if want('resume'):
             phase_resume(tmp, vol_path, default)
@@ -3277,7 +3431,7 @@ def main(argv=None):
             phase_graphs(vol_path)
         if want('train_families'):
             for family in FAMILIES:
-                trained['train_' + family], path_counts['train_' + family] = phase_train(
+                _, path_counts['train_' + family] = phase_train(
                     tmp, vol_path, family=family)
         if want('quant'):
             path_counts['quant'] = phase_quant(tmp, vol_path, default)
@@ -3292,7 +3446,7 @@ def main(argv=None):
         if args.only is not None and 'nccl_probe' in args.only:
             phase_nccl_probe(tmp)
         if want('step_rates'):
-            phase_step_rates(tmp=tmp, vol_path=vol_path, trained=trained)
+            phase_step_rates(tmp=tmp, vol_path=vol_path, eager_steps=EAGER_PROFILE_STEPS)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if args.only is not None:

@@ -13,7 +13,6 @@ name, the only case in which ranks share a card (and the run says so).
 
 from __future__ import annotations
 
-import gc
 import os
 from typing import Optional
 
@@ -84,14 +83,15 @@ def shutdown_distributed():
     graph holds work on it: on an H100 machine (torch 2.11, NCCL 2.28.9)
     both the destroy and an abort waited without end while a step's graph
     was alive, and returned at once after it was released.  The chunk
-    runner drops its graph when a phase ends or raises
-    (``ChunkRunner.close``);
-    here the graphs no object refers to any more are collected and the
-    card finishes their work first."""
+    runner destroys its graph when a phase ends or raises
+    (``ChunkRunner.close``); here every step graph still alive, whoever
+    holds it, is destroyed first (``trainer.release_step_graphs``): no
+    graph can run NCCL work once the group is gone."""
     if not dist.is_initialized():
         return
     if dist.get_backend() == 'nccl':
-        gc.collect()
+        from ..train.trainer import release_step_graphs   # the trainer imports this package
+        release_step_graphs()
         torch.cuda.synchronize()
     dist.destroy_process_group()
 

@@ -33,9 +33,10 @@ step makes the calls the model assumes, at the sizes it assumes, not a
 measurement of what the backend moves.
 
 Under NCCL, where every rank has a card of its own, the trainer's chunk
-runner can capture each rank's step with its collectives as one CUDA graph
-a phase (``train/trainer.py::ChunkRunner``; ``solve_phase(graphs=True)``,
-while a mesh steps eagerly by default): the step's all-reduce of
+runner captures each rank's step with its collectives as one CUDA graph a
+phase (``train/trainer.py::ChunkRunner``, by default, as the JAX mesh's
+sharded chunk runners compile a chunk; ``solve_phase(graphs=False)``
+steps eagerly): the step's all-reduce of
 [gradient | scalars], and under ZeRO its all-gather of the parameters, its
 reduce-scatter of the gradient and its all-reduce over 'data', become
 nodes of the graph and run at every replay.  A count is taken where the

@@ -17,7 +17,9 @@ generators (saved at most every minute and at the phase's end), and
 run at such a directory; ``cfg.profile_dir`` takes a profiler trace of
 phase 1's second chunk; the TensorBoard writer (tensorboardX, else
 ``torch.utils.tensorboard``, else none) logs into ``cfg.Tensorboard_log_dir``
-or ``runs/<expname>``.
+or ``runs/<expname>``.  On a card each phase's steps are replays of its
+step graph, alone and on an NCCL mesh (``trainer.use_step_graphs``); the
+info counts each phase's captures.
 
 Runs on ``device='cuda'`` unless the caller passes ``'cpu'``.
 
@@ -60,6 +62,7 @@ from ..models.feature_grid import (FeatureGridModel, check_local_decode, init_mo
 from ..models.variance import init_variance_model
 from ..parallel import mesh as pm
 from ..parallel.distributed import initialize_distributed, rank_device
+from . import trainer
 from .trainer import (StepTimer, init_train_state, make_phase_spec, solve_phase,
                       state_to_model)
 
@@ -310,6 +313,7 @@ def training(cfg: TrainConfig, verbose: bool = True,
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
+        warmed = trainer.warmup_steps
         # solve_phase ends in a device read: the wall time is the card's
         state = solve_phase(ph, state, volume, cfg.steps_per_chunk, masks,
                             generator=generators[0], positions=positions[phase - 1],
@@ -322,7 +326,10 @@ def training(cfg: TrainConfig, verbose: bool = True,
         steps = state.step - start
         phase_stats.update({
             f'phase{phase}_steps': steps, f'phase{phase}_seconds': seconds,
-            f'phase{phase}_samples_per_sec': steps * ph.batch_n / seconds})
+            f'phase{phase}_samples_per_sec': steps * ph.batch_n / seconds,
+            # 1 where the phase's steps were replays of its step graph
+            f'phase{phase}_graph_captures':
+                (trainer.warmup_steps - warmed) // trainer.WARMUP_STEPS})
         for name, values in (('loss', losses), ('volume_loss', vol_losses)):
             values = np.concatenate(values) if values else np.zeros(0)
             phase_stats[f'phase{phase}_first_{name}'] = float(values[0]) if steps else None

@@ -41,13 +41,15 @@ on the device, every update of the state is written in place and guarded
 by the stop flag (as JAX's ``lax.cond(state.stop, idle, step)``), the lr
 strategy runs at every step where its boundary flag says (as JAX's
 ``where(boundary, ...)``), and the losses go into per-chunk buffers at the
-step's row.  On a card without a mesh the step is captured once a phase
-as a CUDA graph and each step is one replay; on a mesh under NCCL (a card
-a rank) the same is done when asked for (``solve_phase(graphs=True)``),
-each rank's graph holding the step's collectives too.  On the CPU and on a
-mesh by default the same step runs eagerly; a gloo mesh (gloo's
-collectives cannot be captured; ranks that share a card run only under
-gloo) always does.
+step's row.  On a card the step is captured once a phase as a CUDA graph
+and each step is one replay, with no mesh and on a mesh under NCCL (a card
+a rank), where each rank's graph holds the step's collectives too, as the
+JAX mesh's sharded chunk runners compile a chunk into one program
+(``use_step_graphs``).  On the CPU the same step runs eagerly, and so does
+a gloo mesh (gloo's collectives cannot be captured; ranks that share a
+card run only under gloo).  A step graph that holds NCCL work keeps its
+process group from ending: ``ChunkRunner.close`` destroys it when the
+phase ends, and ``release_step_graphs`` destroys any still alive.
 
 Reference quirk kept: in phase 2 the lr strategy's decays reach only the
 shadow lr (the reference's strategy still points at the phase-1 optimizer),
@@ -76,8 +78,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import math
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -108,6 +112,9 @@ WARMUP_STEPS = 3
 # warm-up steps taken since the last reset; their launches are not counted
 # (the wrappers' counts are set back after them): they are no step of a phase
 warmup_steps = 0
+# every step graph this process captured whose CUDA graph is not destroyed
+# yet (weakly: the registry keeps none alive)
+_live_graphs: 'weakref.WeakSet' = weakref.WeakSet()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -607,6 +614,47 @@ def _strategy(ph: PhaseSpec, st: TrainState, loss: torch.Tensor, t, hold, factor
             st.lr.mul_(factor)
 
 
+def use_step_graphs(graphs: Optional[bool], mesh, device) -> bool:
+    """Whether ``solve_phase``'s steps are replays of a CUDA graph of the
+    step.  ``graphs`` None: on a card, with no mesh or on a mesh whose
+    backend is NCCL (a card a rank; the JAX mesh runs every chunk as one
+    compiled program); eagerly on the CPU and on a gloo mesh, whose
+    collectives cannot be captured.  True or False as given, except that
+    True on a mesh whose backend is not NCCL raises."""
+    capturable = mesh is None or mesh.backend == 'nccl'
+    if graphs and not capturable:
+        raise ValueError(f"the step's CUDA graph takes NCCL's collectives; this mesh "
+                         f"runs {mesh.backend}, whose collectives cannot be captured "
+                         f"(graphs=False, or one card a rank under NCCL)")
+    if graphs is None:
+        return capturable and torch.device(device).type == 'cuda'
+    return graphs
+
+
+def release_graph(graph):
+    """Destroy a step graph captured here (its executable graph and its
+    memory pool) once the card has finished its work, whoever still holds
+    the Python object: under NCCL a process group ends only once no graph
+    holds work on its communicators.  Anything else is left alone."""
+    if graph in _live_graphs:
+        _live_graphs.discard(graph)
+        torch.cuda.synchronize()
+        graph.reset()
+
+
+def release_step_graphs() -> List[str]:
+    """Destroy every step graph of this process still alive
+    (``release_graph``), after a collection; returns, for each, the types
+    of the objects that held it."""
+    gc.collect()
+    graphs = list(_live_graphs)
+    holders = [sorted({type(o).__name__ for o in gc.get_referrers(g) if o is not graphs})
+               for g in graphs]
+    for g in graphs:
+        release_graph(g)
+    return [', '.join(h) for h in holders]
+
+
 def capture_graph(warm: Callable[[], None], step: Callable[[], None],
                   error_mode: str = 'global') -> Callable[[], None]:
     """``warm`` run on a side stream, then ``step`` captured as one CUDA
@@ -628,6 +676,7 @@ def capture_graph(warm: Callable[[], None], step: Callable[[], None],
         warm()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    _live_graphs.add(graph)
     with torch.cuda.graph(graph, capture_error_mode=error_mode):
         step()
     return graph.replay
@@ -732,10 +781,12 @@ class ChunkRunner:
         self._rewind()
 
     def close(self):
-        """Drop the step's graph: under NCCL a process group ends only once
-        no graph holds work on its communicators
-        (``parallel/distributed.py::shutdown_distributed``)."""
-        self.replay = None
+        """Drop the step's graph and destroy it (``release_graph``): under
+        NCCL a process group ends only once no graph holds work on its
+        communicators (``parallel/distributed.py::shutdown_distributed``),
+        and a caller may still hold the graph."""
+        replay, self.replay = self.replay, None
+        release_graph(getattr(replay, '__self__', None))
 
     def step(self):
         if self.replay is None:
@@ -888,10 +939,10 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 local_decode: bool = False, graphs: Optional[bool] = None) -> TrainState:
     """Run one phase until its pass budget is spent or the plateau stop; a
     state that has finished its phase (``phase_done``) takes no step.  The
-    steps go through a ``ChunkRunner``: on a card without a mesh (and on
-    an NCCL mesh with ``graphs=True``) each is a replay of the step's CUDA
-    graph (on a mesh with its collectives), captured before the phase's
-    first step and dropped when the phase ends or raises.
+    steps go through a ``ChunkRunner``: on a card, with no mesh or on an
+    NCCL mesh, each is a replay of the step's CUDA graph (on a mesh with its
+    collectives), captured before the phase's first step and destroyed when
+    the phase ends or raises (``use_step_graphs``, ``ChunkRunner.close``).
 
     volume:           the (X, Y, Z) ground truth on the training device
                       (the rank's x-slab on a mesh with a space axis).
@@ -936,10 +987,11 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                       smoke and step_rates_turns.py hold graphs against
                       them); True: graphs required (raises on a mesh whose
                       backend is not NCCL, and without a card at the
-                      capture); None: graphs where the volume is on a card
-                      and there is no mesh; eager on the CPU and on a mesh
-                      (an NCCL mesh's graphed steps are taken only when
-                      asked for).  A resumed phase captures afresh.
+                      capture); None: graphs where the volume is on a card,
+                      with no mesh or on an NCCL mesh; eager on the CPU and
+                      on a gloo mesh (``use_step_graphs``).  A failed
+                      capture raises; nothing falls back to eager steps.  A
+                      resumed phase captures afresh.
     """
     if positions is None and generator is None:
         raise ValueError("solve_phase needs a generator or a positions iterator")
@@ -947,13 +999,7 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
             and noise_generator is None):
         raise ValueError(f"drop_type {ph.drop_type!r} needs a noise generator "
                          f"or a gate-noise iterator")
-    capturable = mesh is None or mesh.backend == 'nccl'
-    if graphs and not capturable:
-        raise ValueError(f"the step's CUDA graph takes NCCL's collectives; this mesh "
-                         f"runs {mesh.backend}, whose collectives cannot be captured "
-                         f"(graphs=False, or one card a rank under NCCL)")
-    if graphs is None:
-        graphs = mesh is None and volume.device.type == 'cuda'
+    graphs = use_step_graphs(graphs, mesh, volume.device)
     state, c, N, step_kw = shard_phase(ph, state, volume, mesh, use_space, shard_params,
                                        local_decode)
     # on a mesh every rank averages the same terms
