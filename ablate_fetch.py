@@ -85,7 +85,8 @@ import torch
 import chip_smoke as cs
 from ablate_mlp import build_all, use
 from latent_feature_grid_compression_tpu_torch.data.volume import VolumeMeta
-from latent_feature_grid_compression_tpu_torch.eval.reconstruct import CHUNK, lattice_chunk
+from latent_feature_grid_compression_tpu_torch.eval.reconstruct import (
+    CHUNK, lattice_chunk, lattice_constants)
 from latent_feature_grid_compression_tpu_torch.ops import _build
 from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
 from latent_feature_grid_compression_tpu_torch.ops.interpolation import (
@@ -193,8 +194,8 @@ def make_cases(gen):
     ('fwd', 'bf16') is the channel-minor grid, the gradient's ('bwd', 'bwd
     bf16' in that mode) the output gradient g."""
     n_eval, n_step = CHUNK, cs.TRAIN_BATCH
-    lattice, _ = lattice_chunk(VolumeMeta((cs.VOLUME_N,) * 3), 32 * n_eval, n_eval,
-                               torch.device('cuda'))
+    lattice, _ = lattice_chunk(lattice_constants(VolumeMeta((cs.VOLUME_N,) * 3), n_eval,
+                                                 torch.device('cuda')), 32 * n_eval)
 
     def uniform(n):
         return torch.rand((n, 3), device='cuda', generator=gen) * 2.4 - 1.2

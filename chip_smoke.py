@@ -74,9 +74,15 @@ in order:
   8. checkpoint  infer_torch.py --reconstruct checkpoint over the 255^3
                  mhd_like volume: 64 kernel launches, field in [-1, 1],
                  on-device PSNR = float64 host PSNR to 1e-3 dB, kernel field
-                 = plain field to 5e-5; voxels/s and the time split
+                 = plain field to 5e-5; the field, per-chunk sums and stats
+                 eager (graphs=False) and by the default (one capture of the
+                 chunk body an evaluation, a replay a chunk) torch.equal, the
+                 fetch 64 times in each, no evaluation graph left alive;
+                 voxels/s of both modes in turns, the eager time split, and
+                 each mode profiled (idle share, host launch calls a chunk)
   9. binary      restore of tests/fixtures/golden_ref_container against its
-                 recorded parameters, and a 64^3 reconstruction
+                 recorded parameters, and a 64^3 reconstruction (one chunk,
+                 one replay)
  10. queries     4 requests of 2^18 points through apply_model(train=False),
                  under each backend (queries, queries_mlp_pallas,
                  queries_fused), against the plain versions of that path;
@@ -293,7 +299,8 @@ from latent_feature_grid_compression_tpu_torch.data.synthetic import synth_volum
 from latent_feature_grid_compression_tpu_torch.data.volume import VolumeMeta, load_volume
 from latent_feature_grid_compression_tpu_torch.device import disable_tf32
 from latent_feature_grid_compression_tpu_torch.eval.reconstruct import (
-    CHUNK, deviation_statistics, eval_stats_on_device, field_from_net, lattice_chunk)
+    CHUNK, ChunkBody, chunk_sums, deviation_statistics, eval_stats_on_device, field_from_net,
+    field_on_device, lattice_chunk, lattice_constants)
 from latent_feature_grid_compression_tpu_torch.config import (
     dict_from_file, load_config, write_dict)
 from latent_feature_grid_compression_tpu_torch.io.checkpoint import (
@@ -544,42 +551,46 @@ def plain_predict(model, grid_cl, coords):
 @torch.no_grad()
 def plain_field(model, meta):
     grid_cl = channel_minor(decode_volume(model))
-    n = meta.n_voxels
-    out = torch.empty(math.ceil(n / CHUNK) * CHUNK, device='cuda')
-    for start in range(0, n, CHUNK):
-        c, _ = lattice_chunk(meta, start, CHUNK, torch.device('cuda'))
+    lat = lattice_constants(meta, CHUNK, torch.device('cuda'))
+    out = torch.empty(lat.n_chunks * CHUNK, device='cuda')
+    for start in range(0, lat.n, CHUNK):
+        c, _ = lattice_chunk(lat, start)
         out[start:start + CHUNK] = plain_predict(model, grid_cl, c)[:, 0]
-    return out[:n].reshape(meta.resolution)
+    return out[:lat.n].reshape(meta.resolution)
 
 
 @torch.no_grad()
 def time_split(model, meta, vol_dev):
-    """Per-stage device time of one full-volume evaluation, with CUDA events
-    between the stages of the same loop eval_stats_on_device runs."""
-    dev = torch.device('cuda')
-    n = meta.n_voxels
-    n_chunks = math.ceil(n / CHUNK)
+    """Per-stage device time of one full-volume evaluation, eager, with CUDA
+    events between the stages of the chunk body eval_stats_on_device runs
+    (``ChunkBody`` with the ground truth): 'decode' (with the lattice's
+    constants and the padded ground truth, made once), then each chunk's
+    'lattice' from the device counter (the constants are on the device, so
+    no host wait sits in it), 'fetch', 'mlp' and 'stats' (its sums written
+    at its row, the counter advanced).  Returns (ms by stage, the per-chunk
+    sums, for a check that the split ran the evaluation's work)."""
+    n_chunks = math.ceil(meta.n_voxels / CHUNK)
     stages = ('decode', 'lattice', 'fetch', 'mlp', 'stats')
     ms = dict.fromkeys(stages, 0.0)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(1 + 4 * n_chunks + 1)]
-    flat = F.pad(vol_dev.reshape(-1), (0, n_chunks * CHUNK - n))
     k = 0
     ev[k].record()
-    grid_cl = channel_minor(decode_volume(model))
+    body = ChunkBody(model, meta, CHUNK, torch.device('cuda'), volume=vol_dev)
     k += 1
     ev[k].record()
     marks = [('decode', 0, 1)]
-    for j in range(n_chunks):
-        start = j * CHUNK
-        c, valid = lattice_chunk(meta, start, CHUNK, dev)
+    for _ in range(n_chunks):
+        c, valid = lattice_chunk(body.lat, body.k * CHUNK)
         ev[k + 1].record()
-        feats = gs.fetch(grid_cl, c)
+        feats = gs.fetch(body.grid_cl, c)
         ev[k + 2].record()
         x = torch.cat([c, fourier_embed(c, model.spec.n_freqs), feats], dim=-1)
         pred = mlp_apply(list(model.mlp_w), list(model.mlp_b), x).clamp(-1.0, 1.0)
         ev[k + 3].record()
-        diff = torch.where(valid, flat[start:start + CHUNK] - pred[:, 0], 0.0)
-        torch.stack([torch.sum(diff * diff), torch.sum(diff.abs())])
+        diff = torch.where(valid, body.gt.index_select(0, body.k)[0] - pred[:, 0], 0.0)
+        body.out.index_copy_(0, body.k, torch.stack([torch.sum(diff * diff),
+                                                     torch.sum(diff.abs())])[None])
+        body.k.add_(1)
         ev[k + 4].record()
         marks += [('lattice', k, k + 1), ('fetch', k + 1, k + 2),
                   ('mlp', k + 2, k + 3), ('stats', k + 3, k + 4)]
@@ -587,29 +598,39 @@ def time_split(model, meta, vol_dev):
     torch.cuda.synchronize()
     for name, a, b in marks:
         ms[name] += ev[a].elapsed_time(ev[b])
-    return ms
+    return ms, body.out
 
 
-def profile_eval(model, meta, vol_dev):
-    """Device busy share of one full-volume evaluation and its heaviest
-    device kernels, from torch.profiler (CUPTI)."""
+def profile_eval(model, meta, vol_dev, graphs):
+    """One full-volume evaluation (``eval_stats_on_device``, eager or by
+    the default's graph replays, its capture included) under torch.profiler
+    (CUPTI): the host clock around it, the device's busy and idle share,
+    device kernels and host calls that launch device work (LAUNCH_CALLS), in
+    all and a chunk, and the heaviest device kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    n_chunks = math.ceil(meta.n_voxels / CHUNK)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eval_stats_on_device(model, meta, vol_dev)
+        eval_stats_on_device(model, meta, vol_dev, graphs=graphs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     # device-side events only: a CPU op's self device time repeats the time
     # of the kernels it launched
     rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False)), reverse=True)
+    launch_calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
     busy_ms = sum(r[0] for r in rows)
-    return {'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+    return {'graphs': graphs, 'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
             'device_idle_share': 1.0 - busy_ms / wall_ms if busy_ms else None,
+            'host_launch_calls': launch_calls,
+            'host_launch_calls_per_chunk': sum(launch_calls.values()) / n_chunks,
+            'device_kernels_per_chunk': sum(r[2] for r in rows) / n_chunks,
             'fetch_kernel_ms': sum(r[0] for r in rows if 'grid_sample_fwd' in r[1]),
+            'fetch_kernel_calls': sum(r[2] for r in rows if 'grid_sample_fwd' in r[1]),
             'top_kernels': [{'ms': ms, 'name': k[:80], 'calls': n}
                             for ms, k, n in rows[:8]]}
 
@@ -676,8 +697,8 @@ def fetch_case(C, G, kind, g, timed=True):
     elif kind == 'trainer':
         coords = trainer_positions(n, g)
     else:
-        coords, _ = lattice_chunk(VolumeMeta((VOLUME_N,) * 3), 32 * n, n,
-                                  torch.device('cuda'))
+        coords, _ = lattice_chunk(
+            lattice_constants(VolumeMeta((VOLUME_N,) * 3), n, torch.device('cuda')), 32 * n)
     grid_cl = channel_minor(feats)
     out = gs.grid_sample_channel_minor_cuda(grid_cl, coords)
     plain = grid_sample_channel_minor(grid_cl, coords)
@@ -1049,8 +1070,8 @@ def phase_kernel_bf16(model, grid_cl):
     positions)."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
     rows = []
-    lattice = lattice_chunk(VolumeMeta((VOLUME_N,) * 3), 32 * CHUNK, CHUNK,
-                            torch.device('cuda'))[0]
+    lattice = lattice_chunk(lattice_constants(VolumeMeta((VOLUME_N,) * 3), CHUNK,
+                                              torch.device('cuda')), 32 * CHUNK)[0]
     fwd_cases = [(16, 15, 'lattice', CHUNK), (16, 15, 'trainer', TRAIN_BATCH),
                  (16, 23, 'uniform', CHUNK), (5, 15, 'uniform', CHUNK),
                  (22, 17, 'trainer', TRAIN_BATCH)]
@@ -1149,6 +1170,89 @@ def make_flagship_model():
     return spec, model
 
 
+# what each evaluation mode gives (``eval_modes``)
+EVAL_OUTPUTS = ('field', 'sums', 'stats')
+
+
+def eval_modes(model, meta, vol_dev):
+    """The 255^3 evaluation's field (``field_on_device``), per-chunk sums
+    (``chunk_sums``) and four stats (``eval_stats_on_device``) eagerly
+    (``graphs=False``) and by the default, which on a card, at 64 chunks
+    (``GRAPH_MIN_CHUNKS`` or more), captures the chunk body once an
+    evaluation (``trainer.capture_graph``, counted here) and replays it a
+    chunk.  Each evaluation launches the fetch once a
+    chunk, counted through the replays; the default captures once an
+    evaluation and eager never; graphed equals eager ``torch.equal``; no
+    evaluation graph is left in the trainer's registry of live graphs."""
+    n_chunks = math.ceil(meta.n_voxels / CHUNK)
+    calls = {
+        'field': lambda graphs: field_on_device(model, meta, graphs=graphs),
+        'sums': lambda graphs: chunk_sums(model, meta, vol_dev, graphs=graphs),
+        'stats': lambda graphs: eval_stats_on_device(model, meta, vol_dev, graphs=graphs)}
+    captures = []
+    capture = tr.capture_graph
+
+    def counted_capture(*a, **k):
+        captures.append(1)
+        return capture(*a, **k)
+    live = set(tr._live_graphs)
+    out = {}
+    with mock.patch.object(tr, 'capture_graph', counted_capture):
+        for mode in MODES:
+            graphs = None if mode == 'graphed' else False
+            out[mode] = {}
+            captures.clear()
+            for name in EVAL_OUTPUTS:
+                reset_counts()
+                out[mode][name] = calls[name](graphs)
+                counts = read_counts()
+                check(counts == only({gs.KERNEL: n_chunks}),
+                      f'{mode} {name} evaluation launched {counts}, expected the fetch '
+                      f'{n_chunks} times')
+            want = len(EVAL_OUTPUTS) if mode == 'graphed' else 0
+            check(len(captures) == want, f'{mode}: {len(captures)} captures, expected {want}')
+    left = set(tr._live_graphs) - live
+    check(not left, f'{len(left)} evaluation graphs outlived their calls')
+    for name in EVAL_OUTPUTS:
+        a, b = out['eager'][name], out['graphed'][name]
+        same = torch.equal(a, b) if torch.is_tensor(a) else a == b
+        check(same, f'graphed {name} differs from eager')
+    return out
+
+
+# volumes of (64 k, 64, 64), k whole chunks each, for eval_mode_pairs
+EVAL_PAIR_CHUNKS = (1, 2, 4, 8, 16, 64)
+EVAL_PAIR_ROUNDS = 9
+
+
+@torch.no_grad()
+def eval_mode_pairs(model):
+    """Eager against graphed evaluations (``field_on_device``, the field
+    left on the card, decode and the graphed mode's warm-up, capture and
+    destruction included) in repeated pairs on volumes of k whole chunks:
+    each round times one of each mode, in turns (eager first in even
+    rounds, graphed first in odd ones), on the host's clock with the card
+    synchronised before and after.  By k: each mode's median, least and
+    most ms, and the median over rounds of graphed / eager within a round."""
+    out = {}
+    for k in EVAL_PAIR_CHUNKS:
+        meta = VolumeMeta((64 * k, 64, 64))
+        ms = {mode: [] for mode in MODES}
+        for r in range(EVAL_PAIR_ROUNDS + 1):
+            for mode in (MODES if r % 2 == 0 else MODES[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                field_on_device(model, meta, graphs=mode == 'graphed')
+                torch.cuda.synchronize()
+                if r:   # round 0 warms both modes at this size
+                    ms[mode].append((time.perf_counter() - t0) * 1e3)
+        out[k] = {**{mode: {'median_ms': statistics.median(v), 'min_ms': min(v),
+                            'max_ms': max(v)} for mode, v in ms.items()},
+                  'graphed_over_eager_median': statistics.median(
+                      g / e for g, e in zip(ms['graphed'], ms['eager']))}
+    return out
+
+
 def phase_checkpoint(tmp, vol_path):
     import infer_torch
     spec, model = make_flagship_model()
@@ -1184,42 +1288,52 @@ def phase_checkpoint(tmp, vol_path):
 
     volume = load_volume(vol_path)
     vol_dev = torch.from_numpy(volume).cuda()
+    modes = eval_modes(model, meta, vol_dev)
     field = torch.from_numpy(field_from_net(model, meta)).cuda()
+    check(torch.equal(field, modes['graphed']['field']),
+          'field_from_net differs from the graphed field on the card')
     check(bool(torch.isfinite(field).all()), 'non-finite field')
     check(float(field.min()) >= -1.0 and float(field.max()) <= 1.0,
           'field outside [-1, 1]')
-    psnr_dev = eval_stats_on_device(model, meta, vol_dev)[0]
+    psnr_dev = modes['graphed']['stats'][0]
     check(abs(psnr_dev - psnr_host) <= PSNR_TOL_DB,
           f'device PSNR {psnr_dev} vs host PSNR {psnr_host}')
     field_err = (field - plain_field(model, meta)).abs().max().item()
     check(field_err <= FIELD_TOL, f'kernel field vs plain field {field_err}')
 
-    # steady-state end-to-end rates, decode included (best of 3 after the
-    # runs above): on-device stats, and the field brought to the host
-    eval_s = []
+    # steady-state end-to-end rates, decode (and the graphed mode's capture)
+    # included: best of 3 rounds, eager and graphed in turns, after the runs
+    # above; on-device stats, and the field brought to the host
+    eval_s = {mode: [] for mode in MODES}
+    field_s = {mode: [] for mode in MODES}
     for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eval_stats_on_device(model, meta, vol_dev)
-        eval_s.append(time.perf_counter() - t0)
-    field_s = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        field_from_net(model, meta)
-        field_s.append(time.perf_counter() - t0)
+        for mode in MODES:
+            graphs = None if mode == 'graphed' else False
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eval_stats_on_device(model, meta, vol_dev, graphs=graphs)
+            eval_s[mode].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            field_from_net(model, meta, graphs=graphs)
+            field_s[mode].append(time.perf_counter() - t0)
+    rates = {mode: {'eval_stats_s': min(eval_s[mode]),
+                    'voxels_per_s_device_stats': meta.n_voxels / min(eval_s[mode]),
+                    'field_to_host_s': min(field_s[mode]),
+                    'voxels_per_s_field_to_host': meta.n_voxels / min(field_s[mode])}
+             for mode in MODES}
     time_split(model, meta, vol_dev)
-    split = time_split(model, meta, vol_dev)
-    prof = profile_eval(model, meta, vol_dev)
+    split, split_sums = time_split(model, meta, vol_dev)
+    check(torch.equal(split_sums, modes['eager']['sums']),
+          "time_split's per-chunk sums differ from the evaluation's")
+    prof = {mode: profile_eval(model, meta, vol_dev, None if mode == 'graphed' else False)
+            for mode in MODES}
+    pairs = eval_mode_pairs(model)
     emit({'phase': 'checkpoint', 'voxels': meta.n_voxels, 'chunks': n_chunks,
           'launches': launches, 'psnr_host_f64': psnr_host,
           'psnr_device': psnr_dev, 'l1': l1, 'mse': mse, 'rmse': rmse,
           'field_vs_plain_max_abs': field_err,
-          'infer_s': infer_s,
-          'eval_stats_s': min(eval_s),
-          'voxels_per_s_device_stats': meta.n_voxels / min(eval_s),
-          'field_to_host_s': min(field_s),
-          'voxels_per_s_field_to_host': meta.n_voxels / min(field_s),
-          'split_ms': split, 'profile': prof})
+          'infer_s': infer_s, **rates['graphed'], 'eager': rates['eager'],
+          'split_ms': split, 'profile': prof, 'mode_pairs': pairs})
     return spec, model, counts
 
 
@@ -1241,11 +1355,22 @@ def phase_binary():
     check(np.array_equal(model.mlp_b[-1].detach().cpu().numpy(), b_last),
           'golden raw last bias differs')
     meta = VolumeMeta((64, 64, 64))
+    live = set(tr._live_graphs)
+    captures = []
+    capture = tr.capture_graph
+
+    def counted_capture(*a, **k):
+        captures.append(1)
+        return capture(*a, **k)
     reset_counts()
-    field = torch.from_numpy(field_from_net(model, meta)).cuda()
+    with mock.patch.object(tr, 'capture_graph', counted_capture):
+        field = torch.from_numpy(field_from_net(model, meta)).cuda()
     counts = read_counts()
     launches = counts[gs.KERNEL]
     check(counts == only({gs.KERNEL: 1}), f'binary path launched {counts}')
+    # one chunk, under GRAPH_MIN_CHUNKS: the default steps it eagerly
+    check(not captures, f'the one-chunk evaluation captured {len(captures)} graphs')
+    check(not set(tr._live_graphs) - live, "the binary path's evaluation graph outlived it")
     check(bool(torch.isfinite(field).all()), 'non-finite binary-path field')
     field_err = (field - plain_field(model, meta)).abs().max().item()
     check(field_err <= FIELD_TOL, f'binary field vs plain field {field_err}')
@@ -1488,6 +1613,7 @@ def profile_modes(suffix='', config=FLAGSHIP_CONFIG):
     graphs, kept = kept_graphs()
     with mock.patch.object(torch.cuda, 'CUDAGraph', kept):
         chunks = {'graphed': flagship_chunks(suffix, True, config, GRAPH_CHUNK)}
+    graphs = step_graphs(graphs)
     check(len(graphs) == 1, f'{len(graphs)} graphs captured for one phase')
     nodes = graph_kernel_names(graphs[0])
     per_step = {name: sum(n for k, n in nodes.items() if name in k)
@@ -2710,13 +2836,23 @@ def mesh_chunks(ph, fresh, vol, kw, graphs, steps):
 
 def kept_graphs():
     """(a list that receives every CUDA graph made, a stand-in for
-    torch.cuda.CUDAGraph that keeps each for inspection)."""
+    torch.cuda.CUDAGraph that keeps each for inspection).  The list holds
+    the anchor of a capture pool made meanwhile too (``step_graphs``)."""
     graphs, real = [], torch.cuda.CUDAGraph
 
     def kept():
         graphs.append(real(keep_graph=True))
         return graphs[-1]
     return graphs, kept
+
+
+def step_graphs(graphs):
+    """The graphs of a ``kept_graphs`` list that captured a step or an
+    evaluation: not the anchor (one fill, never replayed) that a card's
+    first capture makes for the pool its captures share
+    (``trainer._capture_pools``)."""
+    anchors = [entry[1] for entry in tr._capture_pools.values()]
+    return [g for g in graphs if all(g is not a for a in anchors)]
 
 
 def step_graph_nodes(graph):
@@ -2768,6 +2904,7 @@ def mesh_profile(cfg, dev, steps=MESH_PROFILE_STEPS):
             'collective_calls_per_step': {k: v / steps for k, v in called.items()
                                           if k != 'modelled_bytes'},
             'bytes_modelled_from_calls_per_step': called['modelled_bytes'] / steps})
+        graphs = step_graphs(graphs)
         if graphs:
             check(len(graphs) == 1, f'{len(graphs)} graphs captured for one chunk runner')
             prof['graph_nodes'] = step_graph_nodes(graphs[0])
@@ -2821,8 +2958,8 @@ def mesh_graph_check(cfg, dev, out):
 
         def cb(x):
             losses.append(x)
-            if graphs and not nodes:
-                nodes.append(step_graph_nodes(graphs[0]))
+            if step_graphs(graphs) and not nodes:
+                nodes.append(step_graph_nodes(step_graphs(graphs)[0]))
             if len(losses) == keep_after and mesh.rank == 0:
                 shutil.copy(save, f'{save}.{keep_after}.npz')
             if len(losses) == n_chunks:
@@ -2844,6 +2981,7 @@ def mesh_graph_check(cfg, dev, out):
                 raise RuntimeError('chip_smoke check failed: the phase ended before '
                                    'its chunks ran')
         torch.cuda.synchronize()
+        graphs = step_graphs(graphs)
         check(len(graphs) == (mode == 'graphed'), f'{mode}: {len(graphs)} graphs captured')
         check(runners[-1].replay is None, f'{mode}: the phase left its step graph alive')
         return {'losses': np.concatenate(losses), 'state': runners[-1].st,

@@ -2,93 +2,241 @@
 package's ``eval/reconstruct.py``).
 
 The volume is evaluated in flat row-major chunks of 2^18 voxels: the feature
-grid is decoded once, made channel-minor once, and every chunk's lattice
-coordinates are made on the device (``ix = lin // (Y*Z)``, then normalized to
-[-1, 1] and scaled by the anisotropy scales), fetched through the trilinear
-kernel, embedded and run through the MLP, and clamped to [-1, 1].  On the card
-the fetch is the CUDA kernel; nothing is copied to the host but the result.
-As in the JAX evaluation, this path keeps the fetch and the plain MLP
-whatever the spec's ``interp_backend`` and ``mlp_backend``.
+grid is decoded once and made channel-minor once, and the lattice's constants
+(the chunk's offsets, ``max_idx``, ``scales``) are put on the device once,
+before the chunks, as the JAX evaluation builds them outside its
+``lax.map``.  One chunk body (``ChunkBody``, the counterpart of JAX's
+``eval_chunk``) then computes chunk ``k`` from an int64 counter on the
+device and advances it: the chunk's lattice coordinates (``ix = lin //
+(Y*Z)``, normalized to [-1, 1], scaled by the anisotropy scales), the
+trilinear fetch, the embedding and the MLP, clamped to [-1, 1], written at
+row ``k`` of a static buffer.  Nothing in the chunk loop makes a tensor from
+host data or reads one back.
+
+On a card an evaluation of ``GRAPH_MIN_CHUNKS`` chunks or more (a 255^3
+volume has 64) captures that body once as a CUDA graph (the trainer's
+``capture_graph``) and each chunk is one replay, the counterpart of the JAX
+evaluation's single dispatch; the graph is destroyed before the evaluation
+returns or raises.  Smaller volumes, ``graphs=False`` and the CPU step the
+same body eagerly (``use_eval_graphs``).  As in the JAX
+evaluation, this path keeps the fetch and the plain MLP whatever the spec's
+``interp_backend`` and ``mlp_backend``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from ..data.volume import VolumeMeta
 from ..device import resolve_device
 from ..models.feature_grid import FeatureGridModel, decode_volume, predict_trilinear
+from ..ops import launch_counts
 from ..ops.interpolation import channel_minor
 
 CHUNK = 1 << 18
 
 
-def lattice_chunk(meta: VolumeMeta, start: int, chunk: int,
-                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+@dataclasses.dataclass(frozen=True)
+class Lattice:
+    """A volume's chunked lattice: its shape, and its constants on the
+    device (the offsets 0 .. chunk-1 of a chunk's voxels, ``max_idx`` and
+    ``scales``), made once an evaluation by :func:`lattice_constants`."""
+    resolution: tuple
+    n: int
+    chunk: int
+    offsets: torch.Tensor
+    max_idx: torch.Tensor
+    scales: torch.Tensor
+
+    @property
+    def n_chunks(self) -> int:
+        return math.ceil(self.n / self.chunk)
+
+
+def lattice_constants(meta: VolumeMeta, chunk: int, device: torch.device) -> Lattice:
+    return Lattice(tuple(meta.resolution), meta.n_voxels, chunk,
+                   torch.arange(chunk, device=device, dtype=torch.int64),
+                   torch.as_tensor(meta.max_idx, device=device),
+                   torch.as_tensor(meta.scales, device=device))
+
+
+def lattice_chunk(lat: Lattice, start) -> tuple[torch.Tensor, torch.Tensor]:
     """Normalized, scaled lattice coordinates (chunk, 3) of the flat voxels
     start .. start+chunk-1, and their validity mask: voxels past the end are
-    clamped to the last one and marked invalid."""
-    X, Y, Z = meta.resolution
-    n = meta.n_voxels
-    lin = start + torch.arange(chunk, device=device, dtype=torch.int64)
-    valid = lin < n
-    lin = lin.clamp(max=n - 1)
+    clamped to the last one and marked invalid.  ``start``: an int, or a
+    one-element int64 tensor on the lattice's device."""
+    X, Y, Z = lat.resolution
+    lin = start + lat.offsets
+    valid = lin < lat.n
+    lin = lin.clamp(max=lat.n - 1)
     iz = lin % Z
     iy = (lin // Z) % Y
     ix = lin // (Y * Z)
     raw = torch.stack([ix, iy, iz], dim=1).to(torch.float32)
-    max_idx = torch.as_tensor(meta.max_idx, device=device)
-    scales = torch.as_tensor(meta.scales, device=device)
-    c = (raw / max_idx) * 2.0 - 1.0
-    return c * scales, valid
+    c = (raw / lat.max_idx) * 2.0 - 1.0
+    return c * lat.scales, valid
+
+
+class ChunkBody:
+    """One chunk of the evaluation (the counterpart of ``eval_chunk`` under
+    the JAX evaluation's ``lax.map``): each call computes chunk ``k``, the
+    int64 counter ``self.k`` on the device, and advances it, with the same
+    launches on the same addresses every time.  Without ``volume`` it
+    writes the chunk's field at row ``k`` of ``out`` (n_chunks, chunk);
+    with the ground truth ``volume`` on the device, the chunk's
+    [sum d^2, sum |d|] over its valid voxels at row ``k`` of ``out``
+    (n_chunks, 2), the first level of the JAX evaluation's two-level
+    float32 sums.  The grid is decoded, and the lattice's constants made,
+    once, when the body is made."""
+
+    def __init__(self, model: FeatureGridModel, meta: VolumeMeta, chunk: int,
+                 device: torch.device, volume: Optional[torch.Tensor] = None):
+        self.model = model
+        self.lat = lattice_constants(meta, chunk, device)
+        self.grid_cl = channel_minor(decode_volume(model))
+        n_chunks = self.lat.n_chunks
+        self.k = torch.zeros(1, dtype=torch.int64, device=device)
+        self.gt = None
+        if volume is None:
+            self.out = torch.empty((n_chunks, chunk), device=device)
+        else:
+            flat = F.pad(volume.reshape(-1), (0, n_chunks * chunk - self.lat.n))
+            self.gt = flat.view(n_chunks, chunk)
+            self.out = torch.empty((n_chunks, 2), device=device)
+
+    def __call__(self):
+        c, valid = lattice_chunk(self.lat, self.k * self.lat.chunk)
+        pred = predict_trilinear(self.model, self.grid_cl, c)[:, 0]
+        if self.gt is None:
+            row = pred
+        else:
+            diff = torch.where(valid, self.gt.index_select(0, self.k)[0] - pred, 0.0)
+            row = torch.stack([torch.sum(diff * diff), torch.sum(diff.abs())])
+        self.out.index_copy_(0, self.k, row[None])
+        self.k.add_(1)
+
+
+# the fewest chunks an evaluation replays as a graph by default: a graphed
+# evaluation pays a warm-up chunk, the capture and its instantiation once,
+# and saves the host's launches at every chunk.  On an H100 (700 W;
+# chip_smoke.py's eval_mode_pairs, 9 rounds of pairs) the median graphed /
+# eager time was 1.97, 1.51, 1.29 and 1.19 at 1, 2, 4 and 8 chunks, 0.94 at
+# 16 and 0.96 at 64 (255^3)
+GRAPH_MIN_CHUNKS = 16
+
+
+def use_eval_graphs(graphs: Optional[bool], device, n_chunks: int) -> bool:
+    """Whether an evaluation's ``n_chunks`` chunks are replays of a CUDA
+    graph of its chunk body.  ``graphs`` None: on a card (on a mesh too:
+    the evaluation holds no collective) from ``GRAPH_MIN_CHUNKS`` chunks
+    on, else eagerly, and eagerly on the CPU; False: eagerly; True: on a
+    card, and on the CPU it raises."""
+    on_card = torch.device(device).type == 'cuda'
+    if graphs and not on_card:
+        raise ValueError(f"the evaluation's CUDA graph needs a card; got device "
+                         f"{str(device)!r} (graphs=None or False on the CPU)")
+    if graphs is None:
+        return on_card and n_chunks >= GRAPH_MIN_CHUNKS
+    return bool(graphs)
+
+
+def run_chunks(body: ChunkBody, graphs: bool) -> torch.Tensor:
+    """Every chunk of ``body`` from chunk 0, eagerly or (``graphs``) as
+    replays of one CUDA graph of it.  The graph is captured on the body's
+    card by the trainer's ``capture_graph``, into the memory pool its
+    captures share (an evaluation captures at every call), after chunk 0
+    run on a side stream to warm it (its launches not counted); the counter
+    is rewound after the warm-up and after the capture, and each replay
+    adds the launches the capture counted (``ops/launch_counts.py``).  A
+    failed capture raises.  The graph is destroyed
+    (``trainer.release_graph``) before this returns or raises.
+    Returns ``body.out``."""
+    if not graphs:
+        for _ in range(body.lat.n_chunks):
+            body()
+        return body.out
+    from ..train import trainer   # train/run.py imports this module
+    mark = launch_counts.read()
+
+    def warm():
+        body.k.zero_()
+        body()
+        launch_counts.write(mark)
+        body.k.zero_()
+    # a process group's watchdog thread queries events while the capture
+    # runs: only this thread's calls may void it then
+    mode = 'thread_local' if dist.is_available() and dist.is_initialized() else 'global'
+    replay = None
+    try:
+        try:
+            replay = trainer.capture_graph(warm, body, mode, device=body.k.device)
+            launches = launch_counts.since(mark)
+        finally:
+            launch_counts.write(mark)
+        body.k.zero_()
+        for _ in range(body.lat.n_chunks):
+            replay()
+            launch_counts.add(launches)
+    finally:
+        trainer.release_graph(getattr(replay, '__self__', None))
+    return body.out
 
 
 @torch.no_grad()
+def field_on_device(model: FeatureGridModel, meta: VolumeMeta, chunk: int = CHUNK,
+                    device: str | torch.device = 'cuda',
+                    graphs: Optional[bool] = None) -> torch.Tensor:
+    """The full volume (X, Y, Z) float32 on ``device``; ``graphs`` as
+    :func:`use_eval_graphs`."""
+    dev = resolve_device(device)
+    graphed = use_eval_graphs(graphs, dev, math.ceil(meta.n_voxels / chunk))
+    body = ChunkBody(model.to(dev), meta, chunk, dev)
+    return run_chunks(body, graphed).view(-1)[:meta.n_voxels].view(meta.resolution)
+
+
 def field_from_net(model: FeatureGridModel, meta: VolumeMeta,
                    chunk: int = CHUNK,
-                   device: str | torch.device = 'cuda') -> np.ndarray:
+                   device: str | torch.device = 'cuda',
+                   graphs: Optional[bool] = None) -> np.ndarray:
     """Reconstruct the full volume on ``device``; returns (X, Y, Z) float32."""
+    return field_on_device(model, meta, chunk, device, graphs).cpu().numpy()
+
+
+@torch.no_grad()
+def chunk_sums(model: FeatureGridModel, meta: VolumeMeta, volume_dev: torch.Tensor,
+               chunk: int = CHUNK, device: str | torch.device = 'cuda',
+               graphs: Optional[bool] = None) -> torch.Tensor:
+    """Each chunk's [sum d^2, sum |d|] against the ground truth, (n_chunks,
+    2) float32 on ``device``; ``graphs`` as :func:`use_eval_graphs`."""
     dev = resolve_device(device)
-    model = model.to(dev)
-    grid_cl = channel_minor(decode_volume(model))
-    n = meta.n_voxels
-    out = torch.empty(math.ceil(n / chunk) * chunk, device=dev)
-    for start in range(0, n, chunk):
-        c, _ = lattice_chunk(meta, start, chunk, dev)
-        out[start:start + chunk] = predict_trilinear(model, grid_cl, c)[:, 0]
-    return out[:n].cpu().numpy().reshape(meta.resolution)
+    graphed = use_eval_graphs(graphs, dev, math.ceil(meta.n_voxels / chunk))
+    body = ChunkBody(model.to(dev), meta, chunk, dev,
+                     volume=volume_dev.to(dev, torch.float32))
+    return run_chunks(body, graphed)
 
 
 @torch.no_grad()
 def eval_stats_on_device(model: FeatureGridModel, meta: VolumeMeta,
                          volume_dev: torch.Tensor, chunk: int = CHUNK,
-                         device: str | torch.device = 'cuda'):
+                         device: str | torch.device = 'cuda',
+                         graphs: Optional[bool] = None):
     """PSNR/L1/MSE/RMSE with the sums taken on the device: only four scalars
     come back.  Two-level float32 accumulation (per chunk, then over chunks);
     the PSNR range is that of the whole ground-truth volume."""
     dev = resolve_device(device)
-    model = model.to(dev)
     vol = volume_dev.to(dev, torch.float32)
-    grid_cl = channel_minor(decode_volume(model))
-    n = meta.n_voxels
-    n_chunks = math.ceil(n / chunk)
-    flat = torch.nn.functional.pad(vol.reshape(-1), (0, n_chunks * chunk - n))
-    sums = torch.empty((n_chunks, 2), device=dev)
-    for k in range(n_chunks):
-        start = k * chunk
-        c, valid = lattice_chunk(meta, start, chunk, dev)
-        pred = predict_trilinear(model, grid_cl, c)[:, 0]
-        diff = torch.where(valid, flat[start:start + chunk] - pred, 0.0)
-        sums[k, 0] = torch.sum(diff * diff)
-        sums[k, 1] = torch.sum(diff.abs())
-    total = sums.sum(dim=0)
+    total = chunk_sums(model, meta, vol, chunk, dev, graphs).sum(dim=0)
     stats = torch.stack([total[0], total[1], vol.max() - vol.min()])
     sum_sq, sum_abs, rng = (float(v) for v in stats.cpu())
+    n = meta.n_voxels
     mse = sum_sq / n
     l1 = sum_abs / n
     psnr = 10.0 * math.log10((rng * rng) / mse) if mse > 0 else float('inf')
@@ -109,19 +257,21 @@ def tiled_net_out(model: FeatureGridModel, meta: VolumeMeta,
                   gt_vol: Optional[np.ndarray] = None, evaluate: bool = True,
                   write_vols: bool = False, filename: str = 'vol',
                   device: str | torch.device = 'cuda',
-                  gt_dev: Optional[torch.Tensor] = None):
+                  gt_dev: Optional[torch.Tensor] = None,
+                  graphs: Optional[bool] = None):
     """Reconstruct, optionally compute stats and write .vti volumes.
 
     Without volume files the stats come from :func:`eval_stats_on_device`
     on ``gt_dev`` (the ground truth already on the device) when given, else
     on ``gt_vol``; with them, the field comes to the host and the stats are
-    taken there in float64 against ``gt_vol``."""
+    taken there in float64 against ``gt_vol``.  ``graphs`` as
+    :func:`use_eval_graphs`."""
     dev = resolve_device(device)
     if evaluate and not write_vols and (gt_dev is not None or gt_vol is not None):
         vol = gt_dev if gt_dev is not None else torch.from_numpy(
             np.ascontiguousarray(gt_vol, dtype=np.float32))
-        return eval_stats_on_device(model, meta, vol, device=dev)
-    full_vol = field_from_net(model, meta, device=dev)
+        return eval_stats_on_device(model, meta, vol, device=dev, graphs=graphs)
+    full_vol = field_from_net(model, meta, device=dev, graphs=graphs)
     psnr, l1, mse, rmse = 0.0, 0.0, 0.0, 0.0
     if evaluate and gt_vol is not None:
         psnr, l1, mse, rmse = deviation_statistics(full_vol, gt_vol)

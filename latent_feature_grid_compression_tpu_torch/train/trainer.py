@@ -81,6 +81,7 @@ import dataclasses
 import gc
 import math
 import time
+import warnings
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -113,8 +114,14 @@ WARMUP_STEPS = 3
 # (the wrappers' counts are set back after them): they are no step of a phase
 warmup_steps = 0
 # every step graph this process captured whose CUDA graph is not destroyed
-# yet (weakly: the registry keeps none alive)
+# yet, and every evaluation graph (``eval/reconstruct.py::run_chunks``
+# captures through ``capture_graph`` too; weakly: the registry keeps none
+# alive)
 _live_graphs: 'weakref.WeakSet' = weakref.WeakSet()
+# by card index: the memory pool every capture there shares, the anchor
+# graph that keeps it alive, and the warm-up and capture streams
+# (``_capture_pool_and_streams``)
+_capture_pools: Dict[int, tuple] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -643,42 +650,97 @@ def release_graph(graph):
 
 
 def release_step_graphs() -> List[str]:
-    """Destroy every step graph of this process still alive
-    (``release_graph``), after a collection; returns, for each, the types
-    of the objects that held it."""
+    """Destroy every step and evaluation graph of this process still alive
+    (``release_graph``), after a collection, then destroy the capture
+    pools' anchors and drop the pools, whose memory the allocator can then
+    give back; returns, for each graph, the types of the objects that held
+    it."""
     gc.collect()
     graphs = list(_live_graphs)
     holders = [sorted({type(o).__name__ for o in gc.get_referrers(g) if o is not graphs})
                for g in graphs]
     for g in graphs:
         release_graph(g)
+    for _, anchor, _, _ in _capture_pools.values():
+        anchor.reset()
+    _capture_pools.clear()
     return [', '.join(h) for h in holders]
 
 
+def _capture_pool_and_streams(error_mode: str) -> Tuple[tuple, torch.cuda.Stream,
+                                                       torch.cuda.Stream]:
+    """The memory pool this process's captures on the current card share,
+    and the streams they warm up and capture on: made at the first capture
+    there, dropped by ``release_step_graphs``.  A capture reuses what its
+    destroyed predecessors left in the pool, on the same capture stream (the
+    allocator reuses a block only on the stream that freed it).  A pool
+    lives while a graph captured into it does, and PyTorch (2.11.0+cu128 on
+    an H100) fails its assert ``use_count > 0`` in ``CachingHostAllocator``
+    at a capture into a pool whose every graph was destroyed; so an anchor
+    graph (one fill, never replayed) is captured into the pool first, in the
+    mode of the capture it precedes, and destroyed with the pool.  Called
+    inside ``torch.cuda.device``: a pool and a stream belong to the card
+    that is current when they are made."""
+    card = torch.cuda.current_device()
+    if card not in _capture_pools:
+        pool, capture_stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+        anchor = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(capture_stream):
+            anchor.capture_begin(pool, capture_error_mode=error_mode)
+            try:
+                torch.zeros(1, device=torch.device('cuda', card))
+            finally:
+                anchor.capture_end()
+        _capture_pools[card] = (pool, anchor, torch.cuda.Stream(), capture_stream)
+    pool, _, warm_stream, capture_stream = _capture_pools[card]
+    return pool, warm_stream, capture_stream
+
+
 def capture_graph(warm: Callable[[], None], step: Callable[[], None],
-                  error_mode: str = 'global') -> Callable[[], None]:
+                  error_mode: str = 'global', *, device: torch.device
+                  ) -> Callable[[], None]:
     """``warm`` run on a side stream, then ``step`` captured as one CUDA
-    graph, whose allocations come from its own memory pool; returns the
-    graph's replay.  The one seam between the chunk runner and CUDA graphs:
-    a capture that fails (a host synchronisation, an allocation outside the
-    pool, a collective of a backend other than NCCL) raises, and nothing
-    falls back to eager steps.  On a mesh ``step`` holds NCCL collectives,
-    which the capture records as nodes of the graph: their communicators
-    must exist before it starts (``warm`` issues every collective of the
-    step), and PyTorch waits there for the eager NCCL work its watchdog
-    still tracks.  ``error_mode``: the capture's ``capture_error_mode``;
-    on a mesh 'thread_local', so that the NCCL watchdog thread's event
-    queries do not void the capture, while a call of this thread that a
-    graph cannot hold still raises."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        warm()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    _live_graphs.add(graph)
-    with torch.cuda.graph(graph, capture_error_mode=error_mode):
-        step()
+    graph on ``device``, whose allocations come from the memory pool that
+    every capture on that card shares (``_capture_pool_and_streams``);
+    returns the graph's replay.  The one seam between the chunk runner,
+    the evaluation and CUDA graphs: a capture that fails (a host
+    synchronisation, an allocation outside the pool, a collective of a
+    backend other than NCCL) raises, and so does one that records no node
+    (its work ran on another card's stream), and nothing falls back to
+    eager steps.  The warm-up, the capture and the pool belong to
+    ``device`` whichever card is current.  Graphs that share the pool are
+    only ever replayed one after another on one stream, and every tensor a
+    capture leaves alive (the runner's state, the evaluation's output) was
+    made before it.  On a mesh ``step`` holds NCCL collectives, which the
+    capture records as nodes of the graph: their communicators must exist
+    before it starts (``warm`` issues every collective of the step), and
+    PyTorch waits there for the eager NCCL work its watchdog still tracks.
+    ``error_mode``: the capture's ``capture_error_mode``; on a mesh (and
+    for an evaluation under a process group) 'thread_local', so that the
+    NCCL watchdog thread's event queries do not void the capture, while a
+    call of this thread that a graph cannot hold still raises."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        pool, side, capture_stream = _capture_pool_and_streams(error_mode)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            warm()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        _live_graphs.add(graph)
+        with torch.cuda.stream(capture_stream), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            graph.capture_begin(pool, capture_error_mode=error_mode)
+            try:
+                step()
+            finally:
+                graph.capture_end()
+    for w in caught:
+        if 'CUDA Graph is empty' in str(w.message):
+            release_graph(graph)
+            raise RuntimeError(f'the capture on {device} recorded no node: its work ran '
+                               f'on another card or stream')
+        warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
     return graph.replay
 
 
@@ -773,7 +835,8 @@ class ChunkRunner:
             launch_counts.write(mark)
         mode = 'thread_local' if self.step_kw.get('sc') is not None else 'global'
         try:
-            self.replay = capture_graph(warm, lambda: self._step(st), mode)
+            self.replay = capture_graph(warm, lambda: self._step(st), mode,
+                                        device=self.c.volume.device)
             self.replay_launches = launch_counts.since(mark)
         finally:
             launch_counts.write(mark)

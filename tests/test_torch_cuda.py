@@ -16,6 +16,8 @@ repo's ``tests/conftest.py`` imports JAX, so there run it as
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -652,6 +654,116 @@ def test_field_and_stats_on_card_match_cpu(cuda_device):
                                      chunk=4096, device=cuda_device)
     np.testing.assert_allclose(out, ref, atol=5e-5)
     assert abs(stats[0] - ref_stats[0]) <= 1e-3
+
+
+@pytest.mark.parametrize('shape,chunk', [((64, 64, 64), rec.CHUNK), ((20, 24, 28), 4096)])
+def test_graphed_evaluation_equals_eager(cuda_device, monkeypatch, shape, chunk):
+    """A graphed evaluation (``graphs=True``) captures its chunk body once
+    an evaluation and replays it a chunk: the field, the per-chunk sums and
+    the stats ``torch.equal`` to the eager body's (``graphs=False``), the
+    fetch counted once a chunk in both modes, and no evaluation graph alive
+    afterwards.  The default at these sizes (under ``GRAPH_MIN_CHUNKS``)
+    captures nothing.  64^3 is one whole chunk; (20, 24, 28) at 4,096 ends
+    in a partial chunk."""
+    from latent_feature_grid_compression_tpu_torch.train import trainer as tr
+    meta = VolumeMeta(shape)
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(7),
+                          device='cpu')
+    vol = torch.from_numpy(np.random.default_rng(8).uniform(-1, 1, shape)
+                           .astype(np.float32)).to(cuda_device)
+    n_chunks = -(-meta.n_voxels // chunk)
+    assert n_chunks < rec.GRAPH_MIN_CHUNKS
+    captures = []
+    capture = tr.capture_graph
+    monkeypatch.setattr(tr, 'capture_graph',
+                        lambda *a, **k: captures.append(1) or capture(*a, **k))
+    live = set(tr._live_graphs)
+    got = {}
+    for graphs in (False, True, None):
+        captures.clear()
+        before = gs.launches
+        got[graphs] = (rec.field_on_device(model, meta, chunk, cuda_device, graphs=graphs),
+                       rec.chunk_sums(model, meta, vol, chunk, cuda_device, graphs=graphs),
+                       rec.eval_stats_on_device(model, meta, vol, chunk, cuda_device,
+                                                graphs=graphs))
+        torch.cuda.synchronize()
+        assert gs.launches == before + 3 * n_chunks
+        assert len(captures) == (3 if graphs else 0)
+    assert not set(tr._live_graphs) - live
+    (field, sums, stats), (field_g, sums_g, stats_g) = got[False], got[True]
+    assert field.shape == shape and sums.shape == (n_chunks, 2)
+    assert torch.equal(field_g, field) and torch.equal(sums_g, sums)
+    assert stats_g == stats
+
+
+def test_graphed_evaluations_share_one_pool(cuda_device):
+    """Every graphed evaluation captures anew into the memory pool that the
+    process's captures on the card share (``trainer.capture_graph``),
+    reusing the memory its destroyed predecessors left there: once two
+    evaluations have run, four more reserve nothing more on the card."""
+    meta = VolumeMeta((64, 64, 64))
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(9),
+                          device='cpu').to(cuda_device)
+    for _ in range(2):
+        rec.field_on_device(model, meta, device=cuda_device, graphs=True)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(4):
+        rec.field_on_device(model, meta, device=cuda_device, graphs=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() == reserved
+
+
+def test_an_empty_capture_raises(cuda_device):
+    """A capture that records no node (PyTorch only warns) raises, and no
+    graph of it is left alive."""
+    from latent_feature_grid_compression_tpu_torch.train import trainer as tr
+    live = set(tr._live_graphs)
+    with pytest.raises(RuntimeError, match='recorded no node'):
+        tr.capture_graph(lambda: None, lambda: None, device=cuda_device)
+    assert not set(tr._live_graphs) - live
+
+
+@pytest.fixture
+def second_card():
+    """The second CUDA device, with the first one current; skips the test
+    on fewer than two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip('needs two NVIDIA GPUs with CUDA')
+    torch.cuda.set_device(0)
+    return torch.device('cuda', 1)
+
+
+def test_graphs_on_the_second_card(second_card):
+    """With card 0 current, a graphed evaluation and a graphed training
+    phase on card 1 capture and replay there: the field and the stats equal
+    the eager ones on card 1 and card 0's, and the phase's losses and state
+    the eager phase's on card 1, bit for bit; no graph is left alive."""
+    from latent_feature_grid_compression_tpu_torch.io.train_state_io import TENSOR_FIELDS
+    from latent_feature_grid_compression_tpu_torch.train import trainer as tr
+    meta = VolumeMeta((20, 24, 28))
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(11),
+                          device='cpu')
+    vol = torch.from_numpy(np.random.default_rng(12).uniform(-1, 1, meta.resolution)
+                           .astype(np.float32))
+    live = set(tr._live_graphs)
+    field = {}
+    for card, graphs in ((second_card, True), (second_card, False),
+                         (torch.device('cuda', 0), False)):
+        field[card, graphs] = (
+            rec.field_on_device(model, meta, 4096, card, graphs=graphs).cpu(),
+            rec.eval_stats_on_device(model, meta, vol, 4096, card, graphs=graphs))
+    assert torch.cuda.current_device() == 0
+    (f1g, s1g), (f1, s1), (f0, s0) = field.values()
+    assert torch.equal(f1g, f1) and torch.equal(f1, f0) and s1g == s1 == s0
+    (l0, v0, st0), (l1, v1, st1) = (_phase_run(second_card, 'default', graphs, 1)
+                                    for graphs in (False, True))
+    np.testing.assert_array_equal(l1, l0)
+    np.testing.assert_array_equal(v1, v0)
+    for name in TENSOR_FIELDS:
+        a, b = getattr(st0, name), getattr(st1, name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+    assert not set(tr._live_graphs) - live
 
 
 def test_quantization_study_on_card_matches_the_plain_path(cuda_device):
@@ -1322,6 +1434,103 @@ def test_nccl_world_of_one_runs_the_collectives_on_the_card(cuda_device, tmp_pat
             assert torch.equal(t, x)
     finally:
         dist.destroy_process_group()
+
+
+def _nccl_rank_evaluates(rank, init_file, out):
+    """Rank 0 of a world-1 NCCL group on the card, as rank 0 of a mesh
+    evaluates after training: an eager all-reduce (the group's
+    communicator and watchdog running), the evaluation eager and graphed
+    (a graph captured while the group lives), then
+    ``shutdown_distributed``."""
+    import time
+    import torch.distributed as dist
+    from latent_feature_grid_compression_tpu_torch.parallel.distributed import (
+        shutdown_distributed)
+    card = torch.device('cuda', 0)
+    dist.init_process_group('nccl', init_method='file://' + init_file, world_size=1,
+                            rank=rank, device_id=card)
+    x = torch.ones(4, device=card)
+    dist.all_reduce(x)
+    meta = VolumeMeta((20, 24, 28))
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(10),
+                          device='cpu')
+    eager = rec.field_on_device(model, meta, 4096, card, graphs=False)
+    graphed = rec.field_on_device(model, meta, 4096, card, graphs=True)
+    t0 = time.perf_counter()
+    shutdown_distributed()
+    torch.save({'equal': torch.equal(eager, graphed), 'ended': not dist.is_initialized(),
+                'shutdown_s': time.perf_counter() - t0, 'sum': float(x.sum())},
+               f'{out}/rank{rank}.pt')
+
+
+def test_graphed_evaluation_under_an_nccl_group(cuda_device, tmp_path):
+    """A graphed evaluation under a live NCCL group (its capture in
+    thread-local mode beside the group's watchdog thread) equals the eager
+    evaluation, and the group then ends through ``shutdown_distributed``
+    within the test's limit; a rank that does not end fails the test."""
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(_nccl_rank_evaluates, args=(str(tmp_path / 'rendezvous'), str(tmp_path)),
+                   nprocs=1, join=False)
+    deadline = time.monotonic() + 180
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail('the rank did not end within 180 s')
+    r = torch.load(tmp_path / 'rank0.pt')
+    assert r['equal'] and r['ended'] and r['sum'] == 4.0
+
+
+def _nccl_rank_captures(rank, init_file, out, mode):
+    """Rank 0 of a world-1 NCCL group on the card captures, through
+    ``trainer.capture_graph`` in ``mode``, an all-reduce right after a
+    warm-up of eager all-reduces whose work is still in flight (no card
+    synchronisation between them), as the chunk runner's capture follows
+    its warm-up; then replays it, and ends through
+    ``shutdown_distributed``."""
+    import torch.distributed as dist
+    from latent_feature_grid_compression_tpu_torch.parallel.distributed import (
+        shutdown_distributed)
+    from latent_feature_grid_compression_tpu_torch.train import trainer as tr
+    card = torch.device('cuda', 0)
+    dist.init_process_group('nccl', init_method='file://' + init_file, world_size=1,
+                            rank=rank, device_id=card)
+    x = torch.ones(1 << 20, device=card)
+
+    def step():
+        x.mul_(2.0)
+        dist.all_reduce(x)
+
+    def warm():
+        for _ in range(8):
+            step()
+    replay = tr.capture_graph(warm, step, mode, device=card)
+    for _ in range(3):
+        replay()
+    torch.cuda.synchronize()
+    value = float(x[0])
+    shutdown_distributed()
+    torch.save({'value': value, 'ended': not dist.is_initialized()}, f'{out}/rank{rank}.pt')
+
+
+@pytest.mark.parametrize('mode', ['global', 'thread_local'])
+def test_nccl_capture_right_after_eager_collectives(cuda_device, tmp_path, mode):
+    """A capture of NCCL work made while the warm-up's eager NCCL work may
+    still run (``capture_graph`` does not synchronise the card first) in
+    either capture mode: the warm-up's 8 steps and 3 replays double the
+    tensor 11 times, and the group ends through ``shutdown_distributed``
+    within the test's limit."""
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(_nccl_rank_captures, args=(str(tmp_path / 'rendezvous'), str(tmp_path), mode),
+                   nprocs=1, join=False)
+    deadline = time.monotonic() + 180
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail('the rank did not end within 180 s')
+    r = torch.load(tmp_path / 'rank0.pt')
+    assert r['value'] == 2.0 ** 11 and r['ended']
 
 
 def _gloo_rank_on_the_card(rank, init_file, out):

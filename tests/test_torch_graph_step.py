@@ -293,8 +293,8 @@ def test_replays_count_the_captured_launches(drop_type, monkeypatch):
 
     captures = []
 
-    def fake_capture(warm, capture_step, error_mode):
-        assert error_mode == 'global'
+    def fake_capture(warm, capture_step, error_mode, device):
+        assert error_mode == 'global' and device == vol.device
         warm()
         held = {name: getattr(live, name).clone() for name in TENSOR_FIELDS
                 if getattr(live, name) is not None}

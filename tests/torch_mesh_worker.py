@@ -280,7 +280,8 @@ def task_graph_stub(rank, job, tmp):
         init(self, *a, **k)
         runners.append(self)
 
-    def fake_capture(warm, capture_step, error_mode):
+    def fake_capture(warm, capture_step, error_mode, device):
+        assert device == runners[-1].c.volume.device
         warm()
         live = runners[-1].st
         held = {f: t.clone() for f, t in _state_tensors(live).items()}
