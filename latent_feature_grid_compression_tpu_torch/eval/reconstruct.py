@@ -40,6 +40,7 @@ from ..device import resolve_device
 from ..models.feature_grid import FeatureGridModel, decode_volume, predict_trilinear
 from ..ops import launch_counts
 from ..ops.interpolation import channel_minor
+from ..utils.profiling import count, span
 
 CHUNK = 1 << 18
 
@@ -157,11 +158,16 @@ def run_chunks(body: ChunkBody, graphs: bool) -> torch.Tensor:
     is rewound after the warm-up and after the capture, and each replay
     adds the launches the capture counted (``ops/launch_counts.py``).  A
     failed capture raises.  The graph is destroyed
-    (``trainer.release_graph``) before this returns or raises.
+    (``trainer.release_graph``) before this returns or raises.  Spans:
+    ``eval.capture`` (the warm-up, the capture, its instantiation),
+    ``eval.chunks`` (the chunks' launches; ``n`` the chunks) and
+    ``eval.release`` (the wait for the card, the graph destroyed).
     Returns ``body.out``."""
+    n_chunks = body.lat.n_chunks
     if not graphs:
-        for _ in range(body.lat.n_chunks):
-            body()
+        with span('eval.chunks', n_chunks):
+            for _ in range(n_chunks):
+                body()
         return body.out
     from ..train import trainer   # train/run.py imports this module
     mark = launch_counts.read()
@@ -176,17 +182,21 @@ def run_chunks(body: ChunkBody, graphs: bool) -> torch.Tensor:
     mode = 'thread_local' if dist.is_available() and dist.is_initialized() else 'global'
     replay = None
     try:
-        try:
-            replay = trainer.capture_graph(warm, body, mode, device=body.k.device)
-            launches = launch_counts.since(mark)
-        finally:
-            launch_counts.write(mark)
-        body.k.zero_()
-        for _ in range(body.lat.n_chunks):
-            replay()
-            launch_counts.add(launches)
+        with span('eval.capture'):
+            try:
+                replay = trainer.capture_graph(warm, body, mode, device=body.k.device)
+                launches = launch_counts.since(mark)
+                count('graph_captures.eval')
+            finally:
+                launch_counts.write(mark)
+            body.k.zero_()
+        with span('eval.chunks', n_chunks):
+            for _ in range(n_chunks):
+                replay()
+                launch_counts.add(launches)
     finally:
-        trainer.release_graph(getattr(replay, '__self__', None))
+        with span('eval.release'):
+            trainer.release_graph(getattr(replay, '__self__', None))
     return body.out
 
 
@@ -195,11 +205,15 @@ def field_on_device(model: FeatureGridModel, meta: VolumeMeta, chunk: int = CHUN
                     device: str | torch.device = 'cuda',
                     graphs: Optional[bool] = None) -> torch.Tensor:
     """The full volume (X, Y, Z) float32 on ``device``; ``graphs`` as
-    :func:`use_eval_graphs`."""
-    dev = resolve_device(device)
-    graphed = use_eval_graphs(graphs, dev, math.ceil(meta.n_voxels / chunk))
-    body = ChunkBody(model.to(dev), meta, chunk, dev)
-    return run_chunks(body, graphed).view(-1)[:meta.n_voxels].view(meta.resolution)
+    :func:`use_eval_graphs`.  One ``eval.call`` span, its set-up
+    ``eval.setup``."""
+    with span('eval.call'):
+        dev = resolve_device(device)
+        graphed = use_eval_graphs(graphs, dev, math.ceil(meta.n_voxels / chunk))
+        with span('eval.setup'):
+            body = ChunkBody(model.to(dev), meta, chunk, dev)
+        out = run_chunks(body, graphed)
+    return out.view(-1)[:meta.n_voxels].view(meta.resolution)
 
 
 def field_from_net(model: FeatureGridModel, meta: VolumeMeta,
@@ -215,12 +229,15 @@ def chunk_sums(model: FeatureGridModel, meta: VolumeMeta, volume_dev: torch.Tens
                chunk: int = CHUNK, device: str | torch.device = 'cuda',
                graphs: Optional[bool] = None) -> torch.Tensor:
     """Each chunk's [sum d^2, sum |d|] against the ground truth, (n_chunks,
-    2) float32 on ``device``; ``graphs`` as :func:`use_eval_graphs`."""
-    dev = resolve_device(device)
-    graphed = use_eval_graphs(graphs, dev, math.ceil(meta.n_voxels / chunk))
-    body = ChunkBody(model.to(dev), meta, chunk, dev,
-                     volume=volume_dev.to(dev, torch.float32))
-    return run_chunks(body, graphed)
+    2) float32 on ``device``; ``graphs`` as :func:`use_eval_graphs`.  Spans
+    as :func:`field_on_device`'s."""
+    with span('eval.call'):
+        dev = resolve_device(device)
+        graphed = use_eval_graphs(graphs, dev, math.ceil(meta.n_voxels / chunk))
+        with span('eval.setup'):
+            body = ChunkBody(model.to(dev), meta, chunk, dev,
+                             volume=volume_dev.to(dev, torch.float32))
+        return run_chunks(body, graphed)
 
 
 @torch.no_grad()

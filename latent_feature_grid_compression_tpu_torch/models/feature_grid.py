@@ -33,6 +33,7 @@ values into the grid and :func:`remove_drop_layers` hard-prunes it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
@@ -48,6 +49,7 @@ from ..ops.grid_sample import fetch
 from ..ops.interpolation import channel_minor
 from ..ops.mlp import init_mlp, mlp_apply, mlp_apply_bf16, snake_alt
 from ..ops.mlp_fused import MAX_WIDTH, mlp_fused
+from ..utils.profiling import span
 from . import gates as G
 
 # every config value of interp_backend that means "the trilinear fetch": the
@@ -388,22 +390,40 @@ def apply_model(model, coords: torch.Tensor, *, train: bool = True,
     Coordinate 0 is re-expressed in the window's frame for the fetch (the
     float32 fetch on the (G, G, length, F) grid), the embedding takes the
     global coordinates, and the MLP runs in float32; other specs raise
-    (:func:`check_local_decode`)."""
-    if x_window is None:
-        grid = decode_volume(model, train_gates=train_gates, masks=masks, noise=noise)
-        return predict(model, channel_minor(grid), coords, train=train)
-    spec = model.spec
-    check_local_decode(spec)
-    grid = decode_volume(model, train_gates=train_gates, masks=masks, noise=noise,
-                         x_window=x_window)
-    start, length = x_window
-    # the pixel coordinate ((c + 1) * W - 1) / 2 equals the window's
-    # ((c' + 1) * length - 1) / 2 + start
-    c0 = ((coords[:, 0] + 1.0) * spec.grid_size - 2.0 * float(start)) / float(length) - 1.0
-    x = _mlp_input(model, channel_minor(grid), coords,
-                   fetch_coords=torch.cat([c0[:, None], coords[:, 1:]], dim=1))
-    out = mlp_apply(list(model.mlp_w), list(model.mlp_b), x, snake_alt)
-    return out if train else out.clamp(-1.0, 1.0)
+    (:func:`check_local_decode`).
+
+    With ``train=False`` a call is a query request: a ``query.request``
+    span, its parts ``query.decode`` (the grid decoded and made
+    channel-minor) and ``query.predict`` (the head and the clamp); a
+    training call records none."""
+    part = _silent if train else span
+    with part('query.request'):
+        if x_window is None:
+            with part('query.decode'):
+                grid = channel_minor(decode_volume(model, train_gates=train_gates,
+                                                   masks=masks, noise=noise))
+            with part('query.predict'):
+                return predict(model, grid, coords, train=train)
+        spec = model.spec
+        check_local_decode(spec)
+        with part('query.decode'):
+            grid = channel_minor(decode_volume(model, train_gates=train_gates, masks=masks,
+                                               noise=noise, x_window=x_window))
+        with part('query.predict'):
+            start, length = x_window
+            # the pixel coordinate ((c + 1) * W - 1) / 2 equals the window's
+            # ((c' + 1) * length - 1) / 2 + start
+            c0 = ((coords[:, 0] + 1.0) * spec.grid_size - 2.0 * float(start)) / float(length) \
+                - 1.0
+            x = _mlp_input(model, grid, coords,
+                           fetch_coords=torch.cat([c0[:, None], coords[:, 1:]], dim=1))
+            out = mlp_apply(list(model.mlp_w), list(model.mlp_b), x, snake_alt)
+            return out if train else out.clamp(-1.0, 1.0)
+
+
+def _silent(name: str):
+    """A span that records nothing (training's calls of ``apply_model``)."""
+    return contextlib.nullcontext()
 
 
 @torch.no_grad()

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,9 +62,8 @@ from ..models.feature_grid import (FeatureGridModel, check_local_decode, init_mo
 from ..models.variance import init_variance_model
 from ..parallel import mesh as pm
 from ..parallel.distributed import initialize_distributed, rank_device
-from . import trainer
-from .trainer import (StepTimer, init_train_state, make_phase_spec, solve_phase,
-                      state_to_model)
+from ..utils.profiling import counters
+from .trainer import init_train_state, make_phase_spec, solve_phase, state_to_model
 
 
 def _check_local_decode(cfg: TrainConfig, meta: VolumeMeta, spec):
@@ -149,6 +148,7 @@ def evaluate_model_training(model: FeatureGridModel, meta: VolumeMeta,
     experiment_path = experiment_dir(cfg)
     os.makedirs(experiment_path, exist_ok=True)
 
+    captured = counters().get('graph_captures.eval', 0)
     psnr, l1_diff, mse, rmse = tiled_net_out(
         model, meta, gt_vol=volume_np, evaluate=True, write_vols=write_vols,
         filename=os.path.join(experiment_path, 'vol') if write_vols else 'vol',
@@ -171,6 +171,8 @@ def evaluate_model_training(model: FeatureGridModel, meta: VolumeMeta,
         'mse': mse,
         'rmse': rmse,
         'compr_rmse': compr_rmse,
+        # one a reconstruction whose chunks were replays of a captured graph
+        'eval_graph_captures': counters().get('graph_captures.eval', 0) - captured,
     }
     if writer is not None:
         for tag, value in (('compression_ratio', compression_ratio), ('zeroes', zeros),
@@ -231,6 +233,27 @@ def _load_bake(resume_dir: str, device: torch.device):
     return masks, zeros
 
 
+def _chunk_rates(counted: Dict[str, int], samples_per_step: int) -> Dict[str, float]:
+    """Training rates from the rise of the chunk counters over a run
+    (``ChunkRunner.chunk``: steps, and ns from each chunk's load to the end
+    of its device read), over every chunk but each phase's first (kernel
+    builds, library initialisation, the capture), whose seconds are given
+    apart; over the first chunks where there are no others."""
+    first_ns = counted.get('first_chunk_ns.train', 0)
+    if not first_ns:
+        return {}
+    steps, ns = counted.get('chunk_steps.train', 0), counted.get('chunk_ns.train', 0)
+    if not steps:
+        steps, ns = counted.get('first_chunk_steps.train', 0), first_ns
+    secs = ns * 1e-9
+    return {
+        'steps_per_sec': steps / secs if secs else 0.0,
+        'samples_per_sec': steps * samples_per_step / secs if secs else 0.0,
+        'ms_per_step': secs / steps * 1e3 if steps else 0.0,
+        'first_chunks_sec': first_ns * 1e-9,
+    }
+
+
 def training(cfg: TrainConfig, verbose: bool = True,
              volume_np: Optional[np.ndarray] = None, write_vols: bool = True,
              device: str | torch.device = 'cuda',
@@ -289,7 +312,7 @@ def training(cfg: TrainConfig, verbose: bool = True,
     if lead:
         os.makedirs(experiment_path, exist_ok=True)
     resume_phase, resume_dir = _resume_point(cfg, verbose)
-    timers, phase_stats = [], {}
+    phase_stats, counted = {}, counters()
     writer = _make_writer(cfg) if lead else None
 
     def run_phase(phase, state, masks, gate_noise=None, profile_dir=''):
@@ -307,18 +330,17 @@ def training(cfg: TrainConfig, verbose: bool = True,
                 rank=0 if mesh is None else mesh.rank)
         if lead:
             write_dict({'phase': phase}, 'resume_meta.txt', experiment_path)
-        timers.append(StepTimer(ph.batch_n))
         losses, vol_losses = [], []
         start = state.step
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        warmed = trainer.warmup_steps
+        captured = counters().get('graph_captures.train', 0)
         # solve_phase ends in a device read: the wall time is the card's
         state = solve_phase(ph, state, volume, cfg.steps_per_chunk, masks,
                             generator=generators[0], positions=positions[phase - 1],
                             noise_generator=generators[1], gate_noise=gate_noise,
-                            verbose=verbose, timer=timers[-1], metric_cb=losses.append,
+                            verbose=verbose, metric_cb=losses.append,
                             volume_cb=vol_losses.append, writer=writer,
                             state_save_path=save_path,
                             profile_dir=profile_dir if lead else '', **mesh_kw)
@@ -329,7 +351,7 @@ def training(cfg: TrainConfig, verbose: bool = True,
             f'phase{phase}_samples_per_sec': steps * ph.batch_n / seconds,
             # 1 where the phase's steps were replays of its step graph
             f'phase{phase}_graph_captures':
-                (trainer.warmup_steps - warmed) // trainer.WARMUP_STEPS})
+                counters().get('graph_captures.train', 0) - captured})
         for name, values in (('loss', losses), ('volume_loss', vol_losses)):
             values = np.concatenate(values) if values else np.zeros(0)
             phase_stats[f'phase{phase}_first_{name}'] = float(values[0]) if steps else None
@@ -381,8 +403,9 @@ def training(cfg: TrainConfig, verbose: bool = True,
         shared = [info]
         dist.broadcast_object_list(shared, src=0)
         info = shared[0]
-    info.update({'train_' + k: v
-                 for k, v in StepTimer.merge(timers).stats().items()})
+    rates = _chunk_rates({k: v - counted.get(k, 0) for k, v in counters().items()},
+                         cfg.batch_size * cfg.sample_size)
+    info.update({'train_' + k: v for k, v in rates.items()})
     info.update({'train_' + k: v for k, v in phase_stats.items()})
     if lead:
         write_dict(info, 'info.txt', experiment_path)

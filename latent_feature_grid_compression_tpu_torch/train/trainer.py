@@ -97,7 +97,7 @@ from ..models.feature_grid import (FeatureGridModel, ModelSpec, Params, apply_mo
                                    check_local_decode, coeff_shapes)
 from ..models.variance import apply_variance_model
 from ..ops import launch_counts
-from ..utils.profiling import trace
+from ..utils.profiling import count, span, trace
 from . import losses as L
 from ..parallel import mesh as pm
 from ..parallel.mesh import ShardCtx, ZeroCtx
@@ -781,6 +781,7 @@ class ChunkRunner:
         self.graphs = graphs
         self.replay: Optional[Callable[[], None]] = None
         self.replay_launches: Optional[Tuple[float, ...]] = None
+        self.chunks = 0   # the chunks run
 
     def _rewind(self):
         self.at[:1].zero_()
@@ -795,8 +796,6 @@ class ChunkRunner:
         for buf, a in zip(self.noise or (), noise or ()):
             buf[:n].copy_(a)
         self._rewind()
-        if self.graphs and self.replay is None:
-            self.capture()
 
     def _step(self, st: TrainState):
         row = self.at[:1]
@@ -838,6 +837,7 @@ class ChunkRunner:
             self.replay = capture_graph(warm, lambda: self._step(st), mode,
                                         device=self.c.volume.device)
             self.replay_launches = launch_counts.since(mark)
+            count('graph_captures.train')
         finally:
             launch_counts.write(mark)
         warmup_steps += WARMUP_STEPS
@@ -860,18 +860,36 @@ class ChunkRunner:
         self.st.step += 1
 
     def chunk(self, pos: torch.Tensor, noise: Optional[List[torch.Tensor]]):
-        """One chunk: ``load``, its steps until the phase's budget stop, and
-        the one device read: (whether the budget stopped the phase, then
-        ``read``'s values)."""
+        """One chunk: ``load``, the capture where the step has no graph yet
+        (``graphs``), its steps until the phase's budget stop, and the one
+        device read: (whether the budget stopped the phase, then ``read``'s
+        values).  Each part is a span (``train.load``, ``train.capture``,
+        ``train.steps``, whose ``n`` is the steps launched, ``train.read``).
+        The counters ``chunk_steps.train`` and ``chunk_ns.train`` add its
+        steps and its time from the load to the read's end, a runner's first
+        chunk (kernel builds, the capture) apart as ``first_chunk_*.train``:
+        the CLI's training rates."""
         start = self.st.step
-        self.load(pos, noise)
+        with span('train.load') as load:
+            self.load(pos, noise)
+        if self.graphs and self.replay is None:
+            with span('train.capture'):
+                self.capture()
         budget = False
-        for _ in range(pos.shape[0]):
-            self.step()
-            if self.ph.budget_stop(self.st.step, self.ph.passes(self.st.step)[0]):
-                budget = True
-                break
-        return (budget,) + self.read(self.st.step - start)
+        with span('train.steps') as steps:
+            for _ in range(pos.shape[0]):
+                self.step()
+                if self.ph.budget_stop(self.st.step, self.ph.passes(self.st.step)[0]):
+                    budget = True
+                    break
+            steps.n = self.st.step - start
+        with span('train.read') as read:
+            got = self.read(self.st.step - start)
+        part = 'chunk' if self.chunks else 'first_chunk'
+        count(part + '_steps.train', self.st.step - start)
+        count(part + '_ns.train', read.end - load.start)
+        self.chunks += 1
+        return (budget,) + got
 
     def read(self, k: int):
         """The one device read after ``k`` steps of a chunk: (the stop flag,
@@ -889,43 +907,6 @@ class ChunkRunner:
             terms = [{tag: col[i] for (tag, _), col in zip(self.tags, cols)}
                      for i in range(k)]
         return bool(got[0]), int(got[1]), rows[0], rows[1], terms
-
-
-class StepTimer:
-    """Wall-clock timing of chunks (each ends in a device read) ->
-    samples/s.  The first chunk of each phase (kernel build, library
-    initialisation) is reported apart from the steady state."""
-
-    def __init__(self, samples_per_step: int):
-        self.samples_per_step = samples_per_step
-        self._chunks: List[tuple] = []   # (n_steps, seconds, is_first)
-
-    @contextlib.contextmanager
-    def chunk(self, n_steps: int, first: bool = False):
-        t0 = time.perf_counter()
-        yield
-        self._chunks.append((n_steps, time.perf_counter() - t0, first))
-
-    @staticmethod
-    def merge(timers: List['StepTimer']) -> 'StepTimer':
-        """One timer over the chunks of several (with equal step sizes)."""
-        out = StepTimer(timers[0].samples_per_step if timers else 0)
-        for t in timers:
-            out._chunks += t._chunks
-        return out
-
-    def stats(self) -> Dict[str, float]:
-        if not self._chunks:
-            return {}
-        body = [c for c in self._chunks if not c[2]] or self._chunks
-        steps = sum(n for n, _, _ in body)
-        secs = sum(s for _, s, _ in body)
-        return {
-            'steps_per_sec': steps / secs if secs else 0.0,
-            'samples_per_sec': steps * self.samples_per_step / secs if secs else 0.0,
-            'ms_per_step': secs / steps * 1e3 if steps else 0.0,
-            'first_chunks_sec': sum(s for _, s, f in self._chunks if f),
-        }
 
 
 def phase_done(ph: PhaseSpec, state: TrainState) -> bool:
@@ -987,13 +968,38 @@ def shard_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor, mesh=Non
             dict(sc=sc, zc=zc, x_window=x_window))
 
 
+def _chunk_draws(ph: PhaseSpec, c: PhaseConstants, n: int, N: int,
+                 generator: Optional[torch.Generator], positions: Optional[Iterator],
+                 noise_generator: Optional[torch.Generator], gate_noise: Optional[Iterator],
+                 device: torch.device):
+    """A chunk's (n, N, 3) positions and per-level gate noise (None for the
+    deterministic families), drawn from the generators or stacked from the
+    iterators (``solve_phase`` describes them)."""
+    if positions is None:
+        pos = draw_positions(c, n, N, generator)
+    else:
+        pos = torch.from_numpy(np.stack([np.asarray(next(positions))
+                                         for _ in range(n)])).to(device)
+        if pos.shape[1:] != (N, 3):
+            raise ValueError(f"positions of shape {tuple(pos.shape[1:])}; a step "
+                             f"takes ({N}, 3) here")
+    if not G.noise_kind(ph.drop_type):
+        return pos, None
+    if gate_noise is None:
+        return pos, draw_noise(ph, n, noise_generator, device)
+    steps = [next(gate_noise) for _ in range(n)]
+    return pos, [torch.from_numpy(np.stack([np.asarray(s[lvl], dtype=np.float32)
+                                            for s in steps])).to(device)
+                 for lvl in range(len(steps[0]))]
+
+
 def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                 steps_per_chunk: int, masks=None, *,
                 generator: Optional[torch.Generator] = None,
                 positions: Optional[Iterator] = None,
                 noise_generator: Optional[torch.Generator] = None,
                 gate_noise: Optional[Iterator] = None,
-                verbose: bool = True, timer: Optional[StepTimer] = None,
+                verbose: bool = True,
                 metric_cb: Optional[Callable[[np.ndarray], None]] = None,
                 volume_cb: Optional[Callable[[np.ndarray], None]] = None,
                 writer=None, state_save_path: str = '',
@@ -1030,7 +1036,8 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
                       positions and noise before it runs, so a save holds
                       the generators where the next chunk starts.
     profile_dir:      a ``torch.profiler`` trace of the second chunk (the
-                      first builds the kernels) written there.
+                      first builds the kernels), its draws to its last
+                      write, written there, the chunk's spans in it.
     mesh:             a ``parallel.mesh.Mesh``: every rank of it calls
                       solve_phase alike and takes its part of each step
                       (N / ranks samples; ``generator`` and ``positions``
@@ -1092,73 +1099,63 @@ def solve_phase(ph: PhaseSpec, state: TrainState, volume: torch.Tensor,
     # the writer's worker (an executor starts its thread at the first
     # submit); the step's graph is closed however the phase ends: under NCCL
     # a process group ends only once no graph holds work on it
-    with ThreadPoolExecutor(max_workers=1) as pool, contextlib.closing(runner):
+    with span('train.phase'), ThreadPoolExecutor(max_workers=1) as pool, \
+            contextlib.closing(runner):
         futures = []
         while state.step < ph.t_max and not stopped:
             n = min(steps_per_chunk, ph.t_max - state.step)
-            if positions is None:
-                pos = draw_positions(c, n, N, generator)
-            else:
-                pos = torch.from_numpy(np.stack([np.asarray(next(positions))
-                                                 for _ in range(n)])).to(volume.device)
-                if pos.shape[1:] != (N, 3):
-                    raise ValueError(f"positions of shape {tuple(pos.shape[1:])}; a step "
-                                     f"takes ({N}, 3) here")
-            noise = None
-            if G.noise_kind(ph.drop_type) and gate_noise is None:
-                noise = draw_noise(ph, n, noise_generator, volume.device)
-            elif G.noise_kind(ph.drop_type):
-                steps = [next(gate_noise) for _ in range(n)]
-                noise = [torch.from_numpy(np.stack([np.asarray(s[lvl], dtype=np.float32)
-                                                    for s in steps])).to(volume.device)
-                         for lvl in range(len(steps[0]))]
             start = state.step
-            tchunk = timer.chunk(n, first=chunk == 0) if timer is not None \
-                else contextlib.nullcontext()
-            with trace(profile_dir if chunk == 1 else '', volume.device), tchunk:
+            with trace(profile_dir if chunk == 1 else '', volume.device), \
+                    span('train.chunk') as unit:
+                with span('train.draw'):
+                    pos, noise = _chunk_draws(ph, c, n, N, generator, positions,
+                                              noise_generator, gate_noise, volume.device)
                 stopped, stop, stop_step, losses, vol_losses, terms = runner.chunk(pos, noise)
-            chunk += 1
-            if stop:
-                # the steps launched after the plateau stop were idle
-                stopped = True
-                state.step = stop_step
-            k = state.step - start
-            losses, vol_losses, terms = losses[:k], vol_losses[:k], terms[:k]
-            save_now = bool(state_save_path) and not stopped and \
-                time.monotonic() - last_save >= save_every_s
-            hist_now = writer is not None and ph.variational and \
-                (stopped or time.monotonic() - last_hist > 30.0)
-            if mesh is not None:
-                # rank 0's clock decides for every rank: a save and a
-                # sharded histogram gather over the mesh
-                save_now, hist_now = (bool(f) for f in pm.broadcast(mesh, torch.tensor(
-                    [save_now, hist_now], dtype=torch.int32, device=mesh.device)).tolist())
-            if save_now:
-                save(replicated(state))
-                last_save = time.monotonic()
-            rates = None
-            if hist_now and ph.variational:
-                p, _ = state.layout.views(replicated(state).flat.detach())
-                rates = [G.variational_dropout_rates(p, lvl)
-                         for lvl in range(len(p.log_thetas))]
-                last_hist = time.monotonic()
-            if writer is not None:
-                futures.append(pool.submit(_emit_scalars, writer, start, losses,
-                                           vol_losses, terms))
-                if rates is not None:
-                    futures.append(pool.submit(_emit_histograms, writer, rates,
-                                               state.step))
-                # a failed write raises here, at the latest after the phase
-                while futures and futures[0].done():
-                    futures.pop(0).result()
+                unit.n = state.step - start
+                chunk += 1
+                if stop:
+                    # the steps launched after the plateau stop were idle
+                    stopped = True
+                    state.step = stop_step
+                k = state.step - start
+                losses, vol_losses, terms = losses[:k], vol_losses[:k], terms[:k]
+                with span('train.after'):
+                    save_now = bool(state_save_path) and not stopped and \
+                        time.monotonic() - last_save >= save_every_s
+                    hist_now = writer is not None and ph.variational and \
+                        (stopped or time.monotonic() - last_hist > 30.0)
+                    if mesh is not None:
+                        # rank 0's clock decides for every rank: a save and a
+                        # sharded histogram gather over the mesh
+                        save_now, hist_now = (bool(f) for f in pm.broadcast(mesh, torch.tensor(
+                            [save_now, hist_now], dtype=torch.int32,
+                            device=mesh.device)).tolist())
+                    if save_now:
+                        save(replicated(state))
+                        last_save = time.monotonic()
+                    rates = None
+                    if hist_now and ph.variational:
+                        p, _ = state.layout.views(replicated(state).flat.detach())
+                        rates = [G.variational_dropout_rates(p, lvl)
+                                 for lvl in range(len(p.log_thetas))]
+                        last_hist = time.monotonic()
+                    if writer is not None:
+                        futures.append(pool.submit(_emit_scalars, writer, start, losses,
+                                                   vol_losses, terms))
+                        if rates is not None:
+                            futures.append(pool.submit(_emit_histograms, writer, rates,
+                                                       state.step))
+                        # a failed write raises here, at the latest after the phase
+                        while futures and futures[0].done():
+                            futures.pop(0).result()
+                    if verbose and k:
+                        vp = _F32(state.step) * _F32(ph.batch_n) * _F32(1.0 / float(ph.n_voxels))
+                        print(f"Pass [{vp:.4f} / {ph.max_pass:.1f}]: volume loss: "
+                              f"{vol_losses[-1]:.4f}, complete_loss: {losses[-1]:.4f}")
             if metric_cb is not None:
                 metric_cb(np.asarray(losses))
             if volume_cb is not None:
                 volume_cb(np.asarray(vol_losses))
-            if verbose and k:
-                vp = _F32(state.step) * _F32(ph.batch_n) * _F32(1.0 / float(ph.n_voxels))
-                print(f"Pass [{vp:.4f} / {ph.max_pass:.1f}]: volume loss: "
-                      f"{vol_losses[-1]:.4f}, complete_loss: {losses[-1]:.4f}")
         for f in futures:
             f.result()
     state = replicated(state)
