@@ -71,6 +71,17 @@ in order:
                  plain, library (F.grid_sample on a bf16 input and grid, and
                  its autograd backward; the default bf16 route for the
                  one-kernel pair) and bound times, and the launch plans
+  7b. kernel_head  the inference-head kernel (csrc/inference_head.cu: the
+                 embedding, the float32 SnakeAlt MLP and the clamp after
+                 the fetch) against its plain version (the ATen chain it
+                 replaces) to 1e-6, at C 16 (the flagship's weights, a
+                 lattice chunk's features) and C 22 (random weights at
+                 mhd_p_HyperparamSearch.txt's widths), at 2^18, 2^18 - 37
+                 and 2^20 samples; kernel, plain (= library: the chain) and
+                 bound times, and the launch plan; its launches on the
+                 255^3 evaluation (one a chunk, graphed and eager equal),
+                 a query request (one; none with a gradient needed) and
+                 graphed training steps (none)
   8. checkpoint  infer_torch.py --reconstruct checkpoint over the 255^3
                  mhd_like volume: 64 kernel launches, field in [-1, 1],
                  on-device PSNR = float64 host PSNR to 1e-3 dB, kernel field
@@ -252,14 +263,19 @@ in order:
  19. kernels     one line {"kernels": [...]} for every ported kernel
 
 Every count of launches is set to 0 just before a path is driven and read
-just after it.  Each phase row carries ``at_s``, the seconds since the
+just after it.  The inference head (7b) is counted on every path with the
+others: once an evaluation chunk wherever the evaluation runs on a card at
+widths it takes (checkpoint, each training run's, resume, quant, NAS and QC
+by their configs' widths, the mesh's rank 0; not binary's golden container,
+of 4 features), once a request of
+the default backend's queries, and never in a training step.  Each phase row carries ``at_s``, the seconds since the
 script started.  Every failure raises, so the script exits non-zero and
 prints no result.  It exits non-zero at once when CUDA is not available.
 The last line is {"ok": true, "device": {...}}.
 
 ``--mesh-ranks`` sets the mesh phase's ranks (2; 4 on a machine of 4
 cards).  ``--only`` takes a comma-separated list of phases 2-18 (build, kernel,
-kernel_bwd, kernel_mlp, kernel_fused, kernel_bf16, checkpoint, binary,
+kernel_bwd, kernel_mlp, kernel_fused, kernel_bf16, kernel_head, checkpoint, binary,
 queries, queries_bf16, train, train_bf16, resume, graphs, train_families,
 quant, readers, native, nas, mesh, step_rates) and runs the device phase and
 those, in the order above, with the same checks (train_bf16 and mesh
@@ -311,12 +327,13 @@ from latent_feature_grid_compression_tpu_torch.io.train_state_io import (
     TENSOR_FIELDS, atomic_save_train_state, load_train_state)
 from latent_feature_grid_compression_tpu_torch.models.gates import is_dynamic
 from latent_feature_grid_compression_tpu_torch.models.feature_grid import (
-    FeatureGridModel, apply_model, decode_volume, init_model, make_spec)
+    FeatureGridModel, apply_model, decode_volume, head_after_fetch, init_model, make_spec)
 from latent_feature_grid_compression_tpu_torch.models.variance import init_variance_model
 from latent_feature_grid_compression_tpu_torch.native import lib as native
 from latent_feature_grid_compression_tpu_torch.ops import _build
 from latent_feature_grid_compression_tpu_torch.ops import fused_forward as ff
 from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
+from latent_feature_grid_compression_tpu_torch.ops import inference_head as ih
 from latent_feature_grid_compression_tpu_torch.ops import mlp_fused as mf
 from latent_feature_grid_compression_tpu_torch.ops.embedding import fourier_embed
 from latent_feature_grid_compression_tpu_torch.ops.interpolation import (
@@ -417,6 +434,7 @@ def reset_counts():
     gs.launches = gs.bwd_launches = gs.bf16_launches = gs.bf16_bwd_launches = 0
     mf.launches = mf.bwd_launches = 0
     ff.launches = ff.bwd_launches = ff.bf16_launches = ff.bf16_bwd_launches = 0
+    ih.launches = 0
     tr.warmup_steps = 0
 
 
@@ -426,7 +444,7 @@ def read_counts():
             'fused_forward_fwd': ff.launches, 'fused_forward_bwd': ff.bwd_launches,
             gs.BF16_KERNEL: gs.bf16_launches, gs.BF16_BWD_KERNEL: gs.bf16_bwd_launches,
             'fused_forward_fwd_bf16': ff.bf16_launches,
-            'fused_forward_bwd_bf16': ff.bf16_bwd_launches}
+            'fused_forward_bwd_bf16': ff.bf16_bwd_launches, ih.KERNEL: ih.launches}
 
 
 def only(launches):
@@ -560,13 +578,16 @@ def plain_field(model, meta):
 
 
 @torch.no_grad()
+@torch.no_grad()
 def time_split(model, meta, vol_dev):
     """Per-stage device time of one full-volume evaluation, eager, with CUDA
     events between the stages of the chunk body eval_stats_on_device runs
     (``ChunkBody`` with the ground truth): 'decode' (with the lattice's
     constants and the padded ground truth, made once), then each chunk's
     'lattice' from the device counter (the constants are on the device, so
-    no host wait sits in it), 'fetch', 'mlp' and 'stats' (its sums written
+    no host wait sits in it), 'fetch', 'mlp' (the head after the fetch:
+    embedding, MLP and clamp, one kernel at the published widths) and
+    'stats' (its sums written
     at its row, the counter advanced).  Returns (ms by stage, the per-chunk
     sums, for a check that the split ran the evaluation's work)."""
     n_chunks = math.ceil(meta.n_voxels / CHUNK)
@@ -584,8 +605,7 @@ def time_split(model, meta, vol_dev):
         ev[k + 1].record()
         feats = gs.fetch(body.grid_cl, c)
         ev[k + 2].record()
-        x = torch.cat([c, fourier_embed(c, model.spec.n_freqs), feats], dim=-1)
-        pred = mlp_apply(list(model.mlp_w), list(model.mlp_b), x).clamp(-1.0, 1.0)
+        pred = head_after_fetch(model, c, feats)
         ev[k + 3].record()
         diff = torch.where(valid, body.gt.index_select(0, body.k)[0] - pred[:, 0], 0.0)
         body.out.index_copy_(0, body.k, torch.stack([torch.sum(diff * diff),
@@ -1157,6 +1177,105 @@ def phase_kernel_bf16(model, grid_cl):
     return rows
 
 
+# the inference head's cases: (C, samples); a chunk, a ragged chunk, a
+# query request of 2^20 points
+HEAD_CASES = [(C, n) for C in ih.CHANNELS for n in (CHUNK, CHUNK - 37, 1 << 20)]
+HEAD_TOL = 1e-6       # float32 sums in another order than cuBLAS's
+HEAD_STEPS = 20       # graphed training steps whose head launches are counted
+
+
+def head_bound_ms(n, C, dims):
+    """Least time for the inference head: its operations (the embedding's
+    multiply, sine and cosine a coordinate and frequency, the MLP's
+    products, biases and SnakeAlt at 4 an entry, the clamp) over the
+    float32 peak, or its bytes (coordinates and features read, output
+    written, the parameters read once), whichever takes longer."""
+    emb = 3 * FLAGSHIP['n_freqs'] * FLAGSHIP['d_in']
+    mlp = sum(2 * a * b + b for a, b in zip(dims[:-1], dims[1:])) + 4 * sum(dims[1:-1])
+    params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    nbytes = 4 * (n * (FLAGSHIP['d_in'] + C + dims[-1]) + params)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, n * (emb + mlp + 1) / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+@torch.no_grad()
+def phase_kernel_head(model, grid_cl):
+    """The inference-head kernel against its plain version (the ATen chain:
+    ``torch.cat`` of [coords | fourier_embed | feats], ``mlp_apply`` on
+    cuBLAS, ``clamp``) and their times, at C 16 on the flagship's weights
+    and grid (lattice coordinates for a chunk, uniform ones for 2^20) and
+    at C 22 on random weights and a random 17^3 grid; then the kernel's
+    launches on the paths that reach it: a 255^3 evaluation graphed (the
+    default) and eager, a query request with no gradient and with one, and
+    a chunk of graphed training steps."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    nf = model.spec.n_freqs
+    flagship = ([w.detach() for w in model.mlp_w], [b.detach() for b in model.mlp_b])
+    grid22 = torch.randn((17, 17, 17, 22), device='cuda', generator=gen)
+    lattice = lattice_constants(VolumeMeta((VOLUME_N,) * 3), CHUNK, torch.device('cuda'))
+    rows = []
+    for C, n in HEAD_CASES:
+        if C == 16:
+            ws, bs = flagship
+            grid = grid_cl
+        else:
+            ws, bs = random_mlp([3 + 6 * nf + C] + [32] * 4 + [1], gen)
+            grid = grid22
+        if C == 16 and n <= CHUNK:
+            coords = lattice_chunk(lattice, 32 * CHUNK)[0][:n].contiguous()
+        else:
+            coords = torch.rand((n, 3), device='cuda', generator=gen) * 2 - 1
+        feats = gs.fetch(grid, coords)
+        out = ih.inference_head_cuda(coords, feats, ws, bs)
+        ref = ih.inference_head_plain(coords, feats, ws, bs, nf)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        case = f'C={C}, n={n}'
+        check(bool(torch.isfinite(out).all()), f'non-finite inference head output ({case})')
+        check(err <= HEAD_TOL, f'inference head vs plain {err} > {HEAD_TOL} ({case})')
+        dims = ih.check_widths(ws, bs, C)
+        bound, bound_by = head_bound_ms(n, C, dims)
+        row = {'phase': 'kernel_head', 'name': ih.KERNEL, 'C': C, 'n': n, 'dims': dims,
+               'max_abs_err': err, 'max_abs_output': ref.abs().max().item(),
+               'kernel_ms': time_ms(lambda: ih.inference_head_cuda(coords, feats, ws, bs)),
+               'plain_ms': time_ms(lambda: ih.inference_head_plain(coords, feats, ws, bs,
+                                                                   nf)),
+               'bound_ms': bound, 'bound_by': bound_by,
+               'plan': ih.plan(C, len(ws) - 1, n)}
+        emit(row)
+        rows.append(row)
+    launches = {}
+    meta = VolumeMeta((VOLUME_N,) * 3)
+    fields = {}
+    for graphs in (None, False):
+        before = ih.launches
+        fields[graphs] = field_on_device(model, meta, graphs=graphs)
+        launches['decompress' if graphs is None else 'decompress_eager'] = \
+            ih.launches - before
+    check(torch.equal(fields[None], fields[False]), 'graphed field differs from eager')
+    n_chunks = math.ceil(meta.n_voxels / CHUNK)
+    check(launches['decompress'] == launches['decompress_eager'] == n_chunks,
+          f'evaluation launched the inference head {launches}, expected {n_chunks}')
+    coords = torch.rand((1 << 20, 3), device='cuda', generator=gen) * 2 - 1
+    before = ih.launches
+    out = apply_model(model, coords, train=False)
+    launches['query'] = ih.launches - before
+    with torch.enable_grad():
+        before = ih.launches
+        out_grad = apply_model(model, coords, train=False)
+        launches['query_grad'] = ih.launches - before
+    err = (out - out_grad.detach()).abs().max().item()
+    check(launches['query'] == 1 and launches['query_grad'] == 0 and err <= HEAD_TOL,
+          f'query launched the inference head {launches}, kernel vs chain {err}')
+    before = ih.launches
+    with torch.enable_grad():
+        flagship_chunks('', True, steps=HEAD_STEPS)()
+    launches['train'] = ih.launches - before
+    check(launches['train'] == 0, f'training launched the inference head {launches}')
+    emit({'phase': 'kernel_head', 'launches': launches, 'query_max_abs_err': err})
+    return rows
+
+
 def make_flagship_model():
     """Flagship widths, random weights from a seed, about two-thirds of
     each coefficient tensor zeroed to stand in for a pruned model."""
@@ -1206,9 +1325,9 @@ def eval_modes(model, meta, vol_dev):
                 reset_counts()
                 out[mode][name] = calls[name](graphs)
                 counts = read_counts()
-                check(counts == only({gs.KERNEL: n_chunks}),
+                check(counts == only({gs.KERNEL: n_chunks, ih.KERNEL: n_chunks}),
                       f'{mode} {name} evaluation launched {counts}, expected the fetch '
-                      f'{n_chunks} times')
+                      f'and the inference head {n_chunks} times')
             want = len(EVAL_OUTPUTS) if mode == 'graphed' else 0
             check(len(captures) == want, f'{mode}: {len(captures)} captures, expected {want}')
     left = set(tr._live_graphs) - live
@@ -1283,8 +1402,9 @@ def phase_checkpoint(tmp, vol_path):
     finally:
         os.chdir(cwd)
     launches = counts[gs.KERNEL]
-    check(counts == only({gs.KERNEL: n_chunks}),
-          f'decompression launched {counts}, expected the fetch {n_chunks} times')
+    check(counts == only({gs.KERNEL: n_chunks, ih.KERNEL: n_chunks}),
+          f'decompression launched {counts}, expected the fetch and the inference head '
+          f'{n_chunks} times')
 
     volume = load_volume(vol_path)
     vol_dev = torch.from_numpy(volume).cuda()
@@ -1367,7 +1487,9 @@ def phase_binary():
         field = torch.from_numpy(field_from_net(model, meta)).cuda()
     counts = read_counts()
     launches = counts[gs.KERNEL]
-    check(counts == only({gs.KERNEL: 1}), f'binary path launched {counts}')
+    # the golden container's 4 features: widths the inference head does not take
+    check(counts == only({gs.KERNEL: 1, ih.KERNEL: int(ih.takes(spec))}),
+          f'binary path launched {counts}')
     # one chunk, under GRAPH_MIN_CHUNKS: the default steps it eagerly
     check(not captures, f'the one-chunk evaluation captured {len(captures)} graphs')
     check(not set(tr._live_graphs) - live, "the binary path's evaluation graph outlived it")
@@ -1430,7 +1552,7 @@ def phase_queries(model, suffix=''):
         ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
     k = len(reqs)
-    want = only({'': {gs.KERNEL: k},
+    want = only({'': {gs.KERNEL: k, ih.KERNEL: k},
                  '_mlp_pallas': {gs.KERNEL: k, 'mlp_fused_fwd': k},
                  '_fused': {'fused_forward_fwd': k},
                  '_bf16': {gs.BF16_KERNEL: k},
@@ -1761,16 +1883,17 @@ def phase_train(tmp, vol_path, suffix='', default=None, family=None, keep=False)
     # dX's features through the gradient kernel); the final evaluation (the
     # float32 fetch and the plain MLP whatever the backend) fetches once a
     # chunk
-    want = only({'': {gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps},
-                 '_mlp_pallas': {gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps,
-                                 'mlp_fused_fwd': steps, 'mlp_fused_bwd': steps},
-                 '_fused': {gs.KERNEL: n_chunks, 'fused_forward_fwd': steps,
-                            'fused_forward_bwd': steps, gs.BWD_KERNEL: steps},
-                 '_bf16': {gs.KERNEL: n_chunks, gs.BF16_KERNEL: steps,
-                           gs.BF16_BWD_KERNEL: steps},
-                 '_bf16_fused': {gs.KERNEL: n_chunks, 'fused_forward_fwd_bf16': steps,
-                                 'fused_forward_bwd_bf16': steps,
-                                 gs.BF16_BWD_KERNEL: steps}}[suffix])
+    want = only({ih.KERNEL: n_chunks,
+                 **{'': {gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps},
+                    '_mlp_pallas': {gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps,
+                                    'mlp_fused_fwd': steps, 'mlp_fused_bwd': steps},
+                    '_fused': {gs.KERNEL: n_chunks, 'fused_forward_fwd': steps,
+                               'fused_forward_bwd': steps, gs.BWD_KERNEL: steps},
+                    '_bf16': {gs.KERNEL: n_chunks, gs.BF16_KERNEL: steps,
+                              gs.BF16_BWD_KERNEL: steps},
+                    '_bf16_fused': {gs.KERNEL: n_chunks, 'fused_forward_fwd_bf16': steps,
+                                    'fused_forward_bwd_bf16': steps,
+                                    gs.BF16_BWD_KERNEL: steps}}[suffix]})
     check(steps > 0 and counts == want,
           f'{path} took {steps} steps and launched {counts}, expected {want}')
     for ph in (1, 2):
@@ -2141,7 +2264,8 @@ def phase_resume(tmp, vol_path, default):
     keys = ('psnr', 'num_zeros', 'compression_ratio')
     write_dict({'phase': 2}, 'resume_meta.txt', exp)
     info, counts, seconds = train_cli(tmp, vol_path, 'resume_phase2', '--resume', exp)
-    check(counts == only({gs.KERNEL: n_chunks}) and info['train_phase2_steps'] == 0,
+    check(counts == only({gs.KERNEL: n_chunks, ih.KERNEL: n_chunks})
+          and info['train_phase2_steps'] == 0,
           f'the resume at phase 2 took {info["train_phase2_steps"]} steps, launched {counts}')
     check(all(info[k] == default[k] for k in keys),
           f'resumed at phase 2: {[info[k] for k in keys]}, train: '
@@ -2153,7 +2277,8 @@ def phase_resume(tmp, vol_path, default):
     info, counts, seconds = train_cli(tmp, vol_path, 'resume_phase1', '--resume', exp)
     steps2 = default['train_phase2_steps']
     check(info['train_phase1_steps'] == 0 and info['train_phase2_steps'] == steps2
-          and counts == only({gs.KERNEL: steps2 + n_chunks, gs.BWD_KERNEL: steps2}),
+          and counts == only({gs.KERNEL: steps2 + n_chunks, gs.BWD_KERNEL: steps2,
+                              ih.KERNEL: n_chunks}),
           f'the resume at phase 1 took {info["train_phase1_steps"]} + '
           f'{info["train_phase2_steps"]} steps, launched {counts}')
     check(abs(info['psnr'] - default['psnr']) <= PSNR_RESUME_DB
@@ -2243,8 +2368,9 @@ def phase_quant(tmp, vol_path, default):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    check(counts == only({gs.KERNEL: 2 * n_chunks}),
-          f'the study launched {counts}, expected the fetch {2 * n_chunks} times')
+    check(counts == only({gs.KERNEL: 2 * n_chunks, ih.KERNEL: 2 * n_chunks}),
+          f'the study launched {counts}, expected the fetch and the inference head '
+          f'{2 * n_chunks} times')
     check(abs(study['psnr'] - default['psnr']) <= PSNR_TOL_DB,
           f"the study's PSNR {study['psnr']} against train-3's {default['psnr']}")
     # train-3's zeros are the bake's less the masks' storage (a bit a gate
@@ -2488,10 +2614,14 @@ def experiment_row(exp, n_chunks):
     steps = info['train_phase1_steps'] + info['train_phase2_steps']
     with open(os.path.join(exp, 'launches.json')) as f:
         counts = json.load(f)
-    want = only({gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps})
+    cfg = dict_from_file(os.path.join(exp, 'config.txt'))
+    widths = types.SimpleNamespace(
+        d_in=cfg['d_in'], n_freqs=cfg['n_embedding_freq'], hidden=cfg['n_hidden_size'],
+        d_out=cfg['d_out'], grid_features=cfg['grid_features'], num_layers=cfg['n_layers'])
+    want = only({gs.KERNEL: steps + n_chunks, gs.BWD_KERNEL: steps,
+                 ih.KERNEL: n_chunks if ih.takes(widths) else 0})
     check(steps > 0 and counts == want,
           f'{exp} took {steps} steps and launched {counts}, expected {want}')
-    cfg = dict_from_file(os.path.join(exp, 'config.txt'))
     return info, {'psnr': info['psnr'], 'compression_ratio': info['compression_ratio'],
                   'num_zeros': info['num_zeros'], 'num_parameters': info['num_parameters'],
                   'grid_size': cfg['grid_size'], 'grid_features': cfg['grid_features'],
@@ -3199,7 +3329,7 @@ def mesh_train_row(name, tmp, vol_path, results, seconds, flags, step_calls, def
               f"{r['graphs_alive_at_end']}")
         check(info['psnr'] == info0['psnr'], f'{name}: rank {rank} returned another PSNR')
         want = only({gs.KERNEL: steps + (n_chunks if rank == 0 else 0),
-                     gs.BWD_KERNEL: steps})
+                     gs.BWD_KERNEL: steps, ih.KERNEL: n_chunks if rank == 0 else 0})
         check(r['launches'] == want, f"{name}: rank {rank} launched {r['launches']}, "
                                      f'expected {want}')
         for op, n in step_calls.items():
@@ -3459,10 +3589,12 @@ def phase_nccl_probe(tmp):
 
 def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
     """One entry of the kernels line: launches on the main path of the
-    kernel and on every path, the numbers at the main path's inputs."""
+    kernel and on every path, the numbers at the main path's inputs.
+    ``replaces`` None: a kernel with no TPU counterpart."""
     out = {'name': name, 'route': 'cuda',
            'source': f'latent_feature_grid_compression_tpu_torch/csrc/{source}',
-           'replaces': f'latent_feature_grid_compression_tpu/ops/{replaces}'}
+           'replaces': (f'latent_feature_grid_compression_tpu/ops/{replaces}' if replaces
+                        else None)}
     if also:
         out['also_replaces'] = f'latent_feature_grid_compression_tpu/ops/{also}'
     out['launches'] = path_counts[main_path][name]
@@ -3472,7 +3604,7 @@ def kernel_entry(name, source, replaces, also, path_counts, main_path, **extra):
 
 
 PHASES = ('build', 'kernel', 'kernel_bwd', 'kernel_mlp', 'kernel_fused', 'kernel_bf16',
-          'checkpoint', 'binary', 'queries', 'queries_bf16', 'train', 'train_bf16',
+          'kernel_head', 'checkpoint', 'binary', 'queries', 'queries_bf16', 'train', 'train_bf16',
           'resume', 'graphs', 'train_families', 'quant', 'readers', 'native', 'nas', 'mesh',
           'step_rates')
 # run only when --only names them
@@ -3532,6 +3664,7 @@ def main(argv=None):
                   if want('kernel_fused') else None)
     bf16_rows = (phase_kernel_bf16(flagship_model, flagship_grid)
                  if want('kernel_bf16') else None)
+    head_rows = phase_kernel_head(flagship_model, flagship_grid) if want('kernel_head') else None
     path_counts = {}
     model = flagship_model   # the checkpoint phase's model: the same seed
     tmp = tempfile.mkdtemp(prefix='lfgc_chip_smoke_')
@@ -3728,7 +3861,17 @@ def main(argv=None):
                      library='the default bf16 route forward + autograd backward',
                      shape={'n': bf16_fused['n'], 'dims': bf16_fused['dims'],
                             'grid': bf16_fused['grid'], 'precision': 'bf16'},
-                     launch=bf16_fused['bwd_launch'])]})
+                     launch=bf16_fused['bwd_launch']),
+        kernel_entry(ih.KERNEL, 'inference_head.cu', None, None, path_counts, 'decompress',
+                     no_tpu_counterpart='the JAX package leaves this head to XLA',
+                     max_abs_err=max(r['max_abs_err'] for r in head_rows),
+                     library='its plain version: torch.cat + fourier_embed + mlp_apply '
+                             '(cuBLAS) + clamp',
+                     cases={f"C{r['C']} n{r['n']}": {
+                         'ms': r['kernel_ms'], 'plain_ms': r['plain_ms'],
+                         'library_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                         'bound_by': r['bound_by'], 'plan': r['plan']}
+                         for r in head_rows})]})
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}),
         flush=True)

@@ -19,8 +19,10 @@ volume has 64) captures that body once as a CUDA graph (the trainer's
 evaluation's single dispatch; the graph is destroyed before the evaluation
 returns or raises.  Smaller volumes, ``graphs=False`` and the CPU step the
 same body eagerly (``use_eval_graphs``).  As in the JAX
-evaluation, this path keeps the fetch and the plain MLP whatever the spec's
-``interp_backend`` and ``mlp_backend``.
+evaluation, this path keeps the float32 fetch and the float32 MLP whatever
+the spec's ``interp_backend`` and ``mlp_backend``: on a card, at the
+published widths, the head after the fetch is one kernel a chunk
+(``ops/inference_head.py``), one node of the chunk's graph.
 """
 
 from __future__ import annotations

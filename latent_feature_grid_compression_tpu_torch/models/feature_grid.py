@@ -13,8 +13,11 @@ bfloat16 compute or ``interp_backend='pallas_bf16'``), then the MLP as
 PyTorch ops (``mlp_backend='xla'``: float32, or the bf16 chain under
 bfloat16 compute) or as the fused MLP kernels (``'pallas'``,
 ``ops/mlp_fused.py``, 'bf16' operands).  Parameters, decode and output stay
-float32.  The evaluation keeps the float32 fetch and the plain float32 MLP
-whatever the spec (:func:`predict_trilinear`).
+float32.  The evaluation keeps the float32 fetch and the float32 MLP
+whatever the spec (:func:`predict_trilinear`).  A clamped float32 head that
+needs no gradient, on a card and at the published widths, runs after the
+fetch as one kernel (``ops/inference_head.py``): the evaluation's and the
+query's.
 
 The architecture lives in the frozen :class:`ModelSpec`; the parameters in a
 :class:`FeatureGridModel` (``coeffs``: lowpass (F, g, g, g) then details
@@ -45,6 +48,7 @@ from ..ops.dwt import WaveletFilter3d, decode_pyramid, encode_pyramid, encoded_s
 from ..wavelets import dwt_max_level
 from ..ops.embedding import fourier_embed, fourier_out_dim
 from ..ops.fused_forward import fused_forward
+from ..ops import inference_head as ih
 from ..ops.grid_sample import fetch
 from ..ops.interpolation import channel_minor
 from ..ops.mlp import init_mlp, mlp_apply, mlp_apply_bf16, snake_alt
@@ -334,32 +338,59 @@ def predict(model, grid_cl: torch.Tensor, coords: torch.Tensor,
     or 'bf16' under bfloat16 compute) takes precedence; otherwise the fetch
     in the spec's ``fetch_precision``, then the fused MLP kernels (precision
     'bf16') under ``mlp_backend='pallas'``, or the MLP as PyTorch ops: the
-    bf16 chain under bfloat16 compute, else float32."""
+    bf16 chain under bfloat16 compute, else float32: with ``train=False``
+    the clamped float32 head of :func:`_float32_head`."""
     spec = model.spec
     ws, bs = list(model.mlp_w), list(model.mlp_b)
     bf16 = spec.compute_dtype == 'bfloat16'
     if spec.interp_backend == 'fused':
         out = fused_forward(grid_cl, coords, ws, bs, spec.n_freqs,
                             precision='bf16' if bf16 else 'mixed')
+    elif spec.mlp_backend == 'pallas':
+        out = mlp_fused(ws, bs, _mlp_input(model, grid_cl, coords, spec.fetch_precision),
+                        precision='bf16')
+    elif bf16:
+        out = mlp_apply_bf16(ws, bs, _mlp_input(model, grid_cl, coords, spec.fetch_precision),
+                             snake_alt)
+    elif train:
+        out = mlp_apply(ws, bs, _mlp_input(model, grid_cl, coords, spec.fetch_precision),
+                        snake_alt)
     else:
-        x = _mlp_input(model, grid_cl, coords, spec.fetch_precision)
-        if spec.mlp_backend == 'pallas':
-            out = mlp_fused(ws, bs, x, precision='bf16')
-        elif bf16:
-            out = mlp_apply_bf16(ws, bs, x, snake_alt)
-        else:
-            out = mlp_apply(ws, bs, x, snake_alt)
+        return _float32_head(model, grid_cl, coords, spec.fetch_precision)
     return out if train else out.clamp(-1.0, 1.0)
 
 
 def predict_trilinear(model, grid_cl: torch.Tensor, coords: torch.Tensor
                       ) -> torch.Tensor:
     """The evaluation's head whatever the spec, as the JAX evaluation's: the
-    float32 fetch, then the float32 MLP as PyTorch ops, clamped to
-    [-1, 1]."""
-    out = mlp_apply(list(model.mlp_w), list(model.mlp_b),
-                    _mlp_input(model, grid_cl, coords), snake_alt)
-    return out.clamp(-1.0, 1.0)
+    float32 fetch, then the float32 MLP, clamped to [-1, 1]."""
+    return _float32_head(model, grid_cl, coords)
+
+
+def uses_head_kernel(spec: ModelSpec, device: torch.device, grad: bool) -> bool:
+    """Whether a clamped float32 head runs as one kernel
+    (``ops/inference_head.py``): on a card, at widths the kernel takes, with
+    no gradient needed (``grad``)."""
+    return device.type == 'cuda' and not grad and ih.takes(spec)
+
+
+def _float32_head(model, grid_cl: torch.Tensor, coords: torch.Tensor,
+                  precision: str = 'f32') -> torch.Tensor:
+    """The fetch in ``precision``, then :func:`head_after_fetch`."""
+    return head_after_fetch(model, coords, fetch(grid_cl, coords, precision))
+
+
+def head_after_fetch(model, coords: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """The float32 MLP and the clamp at (N, d_in) coords and their fetched
+    (N, C) features: one kernel where :func:`uses_head_kernel` says so, else
+    PyTorch ops.  The kernel reads row-major weights; a loaded checkpoint's
+    are transposed views of its (in, out) arrays, copied here (a few KB)."""
+    ws, bs = list(model.mlp_w), list(model.mlp_b)
+    if uses_head_kernel(model.spec, coords.device, ih.needs_grad(coords, feats, *ws, *bs)):
+        return ih.inference_head(coords.contiguous(), feats,
+                                 [w.contiguous() for w in ws],
+                                 [b.contiguous() for b in bs], model.spec.n_freqs)
+    return ih.inference_head_plain(coords, feats, ws, bs, model.spec.n_freqs)
 
 
 def check_local_decode(spec: ModelSpec):

@@ -2,13 +2,13 @@
 and written as one tuple.
 
 Each wrapper adds one to its module's count where it launches its kernel
-(``grid_sample``, ``mlp_fused``, ``fused_forward``), and each collective of
-``parallel/mesh.py`` adds its call and the ring model's bytes to that
-module's ``counts`` where its Python call is made.  A CUDA graph's replay
-launches the kernels and the NCCL collectives its capture recorded without
-calling any of that Python, so the trainer's chunk runner records what a
-capture added (``since``), takes it back, and adds it once a replay
-(``add``).
+(``grid_sample``, ``mlp_fused``, ``fused_forward``, ``inference_head``), and
+each collective of ``parallel/mesh.py`` adds its call and the ring model's
+bytes to that module's ``counts`` where its Python call is made.  A CUDA
+graph's replay launches the kernels and the NCCL collectives its capture
+recorded without calling any of that Python, so the trainer's chunk runner
+records what a capture added (``since``), takes it back, and adds it once a
+replay (``add``).
 """
 
 from __future__ import annotations
@@ -18,12 +18,13 @@ from typing import Tuple
 from ..parallel import mesh as pm
 from . import fused_forward as ff
 from . import grid_sample as gs
+from . import inference_head as ih
 from . import mlp_fused as mf
 
 KERNEL_COUNTERS = ((gs, 'launches'), (gs, 'bwd_launches'), (gs, 'bf16_launches'),
                    (gs, 'bf16_bwd_launches'), (mf, 'launches'), (mf, 'bwd_launches'),
                    (ff, 'launches'), (ff, 'bwd_launches'), (ff, 'bf16_launches'),
-                   (ff, 'bf16_bwd_launches'))
+                   (ff, 'bf16_bwd_launches'), (ih, 'launches'))
 COUNTERS = KERNEL_COUNTERS + tuple((pm.counts, key) for key in pm.counts)
 
 

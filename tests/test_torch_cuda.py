@@ -1568,3 +1568,140 @@ def test_gloo_ranks_sharing_the_card_run_the_mesh_collectives(cuda_device, tmp_p
         assert torch.equal(r['mean'], base + 5)
         assert torch.equal(r['scatter'], (base + 5)[3 * rank:3 * rank + 3])
         assert torch.equal(r['gather'], torch.cat([base, base + 10]))
+
+
+# the inference head kernel (ops/inference_head.py) against its plain version,
+# the ATen chain: float32 sums in another order than cuBLAS's
+HEAD_TOL = 1e-6
+
+
+@pytest.mark.parametrize('n', [1 << 18, (1 << 18) - 37])
+@pytest.mark.parametrize('C', [16, 22])
+def test_inference_head_kernel_matches_plain(cuda_device, C, n):
+    from latent_feature_grid_compression_tpu_torch.ops import inference_head as ih
+    spec = fg.make_spec(**dict(FLAGSHIP, grid_features=C))
+    model = fg.init_model(spec, torch.Generator().manual_seed(C), device=cuda_device)
+    ws, bs = [w.detach() for w in model.mlp_w], [b.detach() for b in model.mlp_b]
+    _, c = _inputs((1, 1, 1, 1), n, 12)
+    coords = c.to(cuda_device)
+    with torch.no_grad():
+        feats = gs.fetch(channel_minor(fg.decode_volume(model)), coords)
+        before = ih.launches
+        out = ih.inference_head(coords, feats, ws, bs, 2)
+        ref = ih.inference_head_plain(coords, feats, ws, bs, 2)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    print(f'inference head C={C} n={n}: max |kernel - plain| = {err!r}')
+    assert ih.launches == before + 1
+    assert out.shape == (n, 1) and bool(torch.isfinite(out).all())
+    assert err <= HEAD_TOL
+
+
+def test_inference_head_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    from latent_feature_grid_compression_tpu_torch.ops import inference_head as ih
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(4),
+                          device=cuda_device)
+    ws, bs = [w.detach() for w in model.mlp_w], [b.detach() for b in model.mlp_b]
+    coords = torch.rand((64, 3), device=cuda_device)
+    feats = torch.rand((64, 16), device=cuda_device)
+    with pytest.raises(ValueError, match='CUDA'):
+        ih.inference_head_cuda(coords.cpu(), feats, ws, bs)
+    with pytest.raises(ValueError, match='float32'):
+        ih.inference_head_cuda(coords.double(), feats, ws, bs)
+    with pytest.raises(ValueError, match='contiguous'):
+        ih.inference_head_cuda(coords, feats.t().contiguous().t(), ws, bs)
+    with pytest.raises(ValueError, match='aligned'):
+        ih.inference_head_cuda(coords, torch.rand((65 * 16 + 1,), device=cuda_device)
+                               [1:].view(65, 16)[1:], ws, bs)
+    with pytest.raises(ValueError, match='C in'):
+        ih.inference_head_cuda(coords, feats[:, :8].contiguous(), ws, bs)
+    with pytest.raises(ValueError, match='frequencies'):
+        ih.inference_head(coords, feats, ws, bs, 3)
+
+
+def test_graphed_evaluation_launches_the_inference_head_a_chunk(cuda_device):
+    """A graphed 255^3 evaluation (64 chunks) equals the eager one bit for
+    bit and launches the head once a chunk, the warm-up's launch taken
+    back; so does the eager one."""
+    from latent_feature_grid_compression_tpu_torch.ops import inference_head as ih
+    meta = VolumeMeta((255, 255, 255))
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(13),
+                          device=cuda_device)
+    fields, launches = {}, {}
+    for graphs in (True, False):
+        before = ih.launches
+        fields[graphs] = rec.field_on_device(model, meta, device=cuda_device, graphs=graphs)
+        torch.cuda.synchronize()
+        launches[graphs] = ih.launches - before
+    assert launches == {True: 64, False: 64}
+    assert torch.equal(fields[True], fields[False])
+    assert float(fields[True].abs().max()) <= 1.0
+
+
+def test_a_loaded_checkpoint_evaluates_through_the_inference_head(cuda_device):
+    """A checkpoint's weights load as transposed views (``params_from_jax``);
+    its graphed evaluation launches the head once a chunk and gives the
+    freshly made model's field to the head's tolerance."""
+    from latent_feature_grid_compression_tpu_torch.convert import (params_from_jax,
+                                                                   params_to_jax)
+    from latent_feature_grid_compression_tpu_torch.ops import inference_head as ih
+    meta = VolumeMeta((128, 128, 128))
+    model = fg.init_model(fg.make_spec(**FLAGSHIP), torch.Generator().manual_seed(17),
+                          device=cuda_device)
+    coeffs, mlp_w, mlp_b, _ = params_to_jax(model)
+    loaded = params_from_jax(coeffs, mlp_w, mlp_b, model.spec, device=cuda_device)
+    assert not all(w.is_contiguous() for w in loaded.mlp_w)
+    want = rec.field_on_device(model, meta, device=cuda_device, graphs=False)
+    before = ih.launches
+    got = rec.field_on_device(loaded, meta, device=cuda_device, graphs=True)
+    torch.cuda.synchronize()
+    assert ih.launches - before == 8
+    assert float((got - want).abs().max()) <= HEAD_TOL
+
+
+def test_graphed_training_steps_launch_no_inference_head(cuda_device):
+    from latent_feature_grid_compression_tpu_torch.ops import inference_head as ih
+    tr, ph, model, vol = _train_setup(cuda_device)
+    st = tr.init_train_state(model, 0.008, 0.008, train_gates=True)
+    before, fetches = ih.launches, gs.launches
+    tr.solve_phase(ph, st, vol, 16, generator=torch.Generator(device=cuda_device)
+                   .manual_seed(0), verbose=False, metric_cb=lambda x: None, graphs=True)
+    torch.cuda.synchronize()
+    assert st.step > 0 and gs.launches - fetches >= st.step
+    assert ih.launches == before
+
+
+def test_decompress_trace_reads_the_head_roofline(cuda_device):
+    """A traced run of the benchmark's smallify-decompress cell reports
+    ``head_roofline.decompress`` in (0, 100] %."""
+    import json
+    import time
+    from portbench import run as R
+    from portbench import spec as S
+    result, _ = R.run_cell(S.load_cell('smallify-decompress'), 2 ** 33 + 7, 3.0, True,
+                           cuda_device, time.perf_counter())
+    print(json.dumps(result['metrics']))
+    assert result['correct'], result['checks']
+    assert 0.0 < result['metrics']['head_roofline.decompress']['value'] <= 100.0
+
+
+@pytest.mark.parametrize('layers', [1, 12, 15])
+@pytest.mark.parametrize('C', [16, 22])
+def test_inference_head_kernel_at_other_layer_counts(cuda_device, C, layers):
+    """One hidden layer (no layer loop), and 12 and 15 (the most: the
+    weights take more than 48 KB of shared memory)."""
+    from latent_feature_grid_compression_tpu_torch.ops import inference_head as ih
+    gen = torch.Generator().manual_seed(layers)
+    dims = [15 + C] + [32] * layers + [1]
+    ws = [((torch.rand((b, a), generator=gen) * 2 - 1) / a ** 0.5).to(cuda_device)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [((torch.rand((b,), generator=gen) * 2 - 1) / a ** 0.5).to(cuda_device)
+          for a, b in zip(dims[:-1], dims[1:])]
+    coords = (torch.rand((40_000, 3), generator=gen) * 2 - 1).to(cuda_device)
+    feats = torch.randn((40_000, C), generator=gen).to(cuda_device)
+    out = ih.inference_head_cuda(coords, feats, ws, bs)
+    ref = ih.inference_head_plain(coords, feats, ws, bs, 2)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= HEAD_TOL
+    assert ih.plan(C, layers, 40_000)['smem_bytes'] == 4 * (
+        32 * (15 + C) + 32 + (layers - 1) * (32 * 32 + 32) + 32 + 4)

@@ -12,6 +12,7 @@ import pytest
 from latent_feature_grid_compression_tpu_torch.ops import _build
 from latent_feature_grid_compression_tpu_torch.ops import fused_forward as ff
 from latent_feature_grid_compression_tpu_torch.ops import grid_sample as gs
+from latent_feature_grid_compression_tpu_torch.ops import inference_head as ih
 from latent_feature_grid_compression_tpu_torch.ops import mlp_fused as mf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -374,7 +375,9 @@ def test_occupancy_query_lives_in_one_header():
     (ff, 'lfgc_fused_forward_bwd', ff.BWD_ARGTYPES),
     (ff, 'lfgc_fused_forward_bwd_slots', ff.SLOTS_ARGTYPES),
     (ff, 'lfgc_fused_forward_bwd_plan', mf.PLAN_ARGTYPES),
-    (ff, 'lfgc_fused_forward_fwd_plan', mf.PLAN_ARGTYPES)])
+    (ff, 'lfgc_fused_forward_fwd_plan', mf.PLAN_ARGTYPES),
+    (ih, 'lfgc_inference_head', ih.ARGTYPES),
+    (ih, 'lfgc_inference_head_plan', ih.PLAN_ARGTYPES)])
 def test_mlp_kernel_entries_match_wrapper_signatures(mod, entry, argtypes):
     _check_entry(mod.KERNEL, entry, argtypes)
 
